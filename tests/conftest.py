@@ -7,6 +7,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card (and triton); skips elsewhere")
+
+
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
