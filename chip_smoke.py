@@ -2,28 +2,42 @@
 
     python3 chip_smoke.py
 
-Needs a CUDA card and the ``triton`` package; exits non-zero at once when
-``torch.cuda.is_available()`` is false. Imports nothing of JAX or ``repro``.
-Phases, each raising on a failed gate:
+Needs a CUDA card, the ``triton`` package and ``nvcc``; exits non-zero at
+once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
+``repro``. Phases, each raising on a failed gate:
 
   1. device — the ``nvidia-smi`` name and power-limit line;
-  2. kernels — builds the four Triton kernels of the slice (the compile
-     cache goes to ``build/triton``) and holds each against its plain
-     PyTorch version on the card: at the main path's shape (B=16, K=64,
-     F=3072, f32), at a ragged masked shape through the op wrappers, and in
-     bf16 for the two interpolation kernels; times the kernel, its plain
-     version and one PyTorch library call of the same function, each with
-     a cold L2, beside the bound the card's bandwidth sets;
-  3. the slice — the paper CNN at ``CnnConfig()`` width with seeded random
-     weights answers 4 batches of 16 seeded images through
+  2. Triton kernels — builds the four Triton kernels (the compile cache
+     goes to ``build/triton``) while a thread builds the CUDA flash library
+     (``build/cuda``), and holds each Triton kernel against its plain
+     PyTorch version on the card: at the CNN path's shape (B=16, K=64,
+     F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
+     masked shape through the op wrappers, and in bf16; times the kernel,
+     its plain version and one PyTorch library call of the same function,
+     each with a cold L2, beside the bound the card's bandwidth sets;
+  3. flash kernels — the three CUDA kernels (forward, dQ, dK/dV) against
+     their plain versions and the op's autograd against the analytic
+     oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
+     D=64, f32) and at a causal GQA ragged shape (f32 and bf16); timed at
+     the ViT's shape beside the plain version, SDPA and the bound the
+     card's f32 rate sets;
+  4. the CNN slice — the paper CNN at ``CnnConfig()`` width with seeded
+     random weights answers 4 batches of 16 seeded images through
      ``Explainer(method="ig", schedule="paper", m=64, n_int=4)``: fixed-m
-     unfused, fixed-m fused and ``attribute_adaptive(tol=1e-2)``. Gates:
-     finite results, every kernel of each path launched, fused agrees with
-     unfused, resume is bit-identical to a fixed run over the refined
-     schedule, and the first batch agrees with the port run on CPU copies.
+     unfused, fixed-m fused and ``attribute_adaptive``;
+  5. the ViT slice — the same explainer with ``chunk=16`` on the full-width
+     ViT-S/16 (``attn_impl="flash"``, seeded random weights), 3 batches of
+     16 seeded 224×224 images: fixed-m unfused and fused, one adaptive run
+     (``m_max=256``), peak memory and one profiled explanation of each.
+
+Gates of both slices: finite results, every kernel of each path launched,
+fused agrees with unfused, resume is bit-identical to a fixed run over the
+refined schedule, and the card agrees with the port run on CPU copies (the
+CNN's first batch; two ViT images at m=16). The launch counts are reset
+before each slice and read after it.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
-kernel: launches on the slice, errors, ms, plain_ms, bound_ms, library_ms);
+kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -32,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -41,14 +56,24 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
-B, K, F = 16, 64, 3072  # the main path's stage-2 shape: 16 images, m=64, 32·32·3
+B, K, F = 16, 64, 3072  # the CNN path's stage-2 shape: 16 images, m=64, 32·32·3
+VIT_STAGE2 = (16, 16, 224 * 224 * 3)  # the ViT path's: 16 images, chunk=16 steps
+VIT_ATTN = (16 * 16, 196, 6, 6, 64)  # (B·chunk, S, NQ, NKV, D) of the ViT's attention
+LM_ATTN = (2, 333, 8, 2, 128)  # a causal GQA ragged shape at the LMs' head dim
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # the JAX flash tests' own
+VIT_BATCHES, VIT_CHUNK, VIT_M_MAX, VIT_CPU_M = 3, 16, 256, 16
 N_BATCHES, M, N_INT, TOL = 4, 64, 4, 1e-2
 TOL_LADDER = 0.0  # every row whose δ is not exactly 0 climbs the whole ladder
 TOL_F32 = 1e-6  # elementwise f32 kernels: FMA contraction is off, rounding matches
 TOL_SUM = 1e-5  # K-sums, relative to the largest |value|: another summation order
 TOL_BF16 = 2.0**-7  # one bf16 ulp for values in [1, 2)
-# the Triton kernels' names in a profiler trace
-PORT_KERNELS = ("_interp_kernel", "_accum_kernel", "_interp_add_kernel", "_accum_cot_kernel")
+# kernel groups of a profiler trace, by substrings of the kernels' names
+PROFILE_GROUPS = {
+    "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
+                            "_accum_cot_kernel"),
+    "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+    "GEMM (cuBLAS)": ("gemm", "Gemm"),
+}
 
 
 def _sync():
@@ -93,14 +118,13 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def kernel_phase() -> list[dict]:
-    """Each kernel vs its plain version on the card; returns one record each."""
-    from repro_torch.core import methods, paths
-    from repro_torch.kernels.ig_accum import kernel as k_acc, ops as o_acc, ref as r_acc
-    from repro_torch.kernels.interp_accum import kernel as k_ia, ops as o_ia, ref as r_ia
-    from repro_torch.kernels.interpolate import kernel as k_int, ops as o_int, ref as r_int
+def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
+    """The four Triton kernels, each with its plain version and library call,
+    on seeded inputs of the stage-2 shape (B, K, F) f32."""
+    from repro_torch.kernels.ig_accum import kernel as k_acc, ref as r_acc
+    from repro_torch.kernels.interp_accum import kernel as k_ia, ref as r_ia
+    from repro_torch.kernels.interpolate import kernel as k_int, ref as r_int
 
-    g = torch.Generator(device=DEV).manual_seed(0)
     rnd = lambda *s: torch.rand(s, generator=g, device=DEV)
     x, b = rnd(B, F), rnd(B, F)  # images in [0, 1), like the slice's
     a = rnd(B, K)
@@ -109,8 +133,7 @@ def kernel_phase() -> list[dict]:
     grads = torch.randn(B, K, F, generator=g, device=DEV)
     carry = torch.randn(B, F, generator=g, device=DEV) * 0.01
     es = 4  # f32 bytes
-
-    specs = [
+    return [
         dict(name="interpolate", source="src/repro_torch/kernels/interpolate/kernel.py",
              replaces="src/repro/kernels/interpolate/kernel.py:30",
              kernel=lambda: k_int.interpolate_triton(x, b, a),
@@ -136,22 +159,52 @@ def kernel_phase() -> list[dict]:
              library=lambda: grads.sum(1),
              tol=None, nbytes=es * (B * K * F + B * F), flops=B * K * F),
     ]
-    print(f"kernels at the main path's shape B={B} K={K} F={F} f32:")
-    records = []
-    for s in specs:
-        got, want = s["kernel"](), s["plain"]()
-        _sync()
-        err = _err(got, want)
-        tol = s["tol"] if s["tol"] is not None else TOL_SUM * float(want.abs().max())
-        _check(s["name"], err, tol)
-        bound_ms, bound_by = _bound(s["nbytes"], s["flops"])
-        records.append({
-            "name": s["name"], "route": "triton", "source": s["source"], "replaces": s["replaces"],
-            "launches": 0, "max_abs_err": err, "tolerance": tol,
-            "ms": _cold_ms(s["kernel"]), "plain_ms": _cold_ms(s["plain"]),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None if s["library"] is None else _cold_ms(s["library"]),
-        })
+
+
+def _record(s: dict, route: str, err: float, tol: float) -> dict:
+    """Time one kernel spec, its plain version and its library call, beside
+    its bound; the kernel's record for the kernels line."""
+    bound_ms, bound_by = _bound(s["nbytes"], s["flops"])
+    return {
+        "name": s["name"], "route": route, "source": s["source"], "replaces": s["replaces"],
+        "launches": 0, "max_abs_err": err, "tolerance": tol,
+        "ms": _cold_ms(s["kernel"]), "plain_ms": _cold_ms(s["plain"]),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if s["library"] is None else _cold_ms(s["library"]),
+    }
+
+
+def _measure(s: dict) -> dict:
+    """Check one Triton kernel spec against its plain version, then time it."""
+    got, want = s["kernel"](), s["plain"]()
+    _sync()
+    err = _err(got, want)
+    tol = s["tol"] if s["tol"] is not None else TOL_SUM * float(want.abs().max())
+    _check(s["name"], err, tol)
+    return _record(s, "triton", err, tol)
+
+
+def kernel_phase() -> list[dict]:
+    """Each Triton kernel vs its plain version on the card; one record each,
+    timed at the CNN's stage-2 shape and again at the ViT's."""
+    from repro_torch.core import methods, paths
+    from repro_torch.kernels.ig_accum import ops as o_acc
+    from repro_torch.kernels.interp_accum import kernel as k_ia, ops as o_ia, ref as r_ia
+    from repro_torch.kernels.interpolate import kernel as k_int, ops as o_int, ref as r_int
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    rnd = lambda *s: torch.rand(s, generator=g, device=DEV)
+    print(f"kernels at the CNN path's shape B={B} K={K} F={F} f32:")
+    records = [_measure(s) for s in _triton_specs(g, B, K, F)]
+    Bv, Kv, Fv = VIT_STAGE2
+    print(f"kernels at the ViT path's shape B={Bv} K={Kv} F={Fv} f32:")
+    for rec, s in zip(records, _triton_specs(g, Bv, Kv, Fv)):
+        vit = _measure(s)
+        rec["at_vit_shape"] = {k: vit[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "library_ms")}
+    x, b, a = rnd(B, F), rnd(B, F), rnd(B, K)
+    carry = torch.randn(B, F, generator=g, device=DEV) * 0.01
+    grads = torch.randn(B, K, F, generator=g, device=DEV)
 
     print("kernels at a ragged shape (B=5, K=37, F=3·31·29, masked) through the op wrappers:")
     Bm, Km, feat = 5, 37, (31, 29, 3)
@@ -188,6 +241,125 @@ def kernel_phase() -> list[dict]:
     return records
 
 
+def _flash_inputs(g, Bq, S, NQ, NKV, D, dtype, ragged):
+    """q, k, v, dO in the model's (B, S, H, D) layout, seen through the
+    transposed (B, H, S, D) views the op hands the kernels, and kvlen."""
+    rnd = lambda *s: torch.randn(s, generator=g, device=DEV).to(dtype).transpose(1, 2)
+    q, k, v, do = rnd(Bq, S, NQ, D), rnd(Bq, S, NKV, D), rnd(Bq, S, NKV, D), rnd(Bq, S, NQ, D)
+    if ragged:
+        kvlen = torch.randint(1, S + 1, (Bq,), generator=g, device=DEV, dtype=torch.int32)
+    else:
+        kvlen = torch.full((Bq,), S, dtype=torch.int32, device=DEV)
+    return q, k, v, do, kvlen
+
+
+def _flash_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """|got − want| ≤ tol·(1 + |want|) elementwise (the JAX tests' allclose
+    with rtol = atol = tol); returns the largest absolute error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    diff = (got.detach().float() - want.float()).abs()
+    ratio = float((diff / (tol * (1 + want.float().abs()))).max()) if diff.numel() else 0.0
+    err = float(diff.max()) if diff.numel() else 0.0
+    print(f"  {name}: max_abs_err={err:.3g} worst err/allowed={ratio:.3g} (tol {tol:g})")
+    if not ratio <= 1:
+        raise AssertionError(f"{name}: error {err} above tolerance {tol}")
+    return err
+
+
+def _flash_check(g, Bq, S, NQ, NKV, D, dtype, causal, ragged) -> dict:
+    """Each flash kernel against its plain version on the same inputs, then
+    the op's forward and autograd against the analytic oracle; returns the
+    largest error of each kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    tol = FLASH_TOL[dtype]
+    q, k, v, do, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, dtype, ragged)
+    print(f"flash kernels at B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} {dtype} causal={causal} "
+          f"ragged={ragged}:")
+    o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, kvlen)
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=causal)
+    dq = fk.flash_bwd_dq_cuda(*args, causal=causal)
+    dk, dv = fk.flash_bwd_dkv_cuda(*args, causal=causal)
+    dk_ref, dv_ref = fr.flash_bwd_dkv_ref(*args, causal=causal)
+    _sync()
+    errs = {
+        "flash_fwd": max(_flash_close("flash_fwd o", o, o_ref, tol),
+                         _flash_close("flash_fwd lse", lse, lse_ref, tol)),
+        "flash_bwd_dq": _flash_close("flash_bwd_dq", dq, fr.flash_bwd_dq_ref(*args, causal=causal),
+                                     tol),
+        "flash_bwd_dkv": max(_flash_close("flash_bwd_dkv dk", dk, dk_ref, tol),
+                             _flash_close("flash_bwd_dkv dv", dv, dv_ref, tol)),
+    }
+    # the op, model layout in and out, through autograd
+    t = lambda x: x.transpose(1, 2)
+    leaves = [t(x).detach().clone().requires_grad_() for x in (q, k, v)]
+    lengths = kvlen if ragged else None
+    out = flash_attention(*leaves, causal=causal, lengths=lengths)
+    grads = torch.autograd.grad(out, leaves, t(do))
+    _flash_close("op forward", out, t(fr.attention_ref(q, k, v, causal=causal, lengths=lengths)), tol)
+    want = fr.attention_vjp_ref(q, k, v, do, causal=causal, lengths=lengths)
+    for name, got, w in zip(("op dq", "op dk", "op dv"), grads, want):
+        _flash_close(name, got, t(w), tol)
+    return errs
+
+
+def flash_kernel_phase() -> list[dict]:
+    """The three CUDA flash kernels against their plain versions at the ViT
+    slice's attention shape and at a causal GQA ragged shape (f32, bf16);
+    timed at the ViT's shape beside their plain versions, SDPA and the
+    bound. One record each."""
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    g = torch.Generator(device=DEV).manual_seed(2)
+    errs = _flash_check(g, *VIT_ATTN, torch.float32, False, False)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, e in _flash_check(g, *LM_ATTN, dtype, True, True).items():
+            if dtype == torch.float32:
+                errs[name] = max(errs[name], e)
+
+    Bq, S, NQ, NKV, D = VIT_ATTN
+    q, k, v, do, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, torch.float32, False)
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=False)
+    delta = (do * o).sum(-1)
+    args = (q, k, v, do, lse, delta, kvlen)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_sdpa = tnf.scaled_dot_product_attention(*leaves)
+    sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
+    qkv_bytes, row_bytes = 4 * Bq * S * D * (NQ + 2 * NKV), 4 * Bq * NQ * S
+    q_bytes, kv_bytes = 4 * Bq * NQ * S * D, 4 * Bq * NKV * S * D
+    work = Bq * NQ * S * S * D
+    src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+    replaces = "src/repro/kernels/flash_attention/kernel.py:"
+    specs = [
+        dict(name="flash_fwd", replaces=replaces + "99",
+             kernel=lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=False),
+             plain=lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=False),
+             library=lambda: tnf.scaled_dot_product_attention(q, k, v),
+             nbytes=qkv_bytes + q_bytes + row_bytes, flops=4 * work),
+        dict(name="flash_bwd_dq", replaces=replaces + "212",
+             kernel=lambda: fk.flash_bwd_dq_cuda(*args, causal=False),
+             plain=lambda: fr.flash_bwd_dq_ref(*args, causal=False), library=sdpa_bwd,
+             nbytes=qkv_bytes + 2 * q_bytes + 2 * row_bytes, flops=6 * work),
+        dict(name="flash_bwd_dkv", replaces=replaces + "299",
+             kernel=lambda: fk.flash_bwd_dkv_cuda(*args, causal=False),
+             plain=lambda: fr.flash_bwd_dkv_ref(*args, causal=False), library=sdpa_bwd,
+             nbytes=qkv_bytes + q_bytes + 2 * row_bytes + 2 * kv_bytes, flops=8 * work),
+    ]
+    records = []
+    for s in specs:
+        r = _record(dict(s, source=src), "cuda", errs[s["name"]], FLASH_TOL[torch.float32])
+        records.append(r)
+        print(f"  {s['name']} at the ViT shape: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return records
+
+
 def _delta_tol(res) -> torch.Tensor:
     """δ agreement allowed between two runs of one explanation: 1e-6 plus
     1e-4 of |f(x) − f(x′)|, for f32 sums taken in another order."""
@@ -207,8 +379,9 @@ def _attr_close(name, got, want, rows=None) -> None:
 
 
 def _profile(name: str, fn) -> None:
-    """Print the card's busy share of one call of ``fn`` and its top kernels
-    by device time (torch.profiler); "not measured" if the trace has none."""
+    """Print the card's busy share of one call of ``fn``, the device time of
+    each group of kernels in ``PROFILE_GROUPS`` and the top kernels by device
+    time (torch.profiler); "not measured" if the trace has none."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync()
@@ -223,16 +396,39 @@ def _profile(name: str, fn) -> None:
     if not busy:
         print(f"  profile {name}: device time not measured")
         return
-    ours = sum(v for k, v in kernels.items() if k in PORT_KERNELS)
+    groups = {g: sum(v for k, v in kernels.items() if any(n in k for n in names))
+              for g, names in PROFILE_GROUPS.items()}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     print(f"  profile {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
-          f"({busy / wall_us:.3f}), the port's kernels {ours / 1e3:.3f} ms, "
-          f"{len(kernels)} kernel names; top: "
-          + "; ".join(f"{k[:48]} {v / 1e3:.3f} ms" for k, v in top))
+          f"({busy / wall_us:.3f}), "
+          + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / busy:.3f} of busy)" for g, v in groups.items())
+          + f", {len(kernels)} kernel names; top: "
+          + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
 
 def _launched(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
+
+
+def _timed(fn):
+    """(fn(), wall ms of the synchronised call, launches per kernel in it)."""
+    from repro_torch.kernels import common
+
+    _sync()
+    t0 = time.perf_counter()
+    before = dict(common.LAUNCHES)
+    out = fn()
+    _sync()
+    return out, (time.perf_counter() - t0) * 1e3, _launched(before, common.LAUNCHES)
+
+
+def _need(paths_launched: dict, path: str, launched: dict, names) -> None:
+    """Record a path's first launches; raise unless exactly ``names`` ran."""
+    paths_launched.setdefault(path, launched)
+    missing = [n for n in names if launched[n] == 0]
+    extra = [n for n in launched if n not in names and launched[n]]
+    if missing or extra:
+        raise AssertionError(f"{path}: kernels not launched {missing}, unexpected {extra}")
 
 
 def _near_tie_rows(vals: torch.Tensor, m: int) -> torch.Tensor:
@@ -273,21 +469,6 @@ def slice_phase() -> dict:
     s = cfg.image_size
     paths_launched = {}
 
-    def timed(fn):
-        _sync()
-        t0 = time.perf_counter()
-        before = dict(common.LAUNCHES)
-        out = fn()
-        _sync()
-        return out, (time.perf_counter() - t0) * 1e3, _launched(before, common.LAUNCHES)
-
-    def need(path, launched, names):
-        paths_launched.setdefault(path, launched)
-        missing = [n for n in names if launched[n] == 0]
-        extra = [n for n in launched if n not in names and launched[n]]
-        if missing or extra:
-            raise AssertionError(f"{path}: kernels not launched {missing}, unexpected {extra}")
-
     common.reset_launches()  # the slice's own count starts here
     for i in range(N_BATCHES):
         x_cpu = torch.rand((B, s, s, cfg.channels), generator=gen)
@@ -295,20 +476,20 @@ def slice_phase() -> dict:
         x, t = x_cpu.to(DEV), t_cpu.to(DEV)
         bl = torch.zeros_like(x)
 
-        _, probe_ms, _ = timed(lambda: ex.build_schedule(x, bl, t))
-        res_u, ms_u, l_u = timed(lambda: ex.attribute(x, bl, t))
-        need("fixed-m unfused", l_u, ("interpolate", "ig_accum"))
-        res_f, ms_f, l_f = timed(lambda: ex_fused.attribute(x, bl, t))
-        need("fixed-m fused", l_f, ("interp_add", "accum_cot"))
-        (res_a, info), ms_a, l_a = timed(lambda: ex.attribute_adaptive(x, bl, t, tol=TOL))
-        need("adaptive", l_a, ("interpolate", "ig_accum"))
+        _, probe_ms, _ = _timed(lambda: ex.build_schedule(x, bl, t))
+        res_u, ms_u, l_u = _timed(lambda: ex.attribute(x, bl, t))
+        _need(paths_launched, "fixed-m unfused", l_u, ("interpolate", "ig_accum"))
+        res_f, ms_f, l_f = _timed(lambda: ex_fused.attribute(x, bl, t))
+        _need(paths_launched, "fixed-m fused", l_f, ("interp_add", "accum_cot"))
+        (res_a, info), ms_a, l_a = _timed(lambda: ex.attribute_adaptive(x, bl, t, tol=TOL))
+        _need(paths_launched, "adaptive", l_a, ("interpolate", "ig_accum"))
         # a zero tolerance sends rows up the whole ladder, so the hop path
         # (row gathers, refinement, resume) runs on the card too
-        (res_e, info_e), ms_e, l_e = timed(lambda: ex.attribute_adaptive(x, bl, t, tol=TOL_LADDER))
-        need("adaptive, escalating", l_e, ("interpolate", "ig_accum"))
+        (res_e, info_e), ms_e, l_e = _timed(lambda: ex.attribute_adaptive(x, bl, t, tol=TOL_LADDER))
+        _need(paths_launched, "adaptive, escalating", l_e, ("interpolate", "ig_accum"))
         if not (info_e["hops"] > 0).any():
             raise AssertionError(f"batch {i}: tol={TOL_LADDER} ran no hop")
-        res_uni, _, _ = timed(lambda: ex_uniform.attribute(x, bl, t))
+        res_uni, _, _ = _timed(lambda: ex_uniform.attribute(x, bl, t))
         for name, res in (("unfused", res_u), ("fused", res_f), ("adaptive", res_a),
                           ("adaptive, escalating", res_e)):
             if not all(bool(torch.isfinite(v).all()) for v in res):
@@ -325,8 +506,8 @@ def slice_phase() -> dict:
             _, st, sched = e.start(x, bl, t)
             refined = schedule.refine_nested(sched)
             new = schedule.Schedule(refined.alphas[:, M:], refined.weights[:, M:])
-            (res1, _), _, l_hop = timed(lambda: e.resume(x, bl, t, new, st))
-            need("adaptive hop" + (" fused" if e.fused else ""), l_hop,
+            (res1, _), _, l_hop = _timed(lambda: e.resume(x, bl, t, new, st))
+            _need(paths_launched, "adaptive hop" + (" fused" if e.fused else ""), l_hop,
                  ("interp_add", "accum_cot") if e.fused else ("interpolate", "ig_accum"))
             fixed = ig.attribute(model.prob, x, bl, refined, t, chunk=e.adaptive_chunk, **e.ig_kwargs())
             if not (torch.equal(res1.attributions, fixed.attributions) and torch.equal(res1.delta, fixed.delta)):
@@ -369,6 +550,110 @@ def slice_phase() -> dict:
     return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
 
 
+def _tree_to(tree: dict, device: str) -> dict:
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def vit_phase() -> dict:
+    """The paper's explainer on the full-width ViT-S/16 through the flash
+    kernels, ``VIT_BATCHES`` batches of 16, with gates."""
+    from repro_torch.configs.vit import VitConfig
+    from repro_torch.core import ig, probes, schedule
+    from repro_torch.core.api import Explainer
+    from repro_torch.kernels import common
+    from repro_torch.models import vit
+
+    cfg = replace(VitConfig(), attn_impl="flash")
+    params = vit.init_params(cfg, torch.Generator().manual_seed(0), device=DEV)
+    params_cpu = _tree_to(params, "cpu")
+    f = lambda xs, t: vit.prob_fn(cfg, params, xs, t)
+    ex = Explainer(f, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=VIT_CHUNK, device=DEV)
+    ex_fused = replace(ex, fused=True)
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    unfused, fused = ("interpolate", "ig_accum") + flash, ("interp_add", "accum_cot") + flash
+    gen = torch.Generator().manual_seed(1)
+    s = cfg.image_size
+    paths_launched = {}
+    print(f"ViT slice: {cfg.name}, {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_patches} patches, attn_impl={cfg.attn_impl}; m={M}, n_int={N_INT}, "
+          f"chunk={VIT_CHUNK}, batches of {B}")
+
+    common.reset_launches()  # the slice's own count starts here
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(VIT_BATCHES):
+        x_cpu = torch.rand((B, s, s, cfg.channels), generator=gen)
+        t_cpu = torch.randint(0, cfg.num_classes, (B,), generator=gen)
+        x, t = x_cpu.to(DEV), t_cpu.to(DEV)
+        bl = torch.zeros_like(x)
+
+        _, probe_ms, l_p = _timed(lambda: ex.build_schedule(x, bl, t))
+        _need(paths_launched, "vit probe", l_p, ("flash_fwd",))
+        res_u, ms_u, l_u = _timed(lambda: ex.attribute(x, bl, t))
+        _need(paths_launched, "vit fixed-m unfused", l_u, unfused)
+        res_f, ms_f, l_f = _timed(lambda: ex_fused.attribute(x, bl, t))
+        _need(paths_launched, "vit fixed-m fused", l_f, fused)
+        for name, res in (("unfused", res_u), ("fused", res_f)):
+            if not all(bool(torch.isfinite(v).all()) for v in res):
+                raise AssertionError(f"vit batch {i} {name}: non-finite result")
+            if res.attributions.shape != x.shape:
+                raise AssertionError(f"vit batch {i} {name}: shape {tuple(res.attributions.shape)}")
+        print(f"vit batch {i}:")
+        _attr_close("fused vs unfused", res_f.attributions, res_u.attributions)
+        if not bool(((res_f.delta - res_u.delta).abs() <= _delta_tol(res_u)).all()):
+            raise AssertionError(f"vit batch {i}: fused δ disagrees with unfused")
+        print(f"  wall ms: probe {probe_ms:.2f}, unfused {ms_u:.2f}, fused {ms_f:.2f}; probe share "
+              f"of unfused {probe_ms / ms_u:.3f}; mean δ {float(res_u.delta.mean()):.3g}, "
+              f"mean |f(x) − f(x′)| {float((res_u.f_x - res_u.f_baseline).abs().mean()):.3g}")
+        if i == 0:
+            print(f"  peak device memory (probe, unfused, fused): "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            (res_a, info), ms_a, l_a = _timed(
+                lambda: ex.attribute_adaptive(x, bl, t, tol=TOL, m_max=VIT_M_MAX))
+            _need(paths_launched, "vit adaptive", l_a, unfused)
+            if not all(bool(torch.isfinite(v).all()) for v in res_a):
+                raise AssertionError("vit adaptive: non-finite result")
+            print(f"  adaptive (tol={TOL}, m_max={VIT_M_MAX}): {ms_a:.2f} ms, m_used "
+                  f"{info['m_used'].tolist()}, steps {info['total_steps']}")
+            for e in (ex, ex_fused):  # one ladder hop == one fixed run over the refined schedule
+                _, st, sched = e.start(x, bl, t)
+                refined = schedule.refine_nested(sched)
+                new = schedule.Schedule(refined.alphas[:, M:], refined.weights[:, M:])
+                (res1, _), _, l_hop = _timed(lambda: e.resume(x, bl, t, new, st))
+                _need(paths_launched, "vit adaptive hop" + (" fused" if e.fused else ""), l_hop,
+                      fused if e.fused else unfused)
+                fixed = ig.attribute(f, x, bl, refined, t, chunk=e.adaptive_chunk, **e.ig_kwargs())
+                if not (torch.equal(res1.attributions, fixed.attributions)
+                        and torch.equal(res1.delta, fixed.delta)):
+                    raise AssertionError(f"vit: resume (fused={e.fused}) not bit-identical")
+            print("  resume bit-identical to the fixed run over the refined schedule (unfused, fused)")
+
+            # the card against the port on CPU copies: 2 images at m=16
+            x2, t2, b2 = x[:2], t[:2], bl[:2]
+            ex2 = replace(ex, m=VIT_CPU_M)
+            ex2_cpu = replace(ex2, f=lambda xs, tt: vit.prob_fn(cfg, params_cpu, xs, tt), device="cpu")
+            vals = probes.run_probe("boundary", f, x2, b2, t2, n_int=N_INT).vals.cpu()
+            vals_cpu = probes.run_probe("boundary", ex2_cpu.f, x2.cpu(), b2.cpu(), t2.cpu(),
+                                        n_int=N_INT).vals
+            norm = lambda v: schedule.allocate_steps(schedule.normalized_deltas(v), VIT_CPU_M)
+            tied = _near_tie_rows(vals_cpu, VIT_CPU_M) | _near_tie_rows(vals, VIT_CPU_M)
+            if not bool(((norm(vals) == norm(vals_cpu)).all(-1) | tied).all()):
+                raise AssertionError("vit: card and CPU allocate steps differently off a tie")
+            res_g = ex2.attribute(x2, b2, t2)
+            t0 = time.perf_counter()
+            res_c = ex2_cpu.attribute(x2.cpu(), b2.cpu(), t2.cpu())
+            print(f"  card vs CPU (2 images, m={VIT_CPU_M}; CPU run {time.perf_counter() - t0:.1f} s), "
+                  f"near-tie rows {torch.nonzero(tied).flatten().tolist()}")
+            _attr_close("card vs CPU attributions", res_g.attributions.cpu(), res_c.attributions, ~tied)
+            dd = (res_g.delta.cpu() - res_c.delta).abs()
+            if not bool(((dd <= _delta_tol(res_c)) | tied).all()):
+                raise AssertionError(f"vit card vs CPU δ: {dd.tolist()}")
+        if i == 1:  # warm: where one explanation's time goes
+            _profile("vit unfused", lambda: ex.attribute(x, bl, t))
+            _profile("vit fused", lambda: ex_fused.attribute(x, bl, t))
+    print(f"  peak device memory over the ViT slice: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -390,17 +675,31 @@ def main() -> int:
     triton, _ = common.import_triton()  # sets the compile cache first
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}")
 
+    from repro_torch.kernels.flash_attention import kernel as fk
+
     t0 = time.perf_counter()
-    records = kernel_phase()
-    print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton builds included)")
+    with ThreadPoolExecutor(1) as pool:  # nvcc runs while Triton compiles
+        build = pool.submit(lambda: (fk.load_library(), time.perf_counter() - t0)[1])
+        records = kernel_phase()
+        build_s = build.result()
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton builds included); CUDA library "
+          f"built in {build_s:.1f} s beside it")
     t0 = time.perf_counter()
-    out = slice_phase()
-    print(f"slice phase: {time.perf_counter() - t0:.1f} s")
-    print("launches per path (one call each):", json.dumps(out["per_path"]))
+    records += flash_kernel_phase()
+    print(f"flash kernel phase: {time.perf_counter() - t0:.1f} s")
+    slices = {}
+    for name, phase in (("cnn", slice_phase), ("vit", vit_phase)):
+        t0 = time.perf_counter()
+        slices[name] = phase()
+        print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
+        print(f"{name} launches per path (one call each):", json.dumps(slices[name]["per_path"]))
     for r in records:
-        r["launches"] = out["launches"][r["name"]]
-        if r["launches"] == 0:
-            raise AssertionError(f"kernel {r['name']} never launched on the slice")
+        r["launches_by_slice"] = {n: out["launches"][r["name"]] for n, out in slices.items()}
+        r["launches"] = sum(r["launches_by_slice"].values())
+        # the Triton kernels run on both slices' paths, the flash kernels on the ViT's
+        if any(n == 0 for s, n in r["launches_by_slice"].items()
+               if s == "vit" or r["route"] == "triton"):
+            raise AssertionError(f"kernel {r['name']} not launched on a slice: {r['launches_by_slice']}")
     print(json.dumps({"kernels": records}))
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

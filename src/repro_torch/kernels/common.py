@@ -1,33 +1,55 @@
-"""Shared kernel-op plumbing: dispatch by the tensors' device, lazy Triton.
+"""Shared kernel-op plumbing: dispatch by the tensors' device, lazy builds.
 
 ``repro.kernels.common.default_interpret`` chose between a compiled and an
 interpreted Pallas kernel from the backend. Here the choice follows the
 tensors themselves: CPU tensors take a kernel's plain PyTorch version, CUDA
-tensors launch the Triton kernel, and a CUDA launch never falls back — a
-missing ``triton`` or a failed launch raises.
+tensors launch the kernel (Triton or CUDA C++), and a CUDA launch never
+falls back — a missing ``triton`` or ``nvcc``, a failed build or a failed
+launch raises.
 
-Triton is imported only inside the launching functions (``import_triton``),
-so every module of the port imports on a machine without it. Its compile
-cache goes to ``build/triton`` at the repository root unless
-``TRITON_CACHE_DIR`` is already set.
+Both kinds of kernel are built at their first launch, never at import, so
+every module of the port imports on a machine without a card, ``triton`` or
+``nvcc``:
+
+- Triton is imported inside the launching functions (``import_triton``); its
+  compile cache goes to ``build/triton`` at the repository root unless
+  ``TRITON_CACHE_DIR`` is already set.
+- CUDA C++ sources under ``kernels/*/csrc/`` are compiled by ``load_cuda``
+  with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+  interface under ``build/cuda/``, named by a hash of the sources and flags,
+  and loaded with ``ctypes``. The wrappers launch on PyTorch's current
+  stream and raise on any CUDA error the launch reports.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
 import os
+import shutil
+import subprocess
 from pathlib import Path
 
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+KERNELS_DIR = Path(__file__).resolve().parent
+# -O3 without --use_fast_math: expf/logf must round as the plain versions' do
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "--shared",
+              "-Xcompiler", "-fPIC")
+NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's usual home
 FLOATS = (torch.float32, torch.bfloat16, torch.float16)  # what the kernels take
 
-# Kernel launches by kernel name. Each Triton wrapper adds one per launch and
+# Kernel launches by kernel name. Each kernel wrapper adds one per launch and
 # nothing else touches the counts, so a run can show which kernels it reached.
 LAUNCHES: dict[str, int] = {
     "interpolate": 0,
     "ig_accum": 0,
     "interp_add": 0,
     "accum_cot": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
 }
 
 
@@ -76,3 +98,45 @@ def check_flat(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple) -> torch
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the Triton kernel needs a CUDA tensor, got {t.device}")
     return t.contiguous()
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default directory. Raises ``RuntimeError`` when none exists."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (Path(home) / "bin" / "nvcc" if home else None, shutil.which("nvcc"), NVCC_DEFAULT):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("CUDA inputs need nvcc (CUDA_HOME, PATH or /usr/local/cuda/bin) "
+                       "to build the port's CUDA kernels")
+
+
+@functools.cache
+def load_cuda(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+    """Build (at first use) and load the shared library ``name`` from
+    ``sources``, paths relative to ``kernels/``.
+
+    The library lands in ``build/cuda/<name>-<hash>.so``, the hash taken over
+    the sources, the headers beside them and the flags, so an edited source
+    rebuilds and an unchanged one is loaded as it is. The build writes a
+    temporary file and renames it, so processes building at once never load
+    half a library. Raises ``RuntimeError`` with nvcc's output if it fails.
+    """
+    paths = [KERNELS_DIR / s for s in sources]
+    deps = sorted({h for p in paths for h in p.parent.glob("*.cuh")} | set(paths))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in deps:
+        digest.update(p.name.encode() + p.read_bytes())
+    out = BUILD_DIR / "cuda" / f"{name}-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        nvcc = find_nvcc()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -1,0 +1,217 @@
+"""ViT encoder — patch-level attributions on the attention hot path.
+
+The model of ``repro.models.vit``: a pre-norm transformer over patch
+embeddings (linear patch projection + learned position embedding, no CLS
+token, masked mean-pool head), built from the LM's blocks (rmsnorm, GQA
+qkv, SwiGLU mlp), so ``dispatch_attention`` — and with ``attn_impl="flash"``
+the CUDA flash kernels — serve it. Public functions take NHWC images.
+
+Parameters are a nested dict of tensors in ``repro``'s layout and names:
+``patch_proj`` (patch_dim, d), ``patch_bias``, ``pos_embed`` (num_patches,
+d), ``layers`` with every per-layer tensor stacked on a leading axis of
+``num_layers`` (``norm1``/``norm2`` ``scale``, ``mixer`` ``wq`` (L, d, H, hd)
+… ``wo`` (L, H, hd, d), ``ffn`` ``wi_gate``/``wi_up``/``wo``),
+``final_norm`` and ``head`` (``w`` (d, classes), ``b``). ``params_from_numpy``
+converts ``repro``'s ``vit.init`` tree as it is; ``init_params`` draws fresh
+weights on the card's machine with ``repro``'s fan-in rule.
+
+IG path note: the patch projection is affine, so a straight line in pixel
+space maps to a straight line in embedding space.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.vit import VitConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import mlp, rmsnorm
+
+class ParamSpec(NamedTuple):
+    """One tensor of ``repro``'s ``ParamDef`` tree: shape and init rule."""
+
+    shape: tuple
+    init: str = "normal"  # normal | zeros | ones
+    scale: Optional[float] = None  # normal's std; None: 1/√fan_in
+
+
+def param_specs(cfg: VitConfig) -> dict:
+    """``repro.models.vit.param_defs``: shapes, stacked layers included."""
+    d, L = cfg.d_model, cfg.num_layers
+    stack = lambda spec: spec._replace(shape=(L,) + spec.shape)
+    layer = {
+        "norm1": {"scale": ParamSpec((d,), "ones")},
+        "mixer": {n: ParamSpec(s) for n, s in attn.attn_shapes(cfg).items()},
+        "norm2": {"scale": ParamSpec((d,), "ones")},
+        "ffn": {"wi_gate": ParamSpec((d, cfg.d_ff)), "wi_up": ParamSpec((d, cfg.d_ff)),
+                "wo": ParamSpec((cfg.d_ff, d))},
+    }
+    return {
+        "patch_proj": ParamSpec((cfg.patch_dim, d)),
+        "patch_bias": ParamSpec((d,), "zeros"),
+        "pos_embed": ParamSpec((cfg.num_patches, d), scale=0.02),
+        "layers": {g: {n: stack(s) for n, s in grp.items()} for g, grp in layer.items()},
+        "final_norm": {"scale": ParamSpec((d,), "ones")},
+        "head": {"w": ParamSpec((d, cfg.num_classes)), "b": ParamSpec((cfg.num_classes,), "zeros")},
+    }
+
+
+def fan_in(shape: tuple) -> int:
+    """``repro.models.common._fan_in``: every axis but the last (the output
+    axis) of a ≥2-D weight — the stacked ``layers`` axis included."""
+    return math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+
+
+def _map(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def init_params(cfg: VitConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Fresh weights with ``repro.models.common``'s rule: normal with std
+    ``scale`` or 1/√fan_in, zeros and ones as declared, drawn from
+    ``generator`` in the tree's order (so the numbers differ from
+    ``repro``'s)."""
+    dt = getattr(torch, cfg.param_dtype)
+
+    def draw(_, spec: ParamSpec) -> torch.Tensor:
+        if spec.init != "normal":
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            return fill(spec.shape, dtype=dt, device=device)
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in(spec.shape), 1))
+        w = torch.randn(spec.shape, generator=generator, device=generator.device)
+        return (w * std).to(device=device, dtype=dt)
+
+    return _map(draw, param_specs(cfg))
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """``repro.models.vit`` parameters (nested dict of arrays) -> the same
+    tree of tensors on ``device``; layouts are shared, so nothing moves."""
+    return _map(lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+# ---------------------------------------------------------------- embedding
+
+
+def patchify(cfg: VitConfig, images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, num_patches, patch_dim) row-major patch features."""
+    B, H, W, C = images.shape
+    p = cfg.patch_size
+    x = images.reshape(B, H // p, p, W // p, p, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, (H // p) * (W // p), p * p * C)
+
+
+def embed_features(cfg: VitConfig, params: Any, feats: torch.Tensor) -> torch.Tensor:
+    """Patch features -> backbone embeddings (the IG interpolation space)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    e = feats.to(dt) @ params["patch_proj"].to(dt) + params["patch_bias"].to(dt)
+    S, pe = e.shape[1], params["pos_embed"].to(dt)
+    if S <= pe.shape[0]:
+        pe = pe[:S]
+    else:  # bucket padded past the patch grid: padded slots carry no posemb
+        pe = torch.cat([pe, pe.new_zeros((S - pe.shape[0], pe.shape[1]))])
+    return e + pe[None]
+
+
+# ------------------------------------------------------------------ backbone
+
+
+def encode(cfg: VitConfig, params: Any, e: torch.Tensor, *,
+           lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, S, d) embeddings -> (B, S, d) final-normed hidden states;
+    ``lengths`` (B,) valid patch counts mask the keys past them."""
+    dt = e.dtype
+    x = e
+    for i in range(cfg.num_layers):
+        lp = _map(lambda _, t: t[i], params["layers"])
+        h = rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        q, k, v = attn.qkv(lp["mixer"], h, dt)
+        o = attn.dispatch_attention(cfg, q, k, v, mixer="attn", causal=False, kv_len=lengths)
+        x = x + attn.out_proj(lp["mixer"], o, dt)
+        x = x + mlp(lp["ffn"], rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def pool_logits(cfg: VitConfig, params: Any, h: torch.Tensor, *,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked mean-pool over valid patches -> (B, num_classes) logits."""
+    if lengths is None:
+        pooled = h.mean(1)
+    else:
+        m = (torch.arange(h.shape[1], device=h.device)[None, :]
+             < lengths.reshape(-1, 1)).to(h.dtype)
+        pooled = (h * m[..., None]).sum(1) / m.sum(1, keepdim=True).clamp_min(1.0)
+    dt = h.dtype
+    return pooled @ params["head"]["w"].to(dt) + params["head"]["b"].to(dt)
+
+
+def forward(cfg: VitConfig, params: Any, images: torch.Tensor) -> torch.Tensor:
+    """images: (B, H, W, C) -> logits (B, num_classes)."""
+    e = embed_features(cfg, params, patchify(cfg, images))
+    return pool_logits(cfg, params, encode(cfg, params, e))
+
+
+def prob_fn(cfg: VitConfig, params: Any, images: torch.Tensor,
+            target: torch.Tensor) -> torch.Tensor:
+    """Target-class probability — the paper's IG output function f."""
+    p = torch.softmax(forward(cfg, params, images), dim=-1)
+    return torch.gather(p, 1, target[:, None].long())[:, 0]
+
+
+# ------------------------------------------------------------------- module
+
+
+class VitModel(nn.Module):
+    """The functions above as an ``nn.Module`` over a parameter tree (frozen:
+    explanations differentiate w.r.t. the input only). The stacked
+    per-layer tensors stay stacked, in ``repro``'s layout."""
+
+    def __init__(self, cfg: VitConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self._paths = []
+
+        def register(path, t):
+            self._paths.append(path)
+            self.register_parameter("__".join(path), nn.Parameter(t, requires_grad=False))
+
+        _map(register, params)
+
+    def tree(self) -> dict:
+        """The parameter tree, as the functions take it."""
+        tree: dict = {}
+        for path in self._paths:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = getattr(self, "__".join(path))
+        return tree
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        return forward(self.cfg, self.tree(), images)
+
+    def prob(self, images: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        return prob_fn(self.cfg, self.tree(), images, target)
+
+    def embed_features(self, feats: torch.Tensor) -> torch.Tensor:
+        return embed_features(self.cfg, self.tree(), feats)
+
+    def target_logprob_at_fn(self):
+        """f(embeds, aux) -> (B,) target-class log-prob; aux["pos"] is the
+        last valid patch index, so lengths = pos + 1 masks bucket padding."""
+        params = self.tree()
+
+        def f(e: torch.Tensor, aux: dict) -> torch.Tensor:
+            lengths = aux["pos"] + 1
+            h = encode(self.cfg, params, e, lengths=lengths)
+            lg = pool_logits(self.cfg, params, h, lengths=lengths).float()
+            rows = torch.arange(e.shape[0], device=e.device)
+            return torch.log_softmax(lg, dim=-1)[rows, aux["target"].long()]
+
+        return f

@@ -1,0 +1,122 @@
+"""The port's flash attention op against ``repro``'s, on the CPU.
+
+The JAX op runs its Pallas kernels in interpret mode, as
+``tests/test_attention.py`` runs them; the port's op takes its plain
+versions (``kernels/flash_attention/ref.py``) on CPU tensors. Inputs come
+from numpy with a fixed seed. Shapes are ``tests/test_attention.py``'s:
+odd sequence lengths, GQA and plain multi-head, causal or not, ragged or
+not. Tolerances: 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
+JAX tests' own: sums in another order, one bf16 rounding per output).
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ref as jref
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models import attention as tattn
+
+torch.set_num_threads(1)
+
+SHAPES = [(1, 17, 4, 2, 8), (2, 33, 6, 6, 4)]  # (B, S, NQ, NKV, D)
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _inputs(B, S, NQ, NKV, D, ragged, seed=0):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((B, S, NQ, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, NKV, D)).astype(np.float32) for _ in range(2))
+    # every row a different non-power-of-two prefix, as the JAX tests draw them
+    lens = np.array([max(1, (S * (b + 1)) // (B + 1)) for b in range(B)], np.int32)
+    return q, k, v, do, (lens if ragged else None)
+
+
+@functools.cache
+def _jax(B, S, NQ, NKV, D, causal, ragged, dtype):
+    """(o, dq, dk, dv) of the interpreted Pallas op, as f32 numpy."""
+    q, k, v, do, lens = _inputs(B, S, NQ, NKV, D, ragged)
+    jl = None if lens is None else jnp.asarray(lens)
+    cast = lambda a: jnp.asarray(a).astype(dtype)
+    fn = lambda q, k, v: j_flash(q, k, v, causal=causal, lengths=jl, block_q=8, block_k=8)
+    o, vjp = jax.vjp(fn, cast(q), cast(k), cast(v))
+    grads = vjp(cast(do))
+    return tuple(np.asarray(a, np.float32) for a in (o, *grads))
+
+
+def _port(B, S, NQ, NKV, D, causal, ragged, dtype):
+    q, k, v, do, lens = _inputs(B, S, NQ, NKV, D, ragged)
+    tdt = getattr(torch, dtype)
+    qt, kt, vt = (torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v))
+    o = flash_attention(qt, kt, vt, causal=causal,
+                        lengths=None if lens is None else torch.from_numpy(lens))
+    grads = torch.autograd.grad(o, (qt, kt, vt), torch.from_numpy(do).to(tdt))
+    return tuple(a.detach().float().numpy() for a in (o, *grads))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,NQ,NKV,D", SHAPES)
+def test_flash_op_matches_jax(B, S, NQ, NKV, D, causal, ragged):
+    want = _jax(B, S, NQ, NKV, D, causal, ragged, "float32")
+    got = _port(B, S, NQ, NKV, D, causal, ragged, "float32")
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, rtol=TOL["float32"], atol=TOL["float32"], err_msg=name)
+
+
+def test_flash_op_matches_jax_bf16():
+    """One GQA causal ragged case in bf16, as the JAX tests' dtype case."""
+    args = (2, 33, 4, 2, 8, True, True, "bfloat16")
+    for name, g, w in zip(("o", "dq", "dk", "dv"), _port(*args), _jax(*args)):
+        np.testing.assert_allclose(g, w, rtol=TOL["bfloat16"], atol=TOL["bfloat16"], err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,NQ,NKV,D", SHAPES + [(2, 9, 4, 1, 16)])
+def test_oracles_match_jax(B, S, NQ, NKV, D, causal):
+    """``attention_ref``/``attention_vjp_ref`` against JAX's, with a length-0
+    row (zeroed, not uniform); the kernels' own plain versions against them."""
+    q, k, v, do, lens = _inputs(B, S, NQ, NKV, D, True, seed=1)
+    lens[0] = 0
+    t = lambda a: np.ascontiguousarray(a.transpose(0, 2, 1, 3))  # model -> kernel layout
+    jargs = [jnp.asarray(t(a)) for a in (q, k, v, do)]
+    targs = [torch.from_numpy(t(a)) for a in (q, k, v, do)]
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    want_o = np.asarray(jref.attention_ref(*jargs[:3], causal=causal, lengths=jl))
+    want_g = jref.attention_vjp_ref(*jargs, causal=causal, lengths=jl)
+    got_o = tref.attention_ref(*targs[:3], causal=causal, lengths=tl)
+    got_g = tref.attention_vjp_ref(*targs, causal=causal, lengths=tl)
+    np.testing.assert_allclose(got_o.numpy(), want_o, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+    o, lse = tref.flash_fwd_ref(*targs[:3], tl, causal=causal)
+    torch.testing.assert_close(o, got_o, rtol=1e-5, atol=1e-5)
+    assert float(lse[0].max()) <= tref.NEG_INF  # the length-0 row
+    delta = (targs[3] * o).sum(-1)
+    dq = tref.flash_bwd_dq_ref(*targs, lse, delta, tl, causal=causal)
+    dk, dv = tref.flash_bwd_dkv_ref(*targs, lse, delta, tl, causal=causal)
+    for g, w in zip((dq, dk, dv), got_g):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+def test_full_attention_matches_jax(causal, ragged):
+    """The materializing model path (``attn_impl="auto"``), GQA expanded."""
+    q, k, v, _, lens = _inputs(2, 33, 6, 2, 8, ragged, seed=2)
+    jl = None if lens is None else jnp.asarray(lens)
+    tl = None if lens is None else torch.from_numpy(lens)
+    want = jattn.full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                                kv_len=jl)
+    got = tattn.full_attention(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                               kv_len=tl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert torch.equal(tattn.expand_kv(torch.from_numpy(k), 6),
+                       torch.from_numpy(np.array(jattn.expand_kv(jnp.asarray(k), 6))))

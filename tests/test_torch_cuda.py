@@ -1,20 +1,34 @@
-"""The port's Triton kernels against their plain versions, on a CUDA card.
+"""The port's kernels against their plain versions, on a CUDA card.
 
-Needs a card and ``triton``; skips elsewhere. Imports no JAX (the card's
-machine has none), so run it there without the repository's conftest:
+The kernel tests need a card (and ``triton`` for the Triton kernels, ``nvcc``
+for the CUDA ones) and skip elsewhere. Imports no JAX (the card's machine
+has none), so run it there without the repository's conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Tolerances: elementwise f32 kernels 1e-6 (FMA contraction is off, so they
 round like the plain version); bf16 one ulp at the values' magnitude
-(2**-7 for values below 2); K-sums 1e-5 relative (another summation order).
+(2**-7 for values below 2); K-sums 1e-5 relative (another summation order);
+flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
+JAX package's own flash tolerances: sums over D and over keys in another
+order, and one bf16 rounding of each output).
+
+The lazy-build test runs everywhere: the package imports and the CPU op runs
+with no ``nvcc`` in reach.
 """
 import importlib.util
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
 from repro_torch.kernels import common
+from repro_torch.kernels.flash_attention import kernel as fk
+from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.ig_accum.kernel import ig_accum_triton
 from repro_torch.kernels.ig_accum.ops import ig_accum
 from repro_torch.kernels.ig_accum.ref import ig_accum_ref
@@ -69,5 +83,112 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
     for got, want, atol, rtol in pairs:
         assert got.dtype == want.dtype and got.shape == want.shape
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    # each wrapper counts exactly its own launches
-    assert common.LAUNCHES == {"interpolate": 2, "ig_accum": 2, "interp_add": 3, "accum_cot": 2}
+    # each wrapper counts exactly its own launches, and no other kernel ran
+    assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES},
+                               "interpolate": 2, "ig_accum": 2, "interp_add": 3, "accum_cot": 2}
+
+
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# (B, S, NQ, NKV, D, causal, ragged): the ViT's attention at a smaller batch,
+# the LMs' causal GQA ragged shape, and the JAX tests' odd head dims and
+# sequence lengths, one per head-dim bucket of the kernels
+FLASH_SHAPES = [
+    (8, 196, 6, 6, 64, False, False),
+    (2, 333, 8, 2, 128, True, True),
+    (1, 17, 4, 2, 8, True, True),
+    (2, 33, 6, 6, 4, False, True),
+    (2, 70, 4, 1, 256, True, False),
+]
+
+
+@pytest.fixture
+def nvcc_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    try:
+        common.find_nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _flash_inputs(gen, B, S, NQ, NKV, D, ragged, dtype):
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    q, k, v, do = rnd(B, S, NQ, D), rnd(B, S, NKV, D), rnd(B, S, NKV, D), rnd(B, S, NQ, D)
+    if ragged:  # a different prefix per row; at short S one row has no key at all
+        kvlen = torch.tensor([(S * (b + 1)) // (B + 1) for b in range(B)], dtype=torch.int32)
+        if S < 100 and B > 1:
+            kvlen[0] = 0
+    else:
+        kvlen = torch.full((B,), S, dtype=torch.int32)
+    return q, k, v, do, kvlen.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,NQ,NKV,D,causal,ragged", FLASH_SHAPES)
+def test_flash_kernels_match_plain(nvcc_card, dtype, B, S, NQ, NKV, D, causal, ragged):
+    q, k, v, do, kvlen = _flash_inputs(nvcc_card, B, S, NQ, NKV, D, ragged, dtype)
+    t = lambda x: x.transpose(1, 2)  # model layout -> the kernels' layout, a view
+    qt, kt, vt, dot = t(q), t(k), t(v), t(do)
+    tol = FLASH_TOL[dtype]
+    common.reset_launches()
+    o, lse = fk.flash_fwd_cuda(qt, kt, vt, kvlen, causal=causal)
+    o_ref, lse_ref = fref.flash_fwd_ref(qt, kt, vt, kvlen, causal=causal)
+    delta = (dot.float() * o_ref.float()).sum(-1)
+    dq = fk.flash_bwd_dq_cuda(qt, kt, vt, dot, lse_ref, delta, kvlen, causal=causal)
+    dk, dv = fk.flash_bwd_dkv_cuda(qt, kt, vt, dot, lse_ref, delta, kvlen, causal=causal)
+    dq_ref = fref.flash_bwd_dq_ref(qt, kt, vt, dot, lse_ref, delta, kvlen, causal=causal)
+    dk_ref, dv_ref = fref.flash_bwd_dkv_ref(qt, kt, vt, dot, lse_ref, delta, kvlen, causal=causal)
+    torch.cuda.synchronize()
+    assert o.stride() == qt.stride() and dk.stride() == kt.stride()
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
+    assert common.LAUNCHES["flash_fwd"] == common.LAUNCHES["flash_bwd_dq"] == 1
+    assert common.LAUNCHES["flash_bwd_dkv"] == 1
+
+    # the op in model layout: forward and autograd against the analytic oracle
+    lengths = kvlen if ragged else None
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qg, kg, vg, causal=causal, lengths=lengths)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    want = t(fref.attention_ref(qt, kt, vt, causal=causal, lengths=lengths))
+    wgrads = fref.attention_vjp_ref(qt, kt, vt, dot, causal=causal, lengths=lengths)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, wgrads):
+        torch.testing.assert_close(got.float(), t(w).float(), atol=tol, rtol=tol, msg=name)
+    assert (common.LAUNCHES["flash_fwd"], common.LAUNCHES["flash_bwd_dq"],
+            common.LAUNCHES["flash_bwd_dkv"]) == (2, 2, 2)
+    # no atomics: the same inputs give the same bits
+    assert torch.equal(torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal,
+                                                           lengths=lengths), qg, do)[0], grads[0])
+
+
+def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
+    """The CUDA build is lazy: with no nvcc anywhere, every module imports,
+    the flash op runs on CPU tensors, no library is loaded, and asking for
+    one raises."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import importlib, pkgutil, torch, repro_torch\n"
+        "from repro_torch.kernels import common\n"
+        "from repro_torch.kernels.flash_attention import kernel, ops\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "q = torch.randn(2, 5, 2, 4, requires_grad=True)\n"
+        "ops.flash_attention(q, q, q).sum().backward()\n"
+        "assert q.grad.shape == q.shape and kernel.load_library.cache_info().currsize == 0\n"
+        "assert sum(common.LAUNCHES.values()) == 0\n"
+    )
+    env = {**os.environ, "PATH": str(Path(sys.executable).parent), "PYTHONPATH": str(src),
+           "CUDA_HOME": str(tmp_path / "no-cuda")}
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(common, "NVCC_DEFAULT", tmp_path / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        common.find_nvcc()
