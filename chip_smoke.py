@@ -7,14 +7,15 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
 ``repro``. Phases, each raising on a failed gate:
 
   1. device — the ``nvidia-smi`` name and power-limit line;
-  2. Triton kernels — builds the four Triton kernels (the compile cache
+  2. Triton kernels — builds the six Triton kernels (the compile cache
      goes to ``build/triton``) while a thread builds the CUDA flash library
      (``build/cuda``), and holds each Triton kernel against its plain
      PyTorch version on the card: at the CNN path's shape (B=16, K=64,
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
-     masked shape through the op wrappers, and in bf16; times the kernel,
-     its plain version and one PyTorch library call of the same function,
-     each with a cold L2, beside the bound the card's bandwidth sets;
+     masked shape through the op wrappers, in bf16, and (IDGI's two) on
+     zero-gradient rows; times the kernel, its plain version and one
+     PyTorch library call of the same function, each with a cold L2, beside
+     the bound the card's bandwidth sets;
   3. flash kernels — the three CUDA kernels (forward, dQ, dK/dV) against
      their plain versions and the op's autograd against the analytic
      oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
@@ -25,16 +26,23 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      random weights answers 4 batches of 16 seeded images through
      ``Explainer(method="ig", schedule="paper", m=64, n_int=4)``: fixed-m
      unfused, fixed-m fused and ``attribute_adaptive``;
-  5. the ViT slice — the same explainer with ``chunk=16`` on the full-width
+  5. the CNN zoo — one batch of 16 on the same CNN through every method
+     (ig, idgi, noise_tunnel, expected_grad) on ``paper``, ig on every
+     other schedule family (uniform, warp, gauss, refine), IDGI fused, and
+     the two path ensembles adaptive; each ensemble's result must be the
+     mean of its sample rows run as plain ig;
+  6. the ViT slice — the same explainer with ``chunk=16`` on the full-width
      ViT-S/16 (``attn_impl="flash"``, seeded random weights), 3 batches of
      16 seeded 224×224 images: fixed-m unfused and fused, one adaptive run
-     (``m_max=256``), peak memory and one profiled explanation of each.
+     (``m_max=256``), peak memory and one profiled explanation of each;
+  7. the ViT IDGI slice — phase 6 with ``method="idgi"``, through IDGI's
+     two kernels, and Σ_j φ_idgi = Σ_j φ_ig on each batch's schedule.
 
-Gates of both slices: finite results, every kernel of each path launched,
-fused agrees with unfused, resume is bit-identical to a fixed run over the
-refined schedule, and the card agrees with the port run on CPU copies (the
-CNN's first batch; two ViT images at m=16). The launch counts are reset
-before each slice and read after it.
+Gates of the slices: finite results, every kernel of each path launched
+and no other, fused agrees with unfused, resume is bit-identical to a fixed
+run over the refined schedule, and the card agrees with the port run on
+CPU copies (the CNN's first batch; two ViT images at m=16). The launch
+counts are reset before each slice and read after it.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -70,7 +78,7 @@ TOL_BF16 = 2.0**-7  # one bf16 ulp for values in [1, 2)
 # kernel groups of a profiler trace, by substrings of the kernels' names
 PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
-                            "_accum_cot_kernel"),
+                            "_accum_cot_kernel", "_dots_kernel", "_accum_sq_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "GEMM (cuBLAS)": ("gemm", "Gemm"),
 }
@@ -119,7 +127,7 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
 
 
 def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
-    """The four Triton kernels, each with its plain version and library call,
+    """The six Triton kernels, each with its plain version and library call,
     on seeded inputs of the stage-2 shape (B, K, F) f32."""
     from repro_torch.kernels.ig_accum import kernel as k_acc, ref as r_acc
     from repro_torch.kernels.interp_accum import kernel as k_ia, ref as r_ia
@@ -132,6 +140,7 @@ def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
     acc = torch.randn(B, F, generator=g, device=DEV)
     grads = torch.randn(B, K, F, generator=g, device=DEV)
     carry = torch.randn(B, F, generator=g, device=DEV) * 0.01
+    diff = x - b
     es = 4  # f32 bytes
     return [
         dict(name="interpolate", source="src/repro_torch/kernels/interpolate/kernel.py",
@@ -146,6 +155,19 @@ def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
              plain=lambda: r_acc.ig_accum_ref(acc, grads, w),
              library=lambda: torch.baddbmm(acc[:, None, :], w[:, None, :], grads),
              tol=None, nbytes=es * (2 * B * F + B * K + B * K * F), flops=2 * B * K * F + B * F),
+        # the library call computes ⟨g, diff⟩ only, reading the same bytes
+        dict(name="idgi_dots", source="src/repro_torch/kernels/ig_accum/kernel.py",
+             replaces="src/repro/kernels/ig_accum/kernel.py:69",
+             kernel=lambda: k_acc.idgi_dots_triton(grads, diff),
+             plain=lambda: r_acc.idgi_dots_ref(grads, diff),
+             library=lambda: torch.bmm(grads, diff[:, :, None]),
+             tol=None, nbytes=es * (B * K * F + B * F + 2 * B * K), flops=4 * B * K * F),
+        dict(name="ig_accum_sq", source="src/repro_torch/kernels/ig_accum/kernel.py",
+             replaces="src/repro/kernels/ig_accum/kernel.py:102",
+             kernel=lambda: k_acc.ig_accum_sq_triton(acc, grads, w),
+             plain=lambda: r_acc.ig_accum_sq_ref(acc, grads, w),
+             library=None,
+             tol=None, nbytes=es * (2 * B * F + B * K + B * K * F), flops=3 * B * K * F + B * F),
         dict(name="interp_add", source="src/repro_torch/kernels/interp_accum/kernel.py",
              replaces="src/repro/kernels/interp_accum/kernel.py:64",
              kernel=lambda: k_ia.interp_add_triton(x, b, a, carry),
@@ -175,12 +197,18 @@ def _record(s: dict, route: str, err: float, tol: float) -> dict:
 
 
 def _measure(s: dict) -> dict:
-    """Check one Triton kernel spec against its plain version, then time it."""
+    """Check one Triton kernel spec against its plain version (each output,
+    for a kernel with several), then time it."""
     got, want = s["kernel"](), s["plain"]()
     _sync()
-    err = _err(got, want)
-    tol = s["tol"] if s["tol"] is not None else TOL_SUM * float(want.abs().max())
-    _check(s["name"], err, tol)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    err, tol = 0.0, 0.0
+    for i, (gi, wi) in enumerate(zip(got, want)):
+        e = _err(gi, wi)
+        t = s["tol"] if s["tol"] is not None else TOL_SUM * float(wi.abs().max())
+        _check(s["name"] + (f" output {i}" if len(got) > 1 else ""), e, t)
+        err, tol = max(err, e), max(tol, t)
     return _record(s, "triton", err, tol)
 
 
@@ -188,7 +216,7 @@ def kernel_phase() -> list[dict]:
     """Each Triton kernel vs its plain version on the card; one record each,
     timed at the CNN's stage-2 shape and again at the ViT's."""
     from repro_torch.core import methods, paths
-    from repro_torch.kernels.ig_accum import ops as o_acc
+    from repro_torch.kernels.ig_accum import kernel as k_acc, ops as o_acc, ref as r_acc
     from repro_torch.kernels.interp_accum import kernel as k_ia, ops as o_ia, ref as r_ia
     from repro_torch.kernels.interpolate import kernel as k_int, ops as o_int, ref as r_int
 
@@ -228,6 +256,11 @@ def kernel_phase() -> list[dict]:
     us = torch.randn((Bm, Km) + feat, generator=g, device=DEV) * 0.01
     _check("interp_add (per-step carry)", _err(o_ia.interp_accum(xm, bm, am, us, mask=mask),
                                                paths.interp_add(xm, bm, am, us, mask=mask)), TOL_F32)
+    gm[1, 3] = 0  # a zero-gradient step inside a row
+    for dt in (torch.float32, torch.bfloat16):  # both IDGI kernels through the op
+        want = methods.idgi_accum(accm, gm.to(dt), wm, diff=(xm - bm).to(dt), mask=mask)
+        got = o_acc.ig_accum_idgi(accm, gm.to(dt), wm, diff=(xm - bm).to(dt), mask=mask)
+        _check(f"ig_accum_idgi {str(dt)[6:]}", _err(got, want), TOL_SUM * float(want.abs().max()))
 
     print("kernels in bf16 at the main path's shape:")
     xb, bb = x.bfloat16(), b.bfloat16()
@@ -238,6 +271,24 @@ def kernel_phase() -> list[dict]:
     _check("accum_cot bf16", _err(k_ia.accum_cot_triton(grads.bfloat16()),
                                   r_ia.accum_cot_ref(grads.bfloat16())),
            TOL_SUM * float(grads.abs().sum(1).max()))
+    gb, db = grads.bfloat16(), (x - b).bfloat16()
+    for i, (got, want) in enumerate(zip(k_acc.idgi_dots_triton(gb, db), r_acc.idgi_dots_ref(gb, db))):
+        _check(f"idgi_dots bf16 output {i}", _err(got, want), TOL_SUM * float(want.abs().max()))
+    w = rnd(B, K) / K
+    want = r_acc.ig_accum_sq_ref(carry, gb, w)
+    _check("ig_accum_sq bf16", _err(k_acc.ig_accum_sq_triton(carry, gb, w), want),
+           TOL_SUM * float(want.abs().max()))
+
+    print("IDGI kernels on zero-gradient rows (output exactly 0 and finite):")
+    gz = grads.clone()
+    gz[::2] = 0  # every other row: every step's gradient is 0
+    s_, p_ = k_acc.idgi_dots_triton(gz, x - b)
+    out = o_acc.ig_accum_idgi(torch.zeros(B, F, device=DEV), gz, w, diff=x - b)
+    _sync()
+    zero = [s_[::2], p_[::2], out[::2]]
+    if not (all(not bool(z.any()) for z in zero) and bool(torch.isfinite(out).all())):
+        raise AssertionError("IDGI on zero-gradient rows: not exactly 0 or not finite")
+    print("  ⟨g,g⟩, ⟨g,diff⟩ and the accumulation exactly 0 on the zero rows, all finite")
     return records
 
 
@@ -554,11 +605,34 @@ def _tree_to(tree: dict, device: str) -> dict:
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
 
 
-def vit_phase() -> dict:
-    """The paper's explainer on the full-width ViT-S/16 through the flash
-    kernels, ``VIT_BATCHES`` batches of 16, with gates."""
+# the kernels each path of an explainer launches, by accumulator class:
+# (unfused, fused); the flash kernels come on top on the ViT
+PATH_KERNELS = {
+    "riemann": (("interpolate", "ig_accum"), ("interp_add", "accum_cot")),
+    "idgi": (("interpolate", "idgi_dots", "ig_accum_sq"), ("interp_add", "idgi_dots", "ig_accum_sq")),
+}
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _sum_identity(name, res_idgi, res_ig) -> None:
+    """Σ_j φ_idgi = Σ_j φ_ig on one schedule: both are the quadrature
+    Σ_k w_k ⟨g_k, x − x′⟩. Allowed per row: 1e-6 plus 1e-4 of Σ|φ_ig| +
+    Σ|φ_idgi|, for f32 sums over F (and IDGI's ⟨g,g⟩ taken twice, in two
+    orders) of up to 150,528 terms."""
+    si, sg = (r.attributions.flatten(1) for r in (res_idgi, res_ig))
+    d = (si.sum(1) - sg.sum(1)).abs()
+    lim = 1e-6 + 1e-4 * (si.abs().sum(1) + sg.abs().sum(1))
+    print(f"  {name}: |Σφ_idgi − Σφ_ig| max {float(d.max()):.3g}, worst err/limit "
+          f"{float((d / lim).max()):.3g}; mean |Σφ_ig| {float(sg.sum(1).abs().mean()):.3g}")
+    if not bool((d <= lim).all()):
+        raise AssertionError(f"{name}: IDGI's total departs from IG's: {d.tolist()}")
+
+
+def vit_phase(method: str) -> dict:
+    """The paper's explainer with ``method`` on the full-width ViT-S/16
+    through the flash kernels, ``VIT_BATCHES`` batches of 16, with gates."""
     from repro_torch.configs.vit import VitConfig
-    from repro_torch.core import ig, probes, schedule
+    from repro_torch.core import ig, methods, paths, probes, schedule
     from repro_torch.core.api import Explainer
     from repro_torch.kernels import common
     from repro_torch.models import vit
@@ -567,16 +641,16 @@ def vit_phase() -> dict:
     params = vit.init_params(cfg, torch.Generator().manual_seed(0), device=DEV)
     params_cpu = _tree_to(params, "cpu")
     f = lambda xs, t: vit.prob_fn(cfg, params, xs, t)
-    ex = Explainer(f, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=VIT_CHUNK, device=DEV)
+    ex = Explainer(f, method=method, schedule="paper", m=M, n_int=N_INT, chunk=VIT_CHUNK, device=DEV)
     ex_fused = replace(ex, fused=True)
-    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    unfused, fused = ("interpolate", "ig_accum") + flash, ("interp_add", "accum_cot") + flash
+    unfused, fused = (k + FLASH for k in PATH_KERNELS[ex.spec.accum])
     gen = torch.Generator().manual_seed(1)
     s = cfg.image_size
     paths_launched = {}
-    print(f"ViT slice: {cfg.name}, {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} heads, "
-          f"{cfg.num_patches} patches, attn_impl={cfg.attn_impl}; m={M}, n_int={N_INT}, "
-          f"chunk={VIT_CHUNK}, batches of {B}")
+    tag = "vit" if method == "ig" else f"vit {method}"
+    print(f"ViT slice ({method}): {cfg.name}, {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_patches} patches, attn_impl={cfg.attn_impl}; m={M}, "
+          f"n_int={N_INT}, chunk={VIT_CHUNK}, batches of {B}")
 
     common.reset_launches()  # the slice's own count starts here
     torch.cuda.reset_peak_memory_stats()
@@ -586,21 +660,26 @@ def vit_phase() -> dict:
         x, t = x_cpu.to(DEV), t_cpu.to(DEV)
         bl = torch.zeros_like(x)
 
-        _, probe_ms, l_p = _timed(lambda: ex.build_schedule(x, bl, t))
-        _need(paths_launched, "vit probe", l_p, ("flash_fwd",))
+        sched, probe_ms, l_p = _timed(lambda: ex.build_schedule(x, bl, t))
+        _need(paths_launched, f"{tag} probe", l_p, ("flash_fwd",))
         res_u, ms_u, l_u = _timed(lambda: ex.attribute(x, bl, t))
-        _need(paths_launched, "vit fixed-m unfused", l_u, unfused)
+        _need(paths_launched, f"{tag} fixed-m unfused", l_u, unfused)
         res_f, ms_f, l_f = _timed(lambda: ex_fused.attribute(x, bl, t))
-        _need(paths_launched, "vit fixed-m fused", l_f, fused)
+        _need(paths_launched, f"{tag} fixed-m fused", l_f, fused)
         for name, res in (("unfused", res_u), ("fused", res_f)):
             if not all(bool(torch.isfinite(v).all()) for v in res):
-                raise AssertionError(f"vit batch {i} {name}: non-finite result")
+                raise AssertionError(f"{tag} batch {i} {name}: non-finite result")
             if res.attributions.shape != x.shape:
-                raise AssertionError(f"vit batch {i} {name}: shape {tuple(res.attributions.shape)}")
-        print(f"vit batch {i}:")
+                raise AssertionError(f"{tag} batch {i} {name}: shape {tuple(res.attributions.shape)}")
+        print(f"{tag} batch {i}:")
         _attr_close("fused vs unfused", res_f.attributions, res_u.attributions)
         if not bool(((res_f.delta - res_u.delta).abs() <= _delta_tol(res_u)).all()):
-            raise AssertionError(f"vit batch {i}: fused δ disagrees with unfused")
+            raise AssertionError(f"{tag} batch {i}: fused δ disagrees with unfused")
+        if method == "idgi":  # against ig on the same schedule, through the plain versions
+            res_ig = ig.attribute(f, x, bl, sched, t, method="ig", chunk=VIT_CHUNK,
+                                  interp_fn=paths.interpolate, accum_fn=methods.riemann_accum)
+            _sum_identity("Σφ unfused", res_u, res_ig)
+            _sum_identity("Σφ fused", res_f, res_ig)
         print(f"  wall ms: probe {probe_ms:.2f}, unfused {ms_u:.2f}, fused {ms_f:.2f}; probe share "
               f"of unfused {probe_ms / ms_u:.3f}; mean δ {float(res_u.delta.mean()):.3g}, "
               f"mean |f(x) − f(x′)| {float((res_u.f_x - res_u.f_baseline).abs().mean()):.3g}")
@@ -609,9 +688,9 @@ def vit_phase() -> dict:
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
             (res_a, info), ms_a, l_a = _timed(
                 lambda: ex.attribute_adaptive(x, bl, t, tol=TOL, m_max=VIT_M_MAX))
-            _need(paths_launched, "vit adaptive", l_a, unfused)
+            _need(paths_launched, f"{tag} adaptive", l_a, unfused)
             if not all(bool(torch.isfinite(v).all()) for v in res_a):
-                raise AssertionError("vit adaptive: non-finite result")
+                raise AssertionError(f"{tag} adaptive: non-finite result")
             print(f"  adaptive (tol={TOL}, m_max={VIT_M_MAX}): {ms_a:.2f} ms, m_used "
                   f"{info['m_used'].tolist()}, steps {info['total_steps']}")
             for e in (ex, ex_fused):  # one ladder hop == one fixed run over the refined schedule
@@ -619,12 +698,13 @@ def vit_phase() -> dict:
                 refined = schedule.refine_nested(sched)
                 new = schedule.Schedule(refined.alphas[:, M:], refined.weights[:, M:])
                 (res1, _), _, l_hop = _timed(lambda: e.resume(x, bl, t, new, st))
-                _need(paths_launched, "vit adaptive hop" + (" fused" if e.fused else ""), l_hop,
+                _need(paths_launched, f"{tag} adaptive hop" + (" fused" if e.fused else ""), l_hop,
                       fused if e.fused else unfused)
-                fixed = ig.attribute(f, x, bl, refined, t, chunk=e.adaptive_chunk, **e.ig_kwargs())
+                fixed = ig.attribute(f, x, bl, refined, t, method=e.spec, chunk=e.adaptive_chunk,
+                                     **e.ig_kwargs())
                 if not (torch.equal(res1.attributions, fixed.attributions)
                         and torch.equal(res1.delta, fixed.delta)):
-                    raise AssertionError(f"vit: resume (fused={e.fused}) not bit-identical")
+                    raise AssertionError(f"{tag}: resume (fused={e.fused}) not bit-identical")
             print("  resume bit-identical to the fixed run over the refined schedule (unfused, fused)")
 
             # the card against the port on CPU copies: 2 images at m=16
@@ -637,7 +717,7 @@ def vit_phase() -> dict:
             norm = lambda v: schedule.allocate_steps(schedule.normalized_deltas(v), VIT_CPU_M)
             tied = _near_tie_rows(vals_cpu, VIT_CPU_M) | _near_tie_rows(vals, VIT_CPU_M)
             if not bool(((norm(vals) == norm(vals_cpu)).all(-1) | tied).all()):
-                raise AssertionError("vit: card and CPU allocate steps differently off a tie")
+                raise AssertionError(f"{tag}: card and CPU allocate steps differently off a tie")
             res_g = ex2.attribute(x2, b2, t2)
             t0 = time.perf_counter()
             res_c = ex2_cpu.attribute(x2.cpu(), b2.cpu(), t2.cpu())
@@ -646,11 +726,70 @@ def vit_phase() -> dict:
             _attr_close("card vs CPU attributions", res_g.attributions.cpu(), res_c.attributions, ~tied)
             dd = (res_g.delta.cpu() - res_c.delta).abs()
             if not bool(((dd <= _delta_tol(res_c)) | tied).all()):
-                raise AssertionError(f"vit card vs CPU δ: {dd.tolist()}")
+                raise AssertionError(f"{tag} card vs CPU δ: {dd.tolist()}")
         if i == 1:  # warm: where one explanation's time goes
-            _profile("vit unfused", lambda: ex.attribute(x, bl, t))
-            _profile("vit fused", lambda: ex_fused.attribute(x, bl, t))
-    print(f"  peak device memory over the ViT slice: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            _profile(f"{tag} unfused", lambda: ex.attribute(x, bl, t))
+            _profile(f"{tag} fused", lambda: ex_fused.attribute(x, bl, t))
+    print(f"  peak device memory over the {tag} slice: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+
+
+def zoo_phase() -> dict:
+    """Every method on the paper schedule and ig on every schedule family,
+    one batch of 16 on the paper CNN, plus the two path ensembles adaptive
+    and IDGI fused; gates: finite results of the input's shape, the path's
+    kernels launched and no others, IDGI fused close to unfused, and each
+    ensemble's result the mean of its sample rows run as plain ig."""
+    from repro_torch.configs.paper_cnn import CnnConfig
+    from repro_torch.core.api import Explainer
+    from repro_torch.kernels import common
+    from repro_torch.models.cnn import PaperCNN, init_params
+
+    cfg = CnnConfig()
+    model = PaperCNN(cfg, init_params(cfg, torch.Generator().manual_seed(0), device=DEV))
+    gen = torch.Generator().manual_seed(2)
+    s = cfg.image_size
+    x = torch.rand((B, s, s, cfg.channels), generator=gen).to(DEV)
+    t = torch.randint(0, cfg.num_classes, (B,), generator=gen).to(DEV)
+    bl = torch.zeros_like(x)
+    base = Explainer(model.prob, m=M, n_int=N_INT, device=DEV)
+    runs = [(m, "paper", False) for m in ("ig", "idgi", "noise_tunnel", "expected_grad")]
+    runs += [("ig", sch, False) for sch in ("uniform", "warp", "gauss", "refine")] + [("idgi", "paper", True)]
+    paths_launched, out = {}, {}
+    print(f"zoo: paper CNN, 1 batch of {B}, m={M}, n_int={N_INT}")
+
+    def check(name, res):
+        if res.attributions.shape != x.shape or not all(bool(torch.isfinite(v).all()) for v in res):
+            raise AssertionError(f"zoo {name}: non-finite result or shape {tuple(res.attributions.shape)}")
+
+    common.reset_launches()  # the slice's own count starts here
+    for method, sch, fused in runs:
+        ex = replace(base, method=method, schedule=sch, fused=fused)
+        name = f"{method} {sch}" + (" fused" if fused else "")
+        res, ms, launched = _timed(lambda: ex.attribute(x, bl, t))
+        _need(paths_launched, f"zoo {name}", launched, PATH_KERNELS[ex.spec.accum][fused])
+        check(name, res)
+        out[name] = res
+        print(f"  {name}: {ms:.2f} ms, mean δ {float(res.delta.mean()):.3g}, rows {B * ex.ensemble_size}")
+    _attr_close("idgi fused vs unfused", out["idgi paper fused"].attributions,
+                out["idgi paper"].attributions)
+    for method in ("noise_tunnel", "expected_grad"):
+        ex = replace(base, method=method)
+        row = replace(base, method=ex.spec.row_spec())
+        x2, b2, t2, _, n = ex.expand_inputs(x, bl, t)
+        rows = Explainer.reduce_result(row.attribute(x2, b2, t2), n)
+        _attr_close(f"{method}: the mean of its sample rows", out[f"{method} paper"].attributions,
+                    rows.attributions)
+        (res_a, info), ms_a, l_a = _timed(lambda: ex.attribute_adaptive(x, bl, t, tol=TOL))
+        _need(paths_launched, f"zoo {method} adaptive", l_a, PATH_KERNELS["riemann"][0])
+        check(f"{method} adaptive", res_a)
+        rows_a, _ = row.attribute_adaptive(x2, b2, t2, tol=TOL)
+        _attr_close(f"{method} adaptive: the mean of its sample rows", res_a.attributions,
+                    Explainer.reduce_result(rows_a, n).attributions)
+        if info["n_samples"] != n or info["m_used"].shape != (B * n,):
+            raise AssertionError(f"zoo {method} adaptive: info {info['n_samples']}, {info['m_used'].shape}")
+        print(f"  {method} adaptive: {ms_a:.2f} ms, {n} samples a row, m_used mean "
+              f"{float(info['m_used'].mean()):.1f}")
     return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
 
 
@@ -688,7 +827,8 @@ def main() -> int:
     records += flash_kernel_phase()
     print(f"flash kernel phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
-    for name, phase in (("cnn", slice_phase), ("vit", vit_phase)):
+    for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
+                        ("vit_idgi", lambda: vit_phase("idgi"))):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -696,10 +836,17 @@ def main() -> int:
     for r in records:
         r["launches_by_slice"] = {n: out["launches"][r["name"]] for n, out in slices.items()}
         r["launches"] = sum(r["launches_by_slice"].values())
-        # the Triton kernels run on both slices' paths, the flash kernels on the ViT's
-        if any(n == 0 for s, n in r["launches_by_slice"].items()
-               if s == "vit" or r["route"] == "triton"):
-            raise AssertionError(f"kernel {r['name']} not launched on a slice: {r['launches_by_slice']}")
+    # each slice launched every kernel of its paths, and the IDGI slice no riemann kernel
+    for name, out in slices.items():
+        want = {k for path in out["per_path"].values() for k, n in path.items() if n}
+        missing = [k for k in want if not out["launches"][k]]
+        if missing or not want:
+            raise AssertionError(f"slice {name}: kernels not launched {missing}")
+    if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
+        raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
+    for r in records:
+        if not r["launches"]:
+            raise AssertionError(f"kernel {r['name']} not launched on any slice: {r['launches_by_slice']}")
     print(json.dumps({"kernels": records}))
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

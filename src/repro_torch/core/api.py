@@ -8,8 +8,14 @@
 
 Two registries compose here: ``schedule`` — a
 ``repro_torch.core.schedule.SCHEDULES`` family name (where the quadrature
-nodes go) — and ``method`` — a ``repro_torch.core.methods.METHODS`` name
-(what accumulates at those nodes).
+nodes go: uniform / paper / warp / gauss / refine) — and ``method`` — a
+``repro_torch.core.methods.METHODS`` name (what accumulates at those nodes:
+ig / idgi / noise_tunnel / expected_grad). Every method rides every
+schedule; the path ensembles (noise_tunnel, expected_grad) expand each
+example to ``n_samples`` contiguous rows before stage 1 and reduce (mean
+over samples) after stage 2, so stage 2 only ever sees per-row problems.
+Their draw comes from ``torch.Generator(device).manual_seed(sample_seed)``
+unless the caller hands in the standard normals (``draw=``).
 
 Stage 2 runs through the port's kernel ops unless a hook is set: on CUDA
 tensors they launch the Triton kernels, on CPU tensors they take the plain
@@ -40,14 +46,14 @@ from repro_torch.core import ig, methods as methods_mod, probes
 from repro_torch.core import schedule as schedules
 from repro_torch.core.ig import IGResult, IGState
 from repro_torch.core.methods import MethodSpec
-from repro_torch.core.probes import ScalarFn
+from repro_torch.core.probes import ScalarFn, repeat_tree
 from repro_torch.core.schedule import Schedule
-from repro_torch.kernels.ig_accum.ops import ig_accum
+from repro_torch.kernels.ig_accum.ops import ig_accum, ig_accum_idgi
 from repro_torch.kernels.interp_accum.ops import interp_accum
 from repro_torch.kernels.interpolate.ops import interpolate
 
 # accumulator class -> its kernel op (the stage-2 default when accum_fn is unset)
-_ACCUM_KERNELS = {"riemann": ig_accum}
+_ACCUM_KERNELS = {"riemann": ig_accum, "idgi": ig_accum_idgi}
 
 
 @dataclass
@@ -60,11 +66,17 @@ class Explainer:
         schedule: schedule family name in ``schedule.SCHEDULES``.
         m: total interpolation steps (the stage-2 budget).
         n_int: stage-1 probe intervals (paper sweeps 2..8).
+        refine_rounds: bisections of the "refine" family's probe.
         chunk: stage-2 step chunk size (0 = all ``m`` at once).
-        fused: interpolation composed into the differentiated function, the
-            chunk's weighted gradient sum taken as one carry gradient.
+        fused: interpolation composed into the differentiated function (the
+            gradients taken w.r.t. an f32 carry; see ``ig.attribute``).
         interp_fn / interp_add_fn / accum_fn: stage-2 hooks; the kernel ops
             of ``repro_torch.kernels`` by default.
+        n_samples / sigma: path-ensemble size and perturbation scale (0 =
+            the method's registered default).
+        sample_seed: seeds the ensemble's draw, so one configuration always
+            draws the same paths (adaptive runs can be bit-compared with
+            fixed runs).
         device: where inputs are placed and the explanation runs.
 
     Example (paper schedule on a tiny quadratic):
@@ -82,6 +94,7 @@ class Explainer:
     schedule: str = "paper"
     m: int = 64
     n_int: int = 4
+    refine_rounds: int = 4
     power: float = 0.5  # sqrt attenuation (paper); 1.0 = linear
     min_steps: int = 1
     rule: str = "midpoint"
@@ -90,6 +103,9 @@ class Explainer:
     interp_fn: Callable = interpolate
     interp_add_fn: Callable = interp_accum
     accum_fn: Optional[Callable] = None  # None: the method class's kernel op
+    n_samples: int = 0
+    sigma: float = 0.0
+    sample_seed: int = 0
     device: Union[str, torch.device] = "cuda"
 
     @property
@@ -97,8 +113,60 @@ class Explainer:
         """The resolved ``MethodSpec`` for ``self.method``."""
         return methods_mod.get(self.method)
 
+    @property
+    def ensemble_size(self) -> int:
+        """Sample rows per example (1 for non-ensemble methods)."""
+        spec = self.spec
+        if spec.expand is None:
+            return 1
+        return self.n_samples if self.n_samples else spec.n_samples
+
+    @property
+    def ensemble_sigma(self) -> float:
+        """Path-ensemble perturbation scale (method default unless set)."""
+        return self.sigma if self.sigma else self.spec.sigma_default
+
     def _place(self, *ts):
         return tuple(None if t is None else torch.as_tensor(t, device=self.device) for t in ts)
+
+    # -- path-ensemble expansion ------------------------------------------
+
+    def expand_inputs(
+        self,
+        x: torch.Tensor,
+        baseline: torch.Tensor,
+        target: Optional[torch.Tensor],
+        mask: Optional[torch.Tensor] = None,
+        draw: Optional[torch.Tensor] = None,
+    ):
+        """(B, ...) -> (B·n, ...) sample rows (identity for n == 1), samples
+        of example b contiguous at rows [b·n, (b+1)·n). Returns
+        ``(x, baseline, target, mask, n)``.
+
+        draw: optional (B·n, *F) standard normals for the expansion; by
+        default drawn from ``torch.Generator(device).manual_seed(sample_seed)``.
+        """
+        x, baseline, target, mask, draw = self._place(x, baseline, target, mask, draw)
+        spec, n = self.spec, self.ensemble_size
+        if spec.expand is None or n == 1:
+            return x, baseline, target, mask, 1
+        if draw is None:
+            draw = torch.Generator(device=x.device).manual_seed(self.sample_seed)
+        x2, b2 = spec.expand(x, baseline, draw, n, self.ensemble_sigma)
+        m2 = None if mask is None else mask.repeat_interleave(n, dim=0)
+        return x2, b2, repeat_tree(target, n), m2, n
+
+    @staticmethod
+    def reduce_result(res: IGResult, n: int) -> IGResult:
+        """Mean over each example's n contiguous sample rows; δ is recomputed
+        on the reduced quantities (the expectation's completeness gap, not
+        the mean of per-sample gaps)."""
+        if n == 1:
+            return res
+        red = lambda a: a.reshape((-1, n) + tuple(a.shape[1:])).mean(1)
+        attr, f_x, f_b = red(res.attributions), red(res.f_x), red(res.f_baseline)
+        delta = (attr.reshape(attr.shape[0], -1).sum(-1) - (f_x - f_b)).abs()
+        return IGResult(attr, f_x, f_b, delta)
 
     # -- fixed-m attribution ----------------------------------------------
 
@@ -111,12 +179,13 @@ class Explainer:
         f_x: Optional[torch.Tensor] = None,
     ) -> Schedule:
         """Stage 1 (probe) + step allocation, dispatched via the registry.
-        Probe cost: n_int+1 forwards, minus one when ``f_x`` donates the α=1
-        endpoint."""
+        Probe cost: n_int+1 (+ refine_rounds) forwards, minus one when
+        ``f_x`` donates the α=1 endpoint."""
         x, baseline, target, mask, f_x = self._place(x, baseline, target, mask, f_x)
         fam = schedules.family(self.schedule)
         probe = probes.run_probe(
-            fam.probe, self.f, x, baseline, target, n_int=self.n_int, mask=mask, known_fx=f_x
+            fam.probe, self.f, x, baseline, target, n_int=self.n_int,
+            rounds=self.refine_rounds, mask=mask, known_fx=f_x,
         )
         return fam.build(
             probe, self.m, power=self.power, min_steps=self.min_steps, rule=self.rule,
@@ -130,6 +199,7 @@ class Explainer:
         target: Optional[torch.Tensor],
         mask: Optional[torch.Tensor] = None,
         f_x: Optional[torch.Tensor] = None,
+        draw: Optional[torch.Tensor] = None,
     ) -> IGResult:
         """Fixed-m attribution: stage-1 probe + stage-2 accumulation.
 
@@ -139,17 +209,22 @@ class Explainer:
                 ignores it).
             mask: optional (B, *L) real-position mask — masked positions
                 interpolate to the baseline and attribute exactly 0.
-            f_x: optional (B,) known endpoint values f(x) (probe reuse).
+            f_x: optional (B,) known endpoint values f(x) (probe reuse);
+                dropped for path ensembles, whose rows perturb the endpoint.
+            draw: optional ensemble draw (see ``expand_inputs``).
 
         Returns:
-            ``IGResult(attributions (B, *F), f_x, f_baseline, delta)``.
+            ``IGResult(attributions (B, *F), f_x, f_baseline, delta)``, per
+            example (ensembles reduced).
         """
-        x, baseline, target, mask, f_x = self._place(x, baseline, target, mask, f_x)
+        x, baseline, target, mask, n = self.expand_inputs(x, baseline, target, mask, draw)
+        f_x = None if n != 1 else self._place(f_x)[0]
         sched = self.build_schedule(x, baseline, target, mask, f_x=f_x)
-        return ig.attribute(
+        res = ig.attribute(
             self.f, x, baseline, sched, target, method=self.spec, mask=mask,
             chunk=self.chunk, f_x=f_x, **self.ig_kwargs(),
         )
+        return self.reduce_result(res, n)
 
     # -- adaptive iso-convergence -----------------------------------------
 
@@ -183,7 +258,8 @@ class Explainer:
     ) -> tuple[IGResult, IGState, Schedule]:
         """Rung 0 of the adaptive ladder: probe, build the base schedule,
         accumulate its m nodes, and return the resumable state plus the
-        schedule (needed to refine later)."""
+        schedule (needed to refine later). Per row, never expanded: callers
+        expand path ensembles first (``expand_inputs``)."""
         x, baseline, target, mask, f_x = self._place(x, baseline, target, mask, f_x)
         sched = self.build_schedule(x, baseline, target, mask, f_x=f_x)
         res, state = ig.attribute(
@@ -203,7 +279,7 @@ class Explainer:
     ) -> tuple[IGResult, IGState]:
         """One ladder hop: accumulate the refined schedule's NEW nodes on top
         of ``state``. ``state_scale=0.5`` re-expresses the old accumulator in
-        the refined rung's exactly-halved weights."""
+        the refined rung's exactly-halved weights. Per row (see ``start``)."""
         x, baseline, target, mask = self._place(x, baseline, target, mask)
         return ig.attribute(
             self.f, x, baseline, new_nodes, target, method=self.spec, mask=mask,
@@ -220,6 +296,7 @@ class Explainer:
         tol: float = 1e-2,
         m_max: int = 0,
         mask: Optional[torch.Tensor] = None,
+        draw: Optional[torch.Tensor] = None,
     ) -> tuple[IGResult, dict]:
         """δ-feedback early-exit attribution up the m-ladder.
 
@@ -230,13 +307,18 @@ class Explainer:
         tops out at ``m_max`` (default ``8·m``). Converged rows exit with the
         rung they converged at; later hops run on the surviving rows only.
 
+        Path ensembles expand each example to ``ensemble_size`` sample rows
+        first (``draw`` as in ``expand_inputs``); the ladder then runs per
+        row (each sample converges on its own δ) and the final IGResult is
+        reduced to per-example means. The ``info`` arrays stay per row.
+
         Returns ``(IGResult, info)``: per-example final attributions/δ, and
         ``info`` with per-row ``m_used``/``hops``/``delta``/``threshold``/
         ``converged`` plus aggregate ``total_steps`` (Σ m_used),
         ``probe_forwards``, the ``ladder``, the ``chunk`` and ``n_samples``
-        (1: path ensembles are not ported yet).
+        (the expansion factor).
         """
-        x, baseline, target, mask = self._place(x, baseline, target, mask)
+        x, baseline, target, mask, n_samples = self.expand_inputs(x, baseline, target, mask, draw)
         fam = schedules.family(self.schedule)
         ladder = schedules.m_ladder(self.m, m_max if m_max else 8 * self.m)
         B = x.shape[0]
@@ -281,9 +363,9 @@ class Explainer:
             kept = torch.as_tensor(np.flatnonzero(keep), device=x.device)
             a_act, w_act, acc_act = refined.alphas[kept], refined.weights[kept], st2.acc[kept]
 
-        final = IGResult(
+        final = self.reduce_result(IGResult(
             out_attr, res.f_x, res.f_baseline, torch.as_tensor(delta, device=x.device)
-        )
+        ), n_samples)
         info = {
             "m_used": m_used,
             "hops": hops,
@@ -291,9 +373,10 @@ class Explainer:
             "threshold": threshold,
             "converged": delta <= threshold,
             "total_steps": int(total_steps),
-            "probe_forwards": B * probes.probe_cost(fam.probe, n_int=self.n_int),
+            "probe_forwards": B * probes.probe_cost(fam.probe, n_int=self.n_int,
+                                                    rounds=self.refine_rounds),
             "ladder": ladder,
             "chunk": self.adaptive_chunk,
-            "n_samples": 1,
+            "n_samples": n_samples,
         }
         return final, info

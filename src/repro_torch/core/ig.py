@@ -6,7 +6,10 @@ fixed size (a Python loop over chunks, where ``repro`` used ``lax.scan``),
 so memory stays bounded for any m.
 
 The per-chunk accumulator and the finalizer come from the
-``repro_torch.core.methods`` registry. Kernel injection: ``interp_fn`` /
+``repro_torch.core.methods`` registry: vanilla Riemann IG and IDGI ride the
+same loop; the path ensembles (noise_tunnel, expected_grad) expand their
+batch before this function and reduce after it (``core.api``), so per row
+they are the riemann method. Kernel injection: ``interp_fn`` /
 ``interp_add_fn`` / ``accum_fn`` default to the plain PyTorch functions and
 can be swapped for the Triton ops in ``repro_torch.kernels``
 (``repro_torch.core.api.Explainer`` injects them by default).
@@ -39,10 +42,11 @@ class IGResult(NamedTuple):
 class IGState(NamedTuple):
     """Resumable stage-2 accumulator (the adaptive ladder).
 
-    ``acc`` is the method's running node sum Σ_k w_k g_k at the rung last
-    run (before the (x − x′) factor); ``f_x``/``f_baseline`` are the
-    endpoint forwards, computed once at rung 0 and carried so ladder hops
-    never repeat them. Every field is per-example, so rows may be gathered.
+    ``acc`` is the method's running node sum at the rung last run — for the
+    riemann methods Σ_k w_k g_k (before the (x − x′) factor), for IDGI the
+    attribution itself — and ``f_x``/``f_baseline`` are the endpoint
+    forwards, computed once at rung 0 and carried so ladder hops never
+    repeat them. Every field is per-example, so rows may be gathered.
     """
 
     acc: torch.Tensor  # (B, *F) float32 running node sum
@@ -77,11 +81,15 @@ def attribute(
 
     Unfused (default): each chunk's interpolants are made by ``interp_fn``
     outside the graph, and the gradient of Σ f at them goes to ``accum_fn``.
-    Fused (``fused=True``, grad-linear methods): the interpolants are made
-    inside the differentiated function by ``interp_add_fn`` from a zero f32
-    carry, and the gradient w.r.t. that carry of Σ_k w_k f(x_k) is the whole
-    chunk's weighted gradient sum — the per-step gradient batch is never
-    formed. The two agree to float tolerance, not bitwise.
+    Fused (``fused=True``): the interpolants are made inside the
+    differentiated function by ``interp_add_fn`` from a zero f32 carry. For
+    grad-linear methods (``spec.grad_linear``, the riemann class) the carry
+    is (B, *F), broadcast over the steps, and its gradient of Σ_k w_k f(x_k)
+    is the whole chunk's weighted gradient sum — the per-step gradient batch
+    is never formed. Quadratic methods (idgi) need the per-step gradients:
+    the carry is (B, c, *F), one per step, and its gradient of Σ_k f(x_k)
+    goes to ``accum_fn``. Fused and unfused agree to float tolerance, not
+    bitwise.
 
     Probe reuse: ``f_x`` (B,) known endpoint values; only f(baseline) is
     then computed. Ignored when resuming from ``state``.
@@ -120,7 +128,7 @@ def attribute(
     for s in range(0, m, c):
         a, w = alphas[:, s : s + c], weights[:, s : s + c]  # (B, c)
         t = repeat_tree(target, c)
-        if fused:
+        if fused and spec.grad_linear:
             u = torch.zeros(x.shape, dtype=torch.float32, device=x.device, requires_grad=True)
             xi = interp_add_fn(x, baseline, a, u, **mkw)  # (B, c, *F)
             vals = f(xi.reshape((B * c,) + feat), t).float()
@@ -128,6 +136,11 @@ def attribute(
             if mask is not None:  # match the unfused accumulators' masked grads
                 inc = inc * expand_mask(mask, inc.dim())
             acc = acc + inc
+        elif fused:  # per-step carry: the gradients arrive as its cotangent
+            z = torch.zeros((B, c) + feat, dtype=torch.float32, device=x.device, requires_grad=True)
+            xi = interp_add_fn(x, baseline, a, z, **mkw)  # (B, c, *F)
+            (g,) = torch.autograd.grad(f(xi.reshape((B * c,) + feat), t).sum(), z)
+            acc = accum_fn(acc, g, w, diff=diff, **mkw)
         else:
             xi = interp_fn(x, baseline, a, **mkw)  # (B, c, *F)
             flat = xi.reshape((B * c,) + feat).detach().requires_grad_()

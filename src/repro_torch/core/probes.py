@@ -6,8 +6,10 @@ are batched across (examples × boundaries) into one forward.
 
 ``run_probe`` is the registry-facing entry point: every schedule family in
 ``repro_torch.core.schedule.SCHEDULES`` names one of the probe kinds here.
-``mask`` pins padded positions to the baseline. The secant-refine probe
-(``repro.core.probes.refined_boundaries``) is not ported yet.
+``mask`` pins padded positions to the baseline. Kinds: "none" (the
+uniform family), "boundary" (the ``n_int + 1`` uniform boundaries) and
+"refine" (``refined_boundaries``: the boundaries, then ``rounds`` secant
+bisections of the largest-|Δf| interval).
 """
 from __future__ import annotations
 
@@ -56,7 +58,50 @@ def boundary_values(
     return torch.cat([vals, known_fx.to(vals.dtype)[:, None]], dim=1)
 
 
-def probe_cost(kind: str, *, n_int: int = 4, known_fx: bool = False) -> int:
+@torch.no_grad()
+def refined_boundaries(
+    f: ScalarFn,
+    x: torch.Tensor,
+    baseline: torch.Tensor,
+    target: Optional[torch.Tensor],
+    n0: int,
+    rounds: int,
+    *,
+    mask: Optional[torch.Tensor] = None,
+    known_fx: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beyond-paper secant-refine: bisect the largest-|Δf| interval, one
+    batched probe per round (fixed shapes: capacity n0+1+rounds).
+
+    Returns (boundaries (B, K), values (B, K)) sorted by boundary; padding
+    duplicates the rightmost boundary (zero-width intervals, zero Δf).
+    ``known_fx`` seeds the α=1 boundary value (see ``boundary_values``);
+    bisection never revisits the endpoints, so the splice is exact. Ties
+    pick the first interval (``torch.argmax``, as ``jnp.argmax``) and the
+    re-sort is stable.
+    """
+    B = x.shape[0]
+    x = mask_to_baseline(x, baseline, mask)
+    vals0 = boundary_values(f, x, baseline, target, n0, known_fx=known_fx)
+    b0 = (torch.arange(n0 + 1, device=x.device) / n0).expand(B, -1)
+    b = torch.cat([b0, torch.ones((B, rounds), device=x.device)], dim=1)
+    v = torch.cat([vals0, vals0[:, -1:].expand(-1, rounds)], dim=1)
+    slot = b.shape[1] - 1  # a padding slot (the rightmost duplicate) takes the new point
+    for _ in range(rounds):
+        d = torch.diff(v, dim=1).abs() * (torch.diff(b, dim=1) > 1e-9)
+        i = torch.argmax(d, dim=1, keepdim=True)  # (B, 1) interval to bisect
+        mid = 0.5 * (torch.gather(b, 1, i) + torch.gather(b, 1, i + 1))[:, 0]
+        xm = baseline + mid.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype) * (x - baseline)
+        b = b.clone()
+        v = v.clone()
+        b[:, slot] = mid
+        v[:, slot] = f(xm, target).to(v.dtype)
+        order = torch.argsort(b, dim=1, stable=True)
+        b, v = torch.gather(b, 1, order), torch.gather(v, 1, order)
+    return b, v
+
+
+def probe_cost(kind: str, *, n_int: int = 4, rounds: int = 4, known_fx: bool = False) -> int:
     """Forward passes a probe kind spends per example (0 gradient steps).
 
     ``known_fx`` is the probe-reuse contract: the α=1 forward is donated, so
@@ -65,8 +110,12 @@ def probe_cost(kind: str, *, n_int: int = 4, known_fx: bool = False) -> int:
     if kind == "none":
         return 0
     if kind == "boundary":
-        return n_int if known_fx else n_int + 1
-    raise ValueError(f"unknown probe kind {kind!r}")
+        base = n_int + 1
+    elif kind == "refine":
+        base = n_int + 1 + rounds
+    else:
+        raise ValueError(f"unknown probe kind {kind!r}")
+    return base - 1 if known_fx else base
 
 
 def run_probe(
@@ -77,15 +126,20 @@ def run_probe(
     target: Optional[torch.Tensor],
     *,
     n_int: int = 4,
+    rounds: int = 4,
     mask: Optional[torch.Tensor] = None,
     known_fx: Optional[torch.Tensor] = None,
 ) -> Optional[Probe]:
-    """Run the stage-1 probe a schedule family declares ("none" | "boundary").
-    ``known_fx`` (B,) donates the α=1 endpoint value (see ``boundary_values``)."""
+    """Run the stage-1 probe a schedule family declares ("none" | "boundary"
+    | "refine"). ``known_fx`` (B,) donates the α=1 endpoint value (see
+    ``boundary_values``); ``rounds`` is the refine probe's bisections."""
     if kind == "none":
         return None
     if kind == "boundary":
         vals = boundary_values(f, x, baseline, target, n_int, mask=mask, known_fx=known_fx)
         bounds = (torch.arange(n_int + 1, device=vals.device) / n_int).expand(vals.shape)
         return Probe(bounds.float(), vals)
+    if kind == "refine":
+        return Probe(*refined_boundaries(f, x, baseline, target, n_int, rounds, mask=mask,
+                                         known_fx=known_fx))
     raise ValueError(f"unknown probe kind {kind!r}")

@@ -3,19 +3,34 @@
 A *schedule* is a pair ``(alphas[m], weights[m])`` approximating
 ``∫_0^1 g(α) dα ≈ Σ_k w_k g(α_k)``; the same stage 2 serves any allocation.
 
-Ported here: ``uniform`` (baseline IG) and ``paper`` (faithful NUIG: n_int
-equal intervals, integer step counts ∝ sqrt(|Δf|) by largest remainder,
-uniform in each interval), the nested refinement of the adaptive ladder,
-and the ``SCHEDULES`` registry. ``repro.core.schedule``'s ``warp``,
-``gauss`` and ``from_boundaries`` (the ``refine`` family) are not ported
-yet. Functions are batched over examples where noted.
+Schedules:
+  uniform  — baseline IG (left/right/midpoint/trapezoid Riemann)
+  paper    — faithful NUIG: n_int equal intervals, integer step counts
+             ∝ sqrt(|Δf|) (largest-remainder rounding), uniform-in-interval
+  warp     — beyond-paper: continuous inverse-CDF limit of ``paper``
+  gauss    — beyond-paper: Gauss–Legendre nodes in the importance-allocated
+             intervals
+  refine   — ``from_boundaries`` over the secant-refine probe's non-uniform
+             interval boundaries
+plus the nested refinement of the adaptive ladder and the ``SCHEDULES``
+registry. Functions are batched over examples where noted.
+
+Running sums of floats are taken in an order fixed here, the same on every
+device (``torch.cumsum`` is a sequential sum, in f64 for f32 input, on the
+CPU and a parallel scan on CUDA): ``warp``'s CDF over the n_int intervals
+in f32 in index order (an explicit loop; ``repro``'s f32 ``cumsum`` takes
+this order for short rows), ``refine_nested``'s cell edges over up to
+thousands of nodes in f64, rounded once (``repro``'s order there depends on
+its JAX version, so children agree with it to about an ulp).
 """
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -145,6 +160,121 @@ def paper(
     return from_allocation(alloc, m, rule=rule)
 
 
+def _take(t: torch.Tensor, iv: torch.Tensor) -> torch.Tensor:
+    """t[..., iv] along the last axis, t broadcast to iv's leading shape."""
+    return torch.gather(t.expand(iv.shape[:-1] + t.shape[-1:]), -1, iv)
+
+
+# ----------------------------------------------------------- warp (beyond)
+
+
+def warp(boundary_vals: torch.Tensor, m: int, *, power: float = 0.5) -> Schedule:
+    """Continuous limit of ``paper``: α_k = G⁻¹((k+½)/m) with piecewise-linear
+    CDF G whose density on interval i is ∝ |Δf_i|^power.
+
+    A density floor (blend with uniform, λ = n/m) is the continuous analogue
+    of ``min_steps=1``: every interval's CDF span is ≥ 1/m, hence receives
+    ≥ 1 of the m grid points. Weights are Voronoi cells (midpoint to next
+    node minus midpoint to previous, 0 and 1 at the ends): Σw == 1 exactly.
+    """
+    imp = normalized_deltas(boundary_vals, power)  # (..., n)
+    n = imp.shape[-1]
+    lam = min(1.0, n / m)
+    imp = (1.0 - lam) * imp + lam / n
+    # G at the right boundaries, summed in f32 in index order
+    cdf = torch.stack(list(itertools.accumulate(imp.unbind(-1))), dim=-1)
+    t = (torch.arange(m, device=imp.device) + 0.5) / m  # (m,)
+    iv = (t[..., None, :] >= cdf[..., :, None]).sum(-2).clamp(0, n - 1)  # (..., m)
+    left_cdf = _take(cdf - imp, iv)
+    dens = _take(imp, iv)  # mass of k's interval
+    frac = (t - left_cdf) / dens.clamp_min(1e-12)
+    a = (iv + frac) / n  # sorted inverse-CDF nodes
+    mid = 0.5 * (a[..., 1:] + a[..., :-1])
+    lo = torch.cat([torch.zeros_like(a[..., :1]), mid], dim=-1)
+    hi = torch.cat([mid, torch.ones_like(a[..., :1])], dim=-1)
+    return Schedule(a.float(), (hi - lo).float())
+
+
+# ---------------------------------------------------------- gauss (beyond)
+
+
+def _gauss_legendre(m: int) -> tuple[np.ndarray, np.ndarray]:
+    x, w = np.polynomial.legendre.leggauss(m)  # nodes on [-1,1]
+    return (x + 1.0) / 2.0, w / 2.0  # map to [0,1]
+
+
+def gauss(boundary_vals: torch.Tensor, m: int, *, power: float = 0.5, order: int = 8) -> Schedule:
+    """Composite Gauss–Legendre in the importance-allocated intervals.
+
+    m steps = (m/order) Gauss cells of fixed ``order``; cells are distributed
+    across intervals ∝ |Δf|^power (largest remainder, ≥1), sub-cells are
+    equal within an interval. The composite rule is exact per smooth piece
+    (degree 2·order−1), where a global rule would lose its order at the
+    warp's kinks.
+    """
+    imp = normalized_deltas(boundary_vals, power)
+    n = imp.shape[-1]
+    # shrink order if needed so every interval can get >= 1 cell
+    order = min(order, m // n)
+    while order > 1 and m % order:
+        order -= 1
+    if order < 1:
+        raise ValueError(f"m={m} cannot give {n} intervals a Gauss cell each")
+    cells = m // order
+    nodes, gw = (torch.as_tensor(v, dtype=torch.float32, device=imp.device)
+                 for v in _gauss_legendre(order))
+    alloc = allocate_steps(imp, cells, min_steps=1).long()  # cells per interval
+    csum = torch.cumsum(alloc, dim=-1)
+    k = torch.arange(m, device=imp.device)
+    cell, node = k // order, k % order
+    iv = (cell[..., None, :] >= csum[..., :, None]).sum(-2)  # (..., m)
+    cells_i = _take(alloc, iv)
+    r = cell - _take(csum - alloc, iv)  # sub-cell rank within interval
+    width = 1.0 / n
+    cells_f = cells_i.float()
+    # width / cells_i; ``float / tensor`` would multiply by the reciprocal,
+    # one more rounding than the reference's division
+    sub = torch.full_like(cells_f, width) / cells_f
+    a = iv * width + (r + nodes[node]) * sub
+    w = gw[node] * sub
+    return Schedule(a.float(), w.float())
+
+
+# ------------------------------------------- refined boundaries (beyond)
+
+
+def from_boundaries(
+    bounds: torch.Tensor, vals: torch.Tensor, m: int, *, power: float = 0.5
+) -> Schedule:
+    """Schedule over *non-uniform* interval boundaries (secant-refine stage 1).
+
+    bounds/vals: (..., K) sorted probe positions and f values; zero-width
+    (padding) intervals receive zero importance and zero steps. Where a live
+    interval receives no node (m below the live count), the weights are
+    renormalized so Σw == 1.
+    """
+    widths = torch.diff(bounds, dim=-1)  # (..., n)
+    live = widths > 1e-9
+    d = torch.diff(vals, dim=-1).abs() ** power
+    d = torch.where(live, d, torch.zeros_like(d))
+    s = d.sum(-1, keepdim=True)
+    livef = live.float()
+    imp = torch.where(s > 1e-12, d / s.clamp_min(1e-12),
+                      livef / livef.sum(-1, keepdim=True).clamp_min(1.0))
+    alloc = allocate_steps(imp, m, min_steps=0).long()
+    csum = torch.cumsum(alloc, dim=-1)
+    k = torch.arange(m, device=bounds.device)
+    iv = (k[..., None, :] >= csum[..., :, None]).sum(-2)
+    m_i = _take(alloc, iv).clamp_min(1)
+    r = k - _take(csum - alloc, iv)
+    left = _take(bounds[..., :-1], iv)
+    w_int = _take(widths, iv)
+    a = left + (r + 0.5) / m_i * w_int
+    w = w_int / m_i
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-12)
+    return Schedule(a.float(), w.float())
+
+
 # ------------------------------------------- nested refinement (adaptive)
 
 
@@ -222,6 +352,8 @@ class Probe(NamedTuple):
 
     bounds: (..., K) sorted probe positions in [0, 1];
     vals:   (..., K) f at those positions.
+    For the boundary probe the bounds are the uniform grid; the
+    secant-refine probe returns non-uniform (possibly duplicated) bounds.
     """
 
     bounds: torch.Tensor
@@ -233,13 +365,13 @@ class ScheduleFamily:
     """One schedule family = a probe spec + a uniform-signature builder.
 
     ``probe`` names the stage-1 pass the caller must run ("none" |
-    "boundary" — see ``repro_torch.core.probes.run_probe``); ``build`` maps
+    "boundary" | "refine" — see ``repro_torch.core.probes.run_probe``); ``build`` maps
     its result to a Schedule on ``device``. ``refine`` is the family's
     nested-refinement step for the adaptive ladder.
     """
 
     name: str
-    probe: str  # "none" | "boundary"
+    probe: str  # "none" | "boundary" | "refine"
     build: Callable[..., Schedule]
     refine: Callable[[Schedule], Schedule] = refine_nested
 
@@ -256,9 +388,30 @@ def _build_paper(
     return paper(probe.vals, m, power=power, min_steps=min_steps, rule=rule)
 
 
+def _build_warp(
+    probe: Optional[Probe], m: int, *, power: float, min_steps: int, rule: str, device
+) -> Schedule:
+    return warp(probe.vals, m, power=power)
+
+
+def _build_gauss(
+    probe: Optional[Probe], m: int, *, power: float, min_steps: int, rule: str, device
+) -> Schedule:
+    return gauss(probe.vals, m, power=power)
+
+
+def _build_refine(
+    probe: Optional[Probe], m: int, *, power: float, min_steps: int, rule: str, device
+) -> Schedule:
+    return from_boundaries(probe.bounds, probe.vals, m, power=power)
+
+
 SCHEDULES: dict[str, ScheduleFamily] = {
     "uniform": ScheduleFamily("uniform", "none", _build_uniform),
     "paper": ScheduleFamily("paper", "boundary", _build_paper),
+    "warp": ScheduleFamily("warp", "boundary", _build_warp),
+    "gauss": ScheduleFamily("gauss", "boundary", _build_gauss),
+    "refine": ScheduleFamily("refine", "refine", _build_refine),
 }
 
 
@@ -266,7 +419,7 @@ def family(name: str) -> ScheduleFamily:
     """Look up a registered ``ScheduleFamily`` by name.
 
         >>> sorted(SCHEDULES)
-        ['paper', 'uniform']
+        ['gauss', 'paper', 'refine', 'uniform', 'warp']
         >>> family("paper").probe
         'boundary'
     """

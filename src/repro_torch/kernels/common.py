@@ -45,6 +45,8 @@ FLOATS = (torch.float32, torch.bfloat16, torch.float16)  # what the kernels take
 LAUNCHES: dict[str, int] = {
     "interpolate": 0,
     "ig_accum": 0,
+    "idgi_dots": 0,
+    "ig_accum_sq": 0,
     "interp_add": 0,
     "accum_cot": 0,
     "flash_fwd": 0,

@@ -1,19 +1,37 @@
-"""Triton kernel: the stage-2 Riemann accumulation, acc + Σ_k w_k g_k.
+"""Triton kernels of the unfused stage 2's accumulation: riemann and IDGI.
 
-Replaces ``repro/kernels/ig_accum/kernel.py`` ``ig_accum_pallas``
-(``_accum_kernel``), the unfused stage 2's accumulation. IDGI's two
-kernels in the same file (``idgi_dots_pallas``, ``ig_accum_sq_pallas``)
-are not ported yet.
+Replace ``repro/kernels/ig_accum/kernel.py``:
 
-Bound on the H100: bytes. Per call it reads the (B, K, F) gradients once,
-plus acc (B·F f32) and the weights, and writes one (B, F) f32 tile, at two
-flops per gradient element; at B=16, K=64, F=3072 f32 about 13 MB, about
-4 µs at 3.35 TB/s. Design: on the TPU, K was a sequential grid axis with
-the output tile carried in VMEM. Here blocks run in no order, so one
-program owns a (row, F-tile) pair and loops over K inside the block,
-accumulating in f32 registers and storing once. No atomics: the sum order
-is fixed, so results are deterministic run to run, which bit-identical
-adaptive resume relies on.
+  * ``ig_accum_triton`` ← ``ig_accum_pallas`` (``_accum_kernel``):
+    acc + Σ_k w_k g_k, the riemann class (ig and the path ensembles);
+  * ``idgi_dots_triton`` ← ``idgi_dots_pallas`` (``_dots_kernel``):
+    ⟨g_k, g_k⟩ and ⟨g_k, diff⟩ per (row, step), each reduced over all of F;
+  * ``ig_accum_sq_triton`` ← ``ig_accum_sq_pallas`` (``_accum_sq_kernel``):
+    acc + Σ_k c_k g_k², IDGI's weighting pass (g² is never stored).
+
+IDGI's coefficient c = w·⟨g,diff⟩/⟨g,g⟩ is formed between its two kernels
+(``ops.ig_accum_idgi``), since the dot products reduce over the whole row,
+which no F-tile of the second pass sees.
+
+Bound on the H100: bytes, all three. Each reads the (B, K, F) gradients
+once, plus a (B, F) row (acc or diff) and writes (B, F) f32 or 2×(B, K)
+f32, at 2–4 flops per gradient element: at B=16, K=64, F=3072 f32 about
+13 MB, about 4 µs at 3.35 TB/s; at the ViT's B=16, K=16, F=150,528 about
+165–175 MB, about 50 µs.
+
+Design: on the TPU, the reduced axis (K for the accumulations, F for the
+dots) was a sequential grid axis with the output tile carried in VMEM.
+Here blocks run in no order, so a block owns its outputs and loops over
+the reduced axis inside itself, in f32 registers, storing once:
+
+  * the accumulations: one program per (row, F-tile), looping over K;
+  * the dots: one program per (row, step), looping over F in BLOCK_F-wide
+    tiles into two f32 vectors, summed across the vector once at the end.
+
+No atomics: every sum is taken in a fixed order, so the results are the
+same bits on every run, which bit-identical adaptive resume relies on (for
+IDGI the coefficients, and so every attribution, depend on the dots'
+bits). Ragged K and F are masked loads, not padding copies.
 """
 from __future__ import annotations
 
@@ -26,6 +44,8 @@ from repro_torch.kernels import common
 BLOCK_K = 16
 BLOCK_F = 128
 NUM_WARPS = 4
+DOTS_BLOCK_F = 2048  # 8 f32 a thread a tile at 8 warps
+DOTS_NUM_WARPS = 8
 
 tl = None  # triton.language, bound on the first launch
 
@@ -46,11 +66,44 @@ def _accum_kernel(acc_ptr, g_ptr, w_ptr, o_ptr, K, F,
     tl.store(o_ptr + row * F + offs_f, acc, mask=fmask)
 
 
+def _dots_kernel(g_ptr, d_ptr, s_ptr, p_ptr, K, F, BLOCK_F: "tl.constexpr"):
+    r = tl.program_id(0).to(tl.int64)  # the (row, step) pair b·K + k
+    b = r // K
+    s = tl.zeros([BLOCK_F], dtype=tl.float32)
+    p = tl.zeros([BLOCK_F], dtype=tl.float32)
+    for f0 in range(0, F, BLOCK_F):
+        offs_f = f0 + tl.arange(0, BLOCK_F)
+        fmask = offs_f < F
+        g = tl.load(g_ptr + r * F + offs_f, mask=fmask, other=0.0).to(tl.float32)
+        d = tl.load(d_ptr + b * F + offs_f, mask=fmask, other=0.0).to(tl.float32)
+        s += g * g
+        p += g * d
+    tl.store(s_ptr + r, tl.sum(s, axis=0))
+    tl.store(p_ptr + r, tl.sum(p, axis=0))
+
+
+def _accum_sq_kernel(acc_ptr, g_ptr, c_ptr, o_ptr, K, F,
+                     BLOCK_K: "tl.constexpr", BLOCK_F: "tl.constexpr"):
+    row = tl.program_id(0).to(tl.int64)
+    offs_f = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
+    fmask = offs_f < F
+    acc = tl.load(acc_ptr + row * F + offs_f, mask=fmask, other=0.0)
+    for k0 in range(0, K, BLOCK_K):
+        offs_k = k0 + tl.arange(0, BLOCK_K)
+        kmask = offs_k < K
+        g = tl.load(g_ptr + (row * K + offs_k[:, None]) * F + offs_f[None, :],
+                    mask=kmask[:, None] & fmask[None, :], other=0.0).to(tl.float32)
+        c = tl.load(c_ptr + row * K + offs_k, mask=kmask, other=0.0).to(tl.float32)
+        acc += tl.sum((g * g) * c[:, None], axis=0)
+    tl.store(o_ptr + row * F + offs_f, acc, mask=fmask)
+
+
 @functools.cache
 def _compiled():
     global tl
     triton, tl = common.import_triton()
-    return triton, triton.jit(_accum_kernel)
+    return (triton, triton.jit(_accum_kernel), triton.jit(_dots_kernel),
+            triton.jit(_accum_sq_kernel))
 
 
 def ig_accum_triton(acc: torch.Tensor, grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -60,9 +113,38 @@ def ig_accum_triton(acc: torch.Tensor, grads: torch.Tensor, weights: torch.Tenso
     acc = common.check_flat("acc", acc, (B, F), (torch.float32,))
     weights = common.check_flat("weights", weights, (B, K), common.FLOATS)
     out = torch.empty((B, F), dtype=torch.float32, device=acc.device)
-    triton, kern = _compiled()
+    triton, kern, _, _ = _compiled()
     grid = (B, triton.cdiv(F, BLOCK_F))
     kern[grid](acc, grads, weights, out, K, F, BLOCK_K=BLOCK_K, BLOCK_F=BLOCK_F,
                num_warps=NUM_WARPS)
     common.LAUNCHES["ig_accum"] += 1
+    return out
+
+
+def idgi_dots_triton(grads: torch.Tensor, diff: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """grads (B, K, F); diff (B, F), CUDA -> (⟨g,g⟩, ⟨g,diff⟩), both (B, K) f32."""
+    B, K, F = grads.shape
+    grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
+    diff = common.check_flat("diff", diff, (B, F), common.FLOATS)
+    s = torch.empty((B, K), dtype=torch.float32, device=grads.device)
+    p = torch.empty((B, K), dtype=torch.float32, device=grads.device)
+    _, _, kern, _ = _compiled()
+    kern[(B * K,)](grads, diff, s, p, K, F, BLOCK_F=DOTS_BLOCK_F, num_warps=DOTS_NUM_WARPS)
+    common.LAUNCHES["idgi_dots"] += 1
+    return s, p
+
+
+def ig_accum_sq_triton(acc: torch.Tensor, grads: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
+    """acc (B, F) f32; grads (B, K, F); coeff (B, K) f32, CUDA -> (B, F) f32
+    = acc + Σ_k coeff_k · g_k²."""
+    B, K, F = grads.shape
+    grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
+    acc = common.check_flat("acc", acc, (B, F), (torch.float32,))
+    coeff = common.check_flat("coeff", coeff, (B, K), (torch.float32,))
+    out = torch.empty((B, F), dtype=torch.float32, device=acc.device)
+    triton, _, _, kern = _compiled()
+    grid = (B, triton.cdiv(F, BLOCK_F))
+    kern[grid](acc, grads, coeff, out, K, F, BLOCK_K=BLOCK_K, BLOCK_F=BLOCK_F,
+               num_warps=NUM_WARPS)
+    common.LAUNCHES["ig_accum_sq"] += 1
     return out

@@ -9,6 +9,9 @@ has none), so run it there without the repository's conftest:
 Tolerances: elementwise f32 kernels 1e-6 (FMA contraction is off, so they
 round like the plain version); bf16 one ulp at the values' magnitude
 (2**-7 for values below 2); K-sums 1e-5 relative (another summation order);
+IDGI's dot products over F 1e-5 relative to the sum of |terms| (another
+summation order over up to 150,528 terms), its accumulation 1e-5 relative
+to the largest |value|;
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
 order, and one bf16 rounding of each output).
@@ -29,9 +32,14 @@ from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.ig_accum.kernel import ig_accum_triton
-from repro_torch.kernels.ig_accum.ops import ig_accum
-from repro_torch.kernels.ig_accum.ref import ig_accum_ref
+from repro_torch.kernels.ig_accum.kernel import idgi_dots_triton, ig_accum_sq_triton, ig_accum_triton
+from repro_torch.kernels.ig_accum.ops import ig_accum, ig_accum_idgi
+from repro_torch.kernels.ig_accum.ref import (
+    idgi_dots_ref,
+    ig_accum_idgi_ref,
+    ig_accum_ref,
+    ig_accum_sq_ref,
+)
 from repro_torch.kernels.interp_accum.kernel import accum_cot_triton, interp_add_triton
 from repro_torch.kernels.interp_accum.ops import interp_accum
 from repro_torch.kernels.interp_accum.ref import accum_cot_ref, interp_add_ref
@@ -86,6 +94,44 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
     # each wrapper counts exactly its own launches, and no other kernel ran
     assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES},
                                "interpolate": 2, "ig_accum": 2, "interp_add": 3, "accum_cot": 2}
+
+
+# (B, K, F): odd shapes, the CNN path's stage-2 shape and the ViT path's
+IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), (16, 64, 3072), (16, 16, 224 * 224 * 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,F", IDGI_SHAPES)
+def test_idgi_kernels_match_plain(card, dtype, B, K, F):
+    rnd = lambda *s: torch.randn(s, generator=card, device="cuda")
+    g, diff = rnd(B, K, F).to(dtype), rnd(B, F).to(dtype)
+    g[0, 0] = 0  # a zero-gradient step: ⟨g,g⟩ = 0 contributes exactly 0
+    acc, w = rnd(B, F), torch.rand((B, K), generator=card, device="cuda") / K
+    common.reset_launches()
+    s, p = idgi_dots_triton(g, diff)
+    s_ref, p_ref = idgi_dots_ref(g, diff)
+    gf = g.float()
+    for got, want, terms in ((s, s_ref, gf * gf), (p, p_ref, gf * diff.float()[:, None])):
+        assert got.dtype == torch.float32 and got.shape == (B, K)
+        lim = 1e-5 * terms.abs().sum(-1) + 1e-30
+        assert bool(((got - want).abs() <= lim).all())
+    assert float(s[0, 0]) == 0.0 and float(p[0, 0]) == 0.0
+    coeff = torch.rand((B, K), generator=card, device="cuda")
+    out, want = ig_accum_sq_triton(acc, g, coeff), ig_accum_sq_ref(acc, g, coeff)
+    torch.testing.assert_close(out, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    # the op through both kernels, and a row whose every gradient is 0
+    g[-1] = 0
+    mask = torch.rand((B, F), generator=card, device="cuda") > 0.3
+    got = ig_accum_idgi(acc, g, w, diff=diff, mask=mask)
+    want = ig_accum_idgi_ref(acc, g * mask[:, None].to(dtype), w, diff)
+    torch.testing.assert_close(got, want, atol=1e-5 * float(want.abs().max()), rtol=0)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got[-1], acc[-1])
+    torch.cuda.synchronize()
+    assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES},
+                               "idgi_dots": 2, "ig_accum_sq": 2}
+    # no atomics: the same inputs give the same bits
+    assert torch.equal(ig_accum_idgi(acc, g, w, diff=diff, mask=mask), got)
 
 
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}

@@ -9,7 +9,9 @@ CPU, where its kernel ops take their plain versions.
 Tolerances: attributions to 1e-4 of the largest one (f32 convolutions and
 sums in another order); f(x), f(x′) and δ to 1e-6 absolute (probabilities
 near 0.1, δ near 1e-7). Adaptive traces (m_used, hops, converged) must be
-equal.
+equal. IDGI's and ig's attribution sums agree to 1e-6 (both are the
+quadrature Σ_k w_k ⟨g_k, x − x′⟩, summed in other orders, about 0.02 here).
+The other methods and schedules are in ``test_torch_zoo.py``.
 """
 import functools
 
@@ -22,12 +24,14 @@ import torch
 from repro.configs.paper_cnn import CONFIG as J_CONFIG
 from repro.core.api import Explainer as JExplainer
 from repro.kernels.ig_accum.ops import ig_accum as j_ig_accum
+from repro.kernels.ig_accum.ops import ig_accum_idgi as j_ig_accum_idgi
 from repro.kernels.interp_accum.ops import interp_accum as j_interp_accum
 from repro.kernels.interpolate.ops import interpolate as j_interpolate
 from repro.models import cnn as jcnn
 from repro_torch.configs.paper_cnn import CONFIG
 from repro_torch.core import ig, schedule
 from repro_torch.core.api import Explainer
+from repro_torch.kernels import common
 from repro_torch.models import cnn as tcnn
 
 torch.set_num_threads(1)
@@ -151,3 +155,85 @@ def test_resume_is_bit_identical_to_a_fixed_run(fused):
         assert torch.equal(res.attributions, fixed.attributions)
         assert torch.equal(res.delta, fixed.delta)
         sched = refined
+
+
+@functools.cache
+def _idgi_jax(fused, masked=False):
+    """JAX's IDGI on the pipeline through its Pallas ops, interpreted."""
+    _, _, x, b, t = _pipeline()
+    kw = dict(interp_fn=functools.partial(j_interpolate, interpret=True),
+              accum_fn=functools.partial(j_ig_accum_idgi, interpret=True),
+              interp_add_fn=functools.partial(j_interp_accum, interpret=True))
+    ex = JExplainer(_pipeline()[0], method="idgi", schedule="paper", m=M, n_int=N_INT, fused=fused, **kw)
+    mask = jnp.asarray(_mask()) if masked else None
+    r = ex.attribute(jnp.asarray(x), jnp.asarray(b), jnp.asarray(t), mask)
+    return tuple(np.asarray(a) for a in r)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_idgi_matches_jax_pallas_ops(fused, masked):
+    """``fused=True`` with IDGI takes per-step gradients through a per-step
+    carry and computes IDGI, not a Riemann sum: it matches JAX's fused IDGI
+    and differs from ig's attributions while its total equals ig's."""
+    _, _, x, b, t = _pipeline()
+    mask = _mask() if masked else None
+    ex = Explainer(_pipeline()[1], method="idgi", schedule="paper", m=M, n_int=N_INT, fused=fused,
+                   device="cpu")
+    common.reset_launches()
+    res = ex.attribute(x, b, t, mask=mask)
+    _assert_result_close(res, _idgi_jax(fused, masked))
+    assert sum(common.LAUNCHES.values()) == 0  # CPU tensors take the plain versions
+    r_ig = _port_explainer(fused).attribute(x, b, t, mask=mask)
+    gap = np.abs(res.attributions.numpy() - r_ig.attributions.numpy()).max()
+    assert gap > 0.1 * np.abs(r_ig.attributions.numpy()).max()
+    np.testing.assert_allclose(res.attributions.sum((1, 2, 3)).numpy(),
+                               r_ig.attributions.sum((1, 2, 3)).numpy(), rtol=0, atol=1e-6)
+    if masked:
+        assert not res.attributions[0, 20:].any() and not res.attributions[1, :5].any()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_idgi_resume_is_bit_identical_to_a_fixed_run(fused):
+    _, ft, x, b, t = _pipeline()
+    ex = Explainer(ft, method="idgi", schedule="paper", m=M, n_int=N_INT, fused=fused, chunk=8,
+                   device="cpu")
+    xt, bt, tt = torch.from_numpy(x), torch.from_numpy(b), torch.from_numpy(t)
+    _, state, sched = ex.start(xt, bt, tt)
+    for _ in range(2):
+        refined = schedule.refine_nested(sched)
+        n_old = sched.alphas.shape[-1]
+        new = schedule.Schedule(refined.alphas[:, n_old:], refined.weights[:, n_old:])
+        res, state = ex.resume(xt, bt, tt, new, state)
+        fixed = ig.attribute(ft, xt, bt, refined, tt, method="idgi", chunk=ex.adaptive_chunk,
+                             **ex.ig_kwargs())
+        assert torch.equal(res.attributions, fixed.attributions)
+        assert torch.equal(res.delta, fixed.delta)
+        assert torch.equal(state.acc, res.attributions)  # IDGI's state is the attribution
+        sched = refined
+
+
+@pytest.mark.parametrize("method", ["noise_tunnel", "expected_grad"])
+def test_ensemble_is_the_mean_of_its_sample_rows(method):
+    """Expansion then per-row ig then the mean, fixed-m and adaptive; the
+    default draw is seeded, so two runs agree bit for bit."""
+    _, ft, x, b, t = _pipeline()
+    ex = Explainer(ft, method=method, schedule="paper", m=M, n_int=N_INT, n_samples=3, sigma=0.05,
+                   sample_seed=5, device="cpu")
+    assert (ex.ensemble_size, ex.ensemble_sigma) == (3, 0.05)
+    res = ex.attribute(x, b, t)
+    assert torch.equal(res.attributions, ex.attribute(x, b, t).attributions)
+    x2, b2, t2, m2, n = ex.expand_inputs(x, b, t)
+    assert n == 3 and m2 is None and tuple(x2.shape) == (6,) + x.shape[1:]
+    assert torch.equal(t2, torch.tensor([1, 1, 1, 2, 2, 2], dtype=t2.dtype))
+    row = Explainer(ft, method="ig", schedule="paper", m=M, n_int=N_INT, device="cpu")
+    rows = row.attribute(x2, b2, t2)
+    torch.testing.assert_close(res.attributions, rows.attributions.reshape((2, 3) + x.shape[1:]).mean(1),
+                               rtol=0, atol=0)
+    red = Explainer.reduce_result(rows, 3)
+    torch.testing.assert_close(res.delta, red.delta, rtol=0, atol=0)
+    res_a, info = ex.attribute_adaptive(x, b, t, tol=1e-2)
+    rows_a, info_r = row.attribute_adaptive(x2, b2, t2, tol=1e-2)
+    assert info["n_samples"] == 3 and info_r["n_samples"] == 1 and info["m_used"].shape == (6,)
+    assert torch.equal(res_a.attributions, Explainer.reduce_result(rows_a, 3).attributions)
+    assert res_a.attributions.shape == x.shape

@@ -7,7 +7,9 @@ shapes with masks. Inputs come from numpy with a fixed seed.
 Tolerances: f32 elementwise results 1e-6 absolute (values in [-2, 2]);
 f32 sums over K ≤ 9 steps 1e-5 relative; bf16 one bf16 ulp at the
 values' magnitude (2**-6), as XLA may keep excess precision between bf16
-operations. The Triton kernels themselves run only on a CUDA card, in
+operations. IDGI (both kernels' plain versions and the op): 1e-5 of the
+largest |value| plus 1e-5 relative, the dot products over F summed in
+another order (bf16 gradients are widened to f32 on both sides first). The Triton kernels themselves run only on a CUDA card, in
 ``test_torch_cuda.py``.
 """
 import sys
@@ -19,6 +21,8 @@ import pytest
 import torch
 
 from repro.kernels.ig_accum.ops import ig_accum as j_ig_accum
+from repro.kernels.ig_accum.ops import ig_accum_idgi as j_ig_accum_idgi
+from repro.kernels.ig_accum.ref import ig_accum_idgi_ref as j_ig_accum_idgi_ref
 from repro.kernels.ig_accum.ref import ig_accum_ref as j_ig_accum_ref
 from repro.kernels.interp_accum.ops import interp_accum as j_interp_accum
 from repro.kernels.interp_accum.ref import accum_cot_ref as j_accum_cot_ref
@@ -26,9 +30,15 @@ from repro.kernels.interp_accum.ref import interp_add_ref as j_interp_add_ref
 from repro.kernels.interpolate.ops import interpolate as j_interpolate
 from repro.kernels.interpolate.ref import interpolate_ref as j_interpolate_ref
 from repro_torch.kernels import common
-from repro_torch.kernels.ig_accum.kernel import ig_accum_triton
-from repro_torch.kernels.ig_accum.ops import ig_accum
-from repro_torch.kernels.ig_accum.ref import ig_accum_ref
+from repro_torch.kernels.ig_accum.kernel import idgi_dots_triton, ig_accum_sq_triton, ig_accum_triton
+from repro_torch.kernels.ig_accum.ops import accum_fn_for, ig_accum, ig_accum_idgi
+from repro_torch.kernels.ig_accum.ref import (
+    idgi_coeff,
+    idgi_dots_ref,
+    ig_accum_idgi_ref,
+    ig_accum_ref,
+    ig_accum_sq_ref,
+)
 from repro_torch.kernels.interp_accum.kernel import accum_cot_triton, interp_add_triton
 from repro_torch.kernels.interp_accum.ops import interp_accum
 from repro_torch.kernels.interp_accum.ref import accum_cot_ref, interp_add_ref
@@ -112,6 +122,67 @@ def test_ig_accum_plain_matches_jax(gdtype, B, K, feat, masked):
                                 _j(d["w"])), 1e-5, 1e-5)
 
 
+IDGI_SHAPES = SHAPES + [(5, 37, (31, 29, 3))]  # the last: ragged K and F at image width
+
+
+def _idgi_close(t, j):
+    jn = np.asarray(j, np.float32)
+    _close(t, jn, 1e-5 * np.abs(jn).max(), 1e-5)
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,feat", IDGI_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_ig_accum_idgi_plain_matches_jax(gdtype, B, K, feat, masked):
+    """The op (both kernels' plain versions and the coefficient between
+    them) against JAX's op with its Pallas kernels interpreted, on odd
+    shapes that exercise its K/F padding, with ragged masks."""
+    d = _data(8, B, K, feat, masked)
+    m_t = None if d["mask"] is None else torch.from_numpy(d["mask"])
+    diff = d["x"] - d["b"]
+    out = ig_accum_idgi(_t(d["acc"]), _t(d["g"], gdtype), _t(d["w"]), diff=_t(diff, gdtype), mask=m_t)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (B,) + feat
+    ref = j_ig_accum_idgi(_j(d["acc"]), _j(d["g"], gdtype), _j(d["w"]), diff=_j(diff, gdtype),
+                          mask=_j(d["mask"], "bool"), interpret=True)
+    _idgi_close(out, ref)
+    # the plain versions on flat operands against JAX's oracle
+    gf = _t(d["g"], gdtype).reshape(B, K, -1)
+    flat = ig_accum_idgi_ref(_t(d["acc"]).reshape(B, -1), gf, _t(d["w"]), _t(diff, gdtype).reshape(B, -1))
+    _idgi_close(flat, j_ig_accum_idgi_ref(_j(d["acc"]).reshape(B, -1), _j(d["g"], gdtype).reshape(B, K, -1),
+                                          _j(d["w"]), _j(diff, gdtype).reshape(B, -1)))
+    s, p = idgi_dots_ref(gf, _t(diff, gdtype).reshape(B, -1))
+    g32 = np.asarray(_j(d["g"], gdtype).astype(jnp.float32)).reshape(B, K, -1)
+    d32 = np.asarray(_j(diff, gdtype).astype(jnp.float32)).reshape(B, -1)
+    _idgi_close(s, np.einsum("bkf,bkf->bk", g32, g32))
+    _idgi_close(p, np.einsum("bkf,bf->bk", g32, d32))
+    c = idgi_coeff(_t(d["w"]), s, p)
+    _idgi_close(ig_accum_sq_ref(_t(d["acc"]).reshape(B, -1), gf, c), flat)
+
+
+def test_ig_accum_idgi_zero_gradient_rows():
+    """⟨g, g⟩ == 0 steps contribute exactly 0, never NaN, on both sides —
+    a whole row of zero gradients and single zero steps of another row."""
+    d = _data(9, 3, 6, (7, 5), False)
+    g = d["g"].copy()
+    g[0] = 0.0
+    g[1, ::2] = 0.0
+    args = (d["acc"], g, d["w"])
+    out = ig_accum_idgi(*map(_t, args), diff=_t(d["x"] - d["b"]))
+    ref = j_ig_accum_idgi(*map(_j, args), diff=_j(d["x"] - d["b"]), interpret=True)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[0], _t(d["acc"])[0])
+    _idgi_close(out, ref)
+    s, p = idgi_dots_ref(_t(g).reshape(3, 6, -1), _t(d["x"] - d["b"]).reshape(3, -1))
+    c = idgi_coeff(_t(d["w"]), s, p)
+    assert not c[0].any() and not c[1, ::2].any() and c[1, 1::2].all()
+
+
+def test_accum_fn_for_maps_classes_to_ops():
+    assert accum_fn_for("riemann") is ig_accum and accum_fn_for("idgi") is ig_accum_idgi
+    with pytest.raises(ValueError, match="idgi"):
+        accum_fn_for("nope")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,K,feat", SHAPES)
 @pytest.mark.parametrize("step_carry", [False, True])
@@ -166,6 +237,7 @@ def test_cpu_path_launches_no_kernel():
     d = _data(6, 2, 3, (5,), False)
     interpolate(_t(d["x"]), _t(d["b"]), _t(d["a"]))
     ig_accum(_t(d["acc"]), _t(d["g"]), _t(d["w"]))
+    ig_accum_idgi(_t(d["acc"]), _t(d["g"]), _t(d["w"]), diff=_t(d["x"]))
     u = _t(d["u"]).requires_grad_()
     torch.autograd.grad(interp_accum(_t(d["x"]), _t(d["b"]), _t(d["a"]), u).sum(), u)
     assert common.LAUNCHES == {name: 0 for name in common.LAUNCHES}
@@ -176,13 +248,16 @@ def test_mixed_devices_raise():
         common.on_cuda(torch.zeros(2), torch.zeros(2, device="meta"))
 
 
-@pytest.mark.parametrize("launch", ["interpolate", "ig_accum", "interp_add", "accum_cot"])
+@pytest.mark.parametrize("launch", ["interpolate", "ig_accum", "idgi_dots", "ig_accum_sq",
+                                    "interp_add", "accum_cot"])
 def test_triton_wrappers_refuse_cpu_tensors(launch):
     d = _data(7, 2, 3, (5,), False)
     x, b, a, g = _t(d["x"]), _t(d["b"]), _t(d["a"]), _t(d["g"])
     call = {
         "interpolate": lambda: interpolate_triton(x, b, a),
         "ig_accum": lambda: ig_accum_triton(_t(d["acc"]), g, _t(d["w"])),
+        "idgi_dots": lambda: idgi_dots_triton(g, x),
+        "ig_accum_sq": lambda: ig_accum_sq_triton(_t(d["acc"]), g, _t(d["w"])),
         "interp_add": lambda: interp_add_triton(x, b, a, _t(d["u"])),
         "accum_cot": lambda: accum_cot_triton(g),
     }[launch]
