@@ -8,20 +8,23 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
 
   1. device — the ``nvidia-smi`` name and power-limit line;
   2. Triton kernels — builds the six Triton kernels (the compile cache
-     goes to ``build/triton``) while a thread builds the CUDA flash library
-     (``build/cuda``), and holds each Triton kernel against its plain
+     goes to ``build/triton``) while two threads build the CUDA flash and
+     solve libraries (``build/cuda``), and holds each Triton kernel against its plain
      PyTorch version on the card: at the CNN path's shape (B=16, K=64,
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
      masked shape through the op wrappers, in bf16, and (IDGI's two) on
      zero-gradient rows; times the kernel, its plain version and one
      PyTorch library call of the same function, each with a cold L2, beside
      the bound the card's bandwidth sets;
-  3. flash kernels — the three CUDA kernels (forward, dQ, dK/dV) against
+  3. CUDA kernels — the three flash kernels (forward, dQ, dK/dV) against
      their plain versions and the op's autograd against the analytic
      oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
      D=64, f32) and at a causal GQA ragged shape (f32 and bf16); timed at
      the ViT's shape beside the plain version, SDPA and the bound the
-     card's f32 rate sets;
+     card's f32 rate sets. The Gauss–Jordan solve kernel against its plain
+     version at the LIME slice's shape (16 systems of 17×17), at a ragged
+     masked shape and at N=65, each timed beside its bound and
+     ``torch.linalg.solve_ex``;
   4. the CNN slice — the paper CNN at ``CnnConfig()`` width with seeded
      random weights answers 4 batches of 16 seeded images through
      ``Explainer(method="ig", schedule="paper", m=64, n_int=4)``: fixed-m
@@ -30,19 +33,28 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      (ig, idgi, noise_tunnel, expected_grad) on ``paper``, ig on every
      other schedule family (uniform, warp, gauss, refine), IDGI fused, and
      the two path ensembles adaptive; each ensemble's result must be the
-     mean of its sample rows run as plain ig;
+     mean of its sample rows run as plain ig; and one LIME batch over
+     4×4×3 image cells (S=64) through the solve kernel;
   6. the ViT slice — the same explainer with ``chunk=16`` on the full-width
      ViT-S/16 (``attn_impl="flash"``, seeded random weights), 3 batches of
      16 seeded 224×224 images: fixed-m unfused and fused, one adaptive run
      (``m_max=256``), peak memory and one profiled explanation of each;
   7. the ViT IDGI slice — phase 6 with ``method="idgi"``, through IDGI's
-     two kernels, and Σ_j φ_idgi = Σ_j φ_ig on each batch's schedule.
+     two kernels, and Σ_j φ_idgi = Σ_j φ_ig on each batch's schedule;
+  8. the forward-only ViT slice — ``PerturbExplainer`` with ``lime``,
+     ``occlusion`` and ``rise`` (``n_masks=64``, ``chunk=16``: 256 images a
+     forward) on the same ViT over its 196 patch features, f the target
+     logit, 3 batches of 16: finite scores, LIME through the flash forward
+     and the solve kernel only, occlusion and RISE through the flash
+     forward only, a replayed call bit-identical, the card against the port
+     on CPU copies of two images at P=16 on the same masks; wall time per
+     batch, peak memory and one profiled explanation per method.
 
 Gates of the slices: finite results, every kernel of each path launched
-and no other, fused agrees with unfused, resume is bit-identical to a fixed
-run over the refined schedule, and the card agrees with the port run on
-CPU copies (the CNN's first batch; two ViT images at m=16). The launch
-counts are reset before each slice and read after it.
+and no other, fused agrees with unfused, resume (and a replayed
+forward-only call) is bit-identical, and the card agrees with the port run
+on CPU copies (the CNN's first batch; two ViT images at m=16 or P=16). The
+launch counts are reset before each slice and read after it.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -70,6 +82,8 @@ VIT_ATTN = (16 * 16, 196, 6, 6, 64)  # (B·chunk, S, NQ, NKV, D) of the ViT's at
 LM_ATTN = (2, 333, 8, 2, 128)  # a causal GQA ragged shape at the LMs' head dim
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # the JAX flash tests' own
 VIT_BATCHES, VIT_CHUNK, VIT_M_MAX, VIT_CPU_M = 3, 16, 256, 16
+N_MASKS, CPU_MASKS, CNN_CELL = 64, 16, 4  # forward-only: masks a row, at the CPU check; cell side
+WLS_SHAPES = ((16, 17, False), (5, 17, True), (16, 65, False))  # (B, N, masked) of the solve
 N_BATCHES, M, N_INT, TOL = 4, 64, 4, 1e-2
 TOL_LADDER = 0.0  # every row whose δ is not exactly 0 climbs the whole ladder
 TOL_F32 = 1e-6  # elementwise f32 kernels: FMA contraction is off, rounding matches
@@ -80,6 +94,7 @@ PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
                             "_accum_cot_kernel", "_dots_kernel", "_accum_sq_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+    "solve (the port's)": ("gauss_jordan_kernel",),
     "GEMM (cuBLAS)": ("gemm", "Gemm"),
 }
 
@@ -409,6 +424,69 @@ def flash_kernel_phase() -> list[dict]:
         print(f"  {s['name']} at the ViT shape: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return records
+
+
+def _lime_system(g, B: int, N: int, masked: bool):
+    """LIME's normal equations on the card: N−1 Bernoulli(0.5) group columns
+    and the intercept over P = max(64, 4N) masks (a full-rank design, as
+    LIME's), weighted by the proximity kernel, with normal responses;
+    ``masked`` pins about a third of the groups out. Returns the prepared
+    system (A + λI, pinned) and the raw one with its mask."""
+    from repro_torch.core.perturb import lime_weights
+    from repro_torch.kernels.lstsq import ref as lr
+
+    P = max(N_MASKS, 4 * N)
+    zg = (torch.rand((B, P, N - 1), generator=g, device=DEV) < 0.5).float()
+    X = torch.cat([zg, torch.ones((B, P, 1), device=DEV)], dim=-1)
+    A, rhs = lr.normal_eqs(X, lime_weights(zg, 0.25), torch.randn((B, P), generator=g, device=DEV))
+    mask = None
+    if masked:
+        mask = (torch.rand((B, N), generator=g, device=DEV) > 0.3).float()
+        mask[:, -1] = 1  # the intercept stays live
+    return lr.prepare_normal_eqs(A, rhs, mask, 1e-2), (A, rhs, mask)
+
+
+def solve_kernel_phase() -> dict:
+    """The Gauss–Jordan kernel against its plain version (expected equal
+    bit for bit, gated at 1e-6 of max|β|) at the LIME slice's shape, at a
+    ragged masked shape (β exactly 0 where masked, through the op) and at
+    N=65; each timed beside its bound, the plain sweep and
+    ``torch.linalg.solve_ex`` (LU with pivoting; ``solve`` itself would
+    wait on the host to check its info). One record, at the slice's shape."""
+    from repro_torch.kernels.lstsq import kernel as lk, ops as lo, ref as lr
+
+    g = torch.Generator(device=DEV).manual_seed(3)
+    out = {}
+    for B_, N, masked in WLS_SHAPES:
+        (Ap, bp), (A, rhs, mask) = _lime_system(g, B_, N, masked)
+        got, want = lk.wls_solve_cuda(Ap, bp), lr.gauss_jordan_ref(Ap, bp)
+        _sync()
+        name = f"wls_solve B={B_} N={N}" + (" masked" if masked else "")
+        err, tol = _err(got, want), 1e-6 * float(want.abs().max())
+        _check(name, err, tol)
+        print(f"    bit-equal to the plain sweep: {torch.equal(got, want)}; against "
+              f"torch.linalg.solve: {_err(got, lr.wls_solve_ref(A, rhs, mask=mask, ridge=1e-2)):.3g}")
+        if masked:
+            op = lo.wls_solve(A, rhs, mask=mask, ridge=1e-2)
+            _sync()
+            if bool(op[mask == 0].any()) or not torch.equal(op, got):
+                raise AssertionError(f"{name}: the op's β is not exactly 0 where masked")
+            print("    β exactly 0 on the masked entries (through the op)")
+        spec = dict(name="wls_solve", source="src/repro_torch/kernels/lstsq/csrc/lstsq.cu",
+                    replaces="src/repro/kernels/lstsq/kernel.py:56",
+                    kernel=lambda: lk.wls_solve_cuda(Ap, bp), plain=lambda: lr.gauss_jordan_ref(Ap, bp),
+                    library=lambda: torch.linalg.solve_ex(Ap, bp[..., None]),
+                    nbytes=4 * B_ * (N * N + 2 * N), flops=B_ * N * (2 * N * N + N))
+        r = _record(spec, "cuda", err, tol)
+        print(f"    {r['ms'] * 1e3:.2f} µs, plain {r['plain_ms'] * 1e3:.2f} µs, solve_ex "
+              f"{r['library_ms'] * 1e3:.2f} µs, bound {r['bound_ms'] * 1e3:.4f} µs ({r['bound_by']})")
+        out[(B_, N, masked)] = r
+    rec = out[WLS_SHAPES[0]]
+    for (B_, N, masked), r in list(out.items())[1:]:
+        rec[f"at B={B_} N={N}" + (" masked" if masked else "")] = {
+            k: r[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}
+    return rec
 
 
 def _delta_tol(res) -> torch.Tensor:
@@ -742,6 +820,7 @@ def zoo_phase() -> dict:
     ensemble's result the mean of its sample rows run as plain ig."""
     from repro_torch.configs.paper_cnn import CnnConfig
     from repro_torch.core.api import Explainer
+    from repro_torch.core.perturb import PerturbExplainer, cell_fn, cell_scores_to_pixels, image_to_cells
     from repro_torch.kernels import common
     from repro_torch.models.cnn import PaperCNN, init_params
 
@@ -790,6 +869,124 @@ def zoo_phase() -> dict:
             raise AssertionError(f"zoo {method} adaptive: info {info['n_samples']}, {info['m_used'].shape}")
         print(f"  {method} adaptive: {ms_a:.2f} ms, {n} samples a row, m_used mean "
               f"{float(info['m_used'].mean()):.1f}")
+
+    # the forward-only class on the CNN: LIME over 4×4×3 image cells (S=64)
+    shape = (s, s, cfg.channels)
+    logit = lambda imgs, tt: model.forward(imgs).gather(1, tt[:, None])[:, 0]
+    pe = PerturbExplainer(cell_fn(logit, shape, CNN_CELL), method="lime", n_masks=N_MASKS, device=DEV)
+    xc = image_to_cells(x, CNN_CELL)
+    res, ms, launched = _timed(lambda: pe.attribute(xc, torch.zeros_like(xc), t))
+    _need(paths_launched, "zoo lime cells", launched, ("wls_solve",))
+    px = cell_scores_to_pixels(res.attributions, shape, CNN_CELL)
+    if (res.attributions.shape != xc.shape[:2] or px.shape != x.shape
+            or not all(bool(torch.isfinite(v).all()) for v in res)):
+        raise AssertionError(f"zoo lime cells: non-finite result or shape {tuple(res.attributions.shape)}")
+    print(f"  lime over {xc.shape[1]} cells of {CNN_CELL}×{CNN_CELL}×{cfg.channels}: {ms:.2f} ms, "
+          f"{N_MASKS} masks a row, mean |score| {float(res.attributions.abs().mean()):.3g}")
+    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+
+
+def _perturb_close(name: str, got, want, amp: torch.Tensor) -> None:
+    """Scores of the card (``got``) against the port on the CPU (``want``),
+    per row: within 1e-4 of the row's largest |score| plus 10·amp·ε, where ε
+    is the larger of the endpoint f-values' card-vs-CPU gap and 1e-7 of
+    their size (the noise of one f-value in f32 GEMMs summed in another
+    order), and amp how far a method's scores carry that noise to first
+    order: 2 for occlusion and RISE (a difference of f-values, or of their
+    means), P·√N·‖(A+λI)⁻¹‖₂ for LIME (β = (A+λI)⁻¹ XᵀW y with x ∈ {0, 1}
+    and w ≤ 1, so ‖XᵀW‖₂ ≤ √(P·N), and ‖δy‖₂ ≤ √P·ε)."""
+    gap = torch.maximum((got.f_x.cpu() - want.f_x).abs(), (got.f_baseline.cpu() - want.f_baseline).abs())
+    eps = torch.maximum(gap, 1e-7 * torch.maximum(want.f_x.abs(), want.f_baseline.abs()))
+    d = (got.attributions.cpu() - want.attributions).abs().amax(1)
+    lim = 1e-4 * want.attributions.abs().amax(1) + 10 * amp * eps + 1e-12
+    print(f"  {name}: max row err {float(d.max()):.3g}, worst err/limit {float((d / lim).max()):.3g}, "
+          f"endpoint f gap {float(gap.max()):.3g}, amplification {[round(float(a), 1) for a in amp]}")
+    if not bool((d <= lim).all()):
+        raise AssertionError(f"{name}: rows {torch.nonzero(d > lim).flatten().tolist()} disagree")
+
+
+def vit_fwd_phase() -> dict:
+    """The forward-only class through ``PerturbExplainer`` on the full-width
+    ViT-S/16 over its patch features, ``VIT_BATCHES`` batches of 16, with
+    gates (phase 8)."""
+    from repro_torch.configs.vit import VitConfig
+    from repro_torch.core.perturb import PerturbExplainer
+    from repro_torch.kernels import common
+    from repro_torch.kernels.lstsq import ops as lo
+    from repro_torch.models import vit
+
+    cfg = replace(VitConfig(), attn_impl="flash")
+    params = vit.init_params(cfg, torch.Generator().manual_seed(0), device=DEV)
+    params_cpu = _tree_to(params, "cpu")
+
+    def logit_fn(p):
+        def f(fe, t):
+            h = vit.encode(cfg, p, vit.embed_features(cfg, p, fe))
+            return vit.pool_logits(cfg, p, h).gather(1, t[:, None])[:, 0]
+        return f
+
+    f, f_cpu = logit_fn(params), logit_fn(params_cpu)
+    gen = torch.Generator().manual_seed(1)
+    s = cfg.image_size
+    paths_launched = {}
+    kernels = {"lime": ("flash_fwd", "wls_solve"), "occlusion": ("flash_fwd",), "rise": ("flash_fwd",)}
+    print(f"forward-only ViT slice: {cfg.name}, {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_patches} patch positions of {cfg.patch_dim} features, attn_impl={cfg.attn_impl}; "
+          f"n_masks={N_MASKS}, chunk={VIT_CHUNK} ({B * VIT_CHUNK} images a forward), batches of {B}")
+    batches = []
+    for _ in range(VIT_BATCHES):
+        imgs = torch.rand((B, s, s, cfg.channels), generator=gen)
+        t_cpu = torch.randint(0, cfg.num_classes, (B,), generator=gen)
+        batches.append((vit.patchify(cfg, imgs.to(DEV)), t_cpu.to(DEV)))
+
+    common.reset_launches()  # the slice's own count starts here
+    torch.cuda.reset_peak_memory_stats()
+    for method, names in kernels.items():
+        pe = PerturbExplainer(f, method=method, n_masks=N_MASKS, chunk=VIT_CHUNK, device=DEV)
+        walls = []
+        for i, (x, t) in enumerate(batches):
+            bl = torch.zeros_like(x)
+            res, ms, launched = _timed(lambda: pe.attribute(x, bl, t))
+            _need(paths_launched, f"vit {method}", launched, names)
+            walls.append(ms)
+            if res.attributions.shape != x.shape[:2] or not all(bool(torch.isfinite(v).all()) for v in res):
+                raise AssertionError(f"vit {method} batch {i}: non-finite result or shape "
+                                     f"{tuple(res.attributions.shape)}")
+            again = pe.attribute(x, bl, t)
+            if not all(torch.equal(a, b) for a, b in zip(again, res)):
+                raise AssertionError(f"vit {method} batch {i}: a replayed call is not bit-identical")
+            if i == 0:  # the card against the port on CPU copies: 2 images at P=16, the same masks
+                small = replace(pe, n_masks=CPU_MASKS)
+                systems = []  # LIME's normal equations, the card's then the CPU's
+
+                def recording(A, rhs, **kw):
+                    systems.append((A.cpu(), rhs.cpu(), kw["ridge"]))
+                    return lo.wls_solve(A, rhs, **kw)
+
+                res_g = replace(small, solve_fn=recording).attribute(x[:2], bl[:2], t[:2])
+                t0 = time.perf_counter()
+                res_c = replace(small, f=f_cpu, device="cpu", solve_fn=recording).attribute(
+                    x[:2].cpu(), bl[:2].cpu(), t[:2].cpu())
+                print(f"  card vs CPU ({method}, 2 images, P={CPU_MASKS}; CPU run "
+                      f"{time.perf_counter() - t0:.1f} s):")
+                amp = torch.full((2,), 2.0)
+                if method == "lime":
+                    (A_g, b_g, ridge), (A_c, b_c, _) = systems
+                    eps = float(max((res_g.f_x.cpu() - res_c.f_x).abs().max(),
+                                    (res_g.f_baseline.cpu() - res_c.f_baseline).abs().max(), 1e-7))
+                    # A: mask counts times exp weights; b: P weighted f-values (x, w ≤ 1)
+                    _check("lime XᵀWX card vs CPU", _err(A_g, A_c), 1e-5 * float(A_c.abs().max()))
+                    _check("lime XᵀWy card vs CPU", _err(b_g, b_c), 10 * CPU_MASKS * eps)
+                    inv = torch.linalg.inv(A_c.double() + ridge * torch.eye(A_c.shape[-1], dtype=torch.float64))
+                    amp = CPU_MASKS * A_c.shape[-1] ** 0.5 * torch.linalg.matrix_norm(inv, ord=2).float()
+                _perturb_close(f"{method} card vs CPU scores", res_g, res_c, amp)
+            if i == 1:  # warm: where one explanation's time goes
+                _profile(f"vit {method}", lambda: pe.attribute(x, bl, t))
+        print(f"  {method}: wall ms per batch of {B}: {', '.join(f'{w:.2f}' for w in walls)}; "
+              f"replay bit-identical; mean |score| {float(res.attributions.abs().mean()):.3g}, "
+              f"mean δ {float(res.delta.mean()):.3g}")
+    print(f"  peak device memory over the forward-only slice: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
 
 
@@ -815,20 +1012,23 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}")
 
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.lstsq import kernel as lk
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:  # nvcc runs while Triton compiles
-        build = pool.submit(lambda: (fk.load_library(), time.perf_counter() - t0)[1])
+    built = lambda load: (load(), time.perf_counter() - t0)[1]
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per CUDA source, while Triton compiles
+        builds = [pool.submit(built, load) for load in (fk.load_library, lk.load_library)]
         records = kernel_phase()
-        build_s = build.result()
-    print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton builds included); CUDA library "
-          f"built in {build_s:.1f} s beside it")
+        build_s = [b.result() for b in builds]
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s (Triton builds included); CUDA libraries "
+          f"(flash, solve) built in {build_s[0]:.1f} and {build_s[1]:.1f} s beside it")
     t0 = time.perf_counter()
     records += flash_kernel_phase()
-    print(f"flash kernel phase: {time.perf_counter() - t0:.1f} s")
+    records.append(solve_kernel_phase())
+    print(f"CUDA kernel phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
-                        ("vit_idgi", lambda: vit_phase("idgi"))):
+                        ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -844,6 +1044,9 @@ def main() -> int:
             raise AssertionError(f"slice {name}: kernels not launched {missing}")
     if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
         raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
+    fwd_only = {k: n for k, n in slices["vit_fwd"]["launches"].items() if n}
+    if set(fwd_only) != {"flash_fwd", "wls_solve"}:
+        raise AssertionError(f"the forward-only slice launched {fwd_only}, not only flash_fwd and wls_solve")
     for r in records:
         if not r["launches"]:
             raise AssertionError(f"kernel {r['name']} not launched on any slice: {r['launches_by_slice']}")

@@ -245,7 +245,7 @@ class Explainer:
             "fused": self.fused,
             "interp_fn": self.interp_fn,
             "interp_add_fn": self.interp_add_fn,
-            "accum_fn": self.accum_fn or _ACCUM_KERNELS[self.spec.accum],
+            "accum_fn": self.accum_fn or _ACCUM_KERNELS.get(self.spec.accum),
         }
 
     def start(

@@ -102,6 +102,12 @@ def attribute(
     returns ``(IGResult, IGState)``.
     """
     spec = methods_mod.get(method)
+    if spec.forward_only:
+        raise ValueError(
+            f"method {spec.name!r} is forward-only (perturbation class); "
+            "it never differentiates the model — use "
+            "repro_torch.core.perturb.attribute_from_masks / PerturbExplainer"
+        )
     if accum_fn is None:
         accum_fn = spec.accum_fn
     B, feat = x.shape[0], tuple(x.shape[1:])

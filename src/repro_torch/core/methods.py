@@ -17,8 +17,10 @@ stage 2. Registered here:
   expected_grad — expected gradients over a gaussian baseline distribution
                   (``core.baselines.gaussian``), expanded and averaged alike.
 
-``repro.core.methods``' forward-only perturbation methods (occlusion,
-RISE, LIME) wait for ``core/perturb.py``.
+  occlusion, rise, lime — the forward-only perturbation class
+                  (``repro_torch.core.perturb``): the accumulator consumes
+                  f at masked inputs, never a gradient; ``ig.attribute``
+                  refuses these specs.
 
 State contract: an accumulator is additive over schedule nodes and
 homogeneous of degree 1 in the weights, so ``ig.IGState.acc`` scaled by the
@@ -164,6 +166,12 @@ class MethodSpec:
     n_samples: int = 1
     sigma_default: float = 0.1
     grad_linear: bool = True
+    # forward-only perturbation class (``core.perturb``): the accumulator
+    # consumes f VALUES over n_masks binary masks, never a gradient —
+    # ``ig.attribute`` refuses these specs; they run through
+    # ``perturb.attribute_from_masks`` / ``PerturbExplainer``
+    forward_only: bool = False
+    n_masks: int = 0  # default mask budget P (forward-only methods)
     description: str = ""
 
     def row_spec(self) -> "MethodSpec":
@@ -195,13 +203,33 @@ METHODS: dict[str, MethodSpec] = {
 }
 
 
+def _register_forward_only() -> None:
+    from repro_torch.core import perturb  # perturb imports this module only lazily
+
+    for name, n_masks, desc in (
+        ("occlusion", 64, "sliding-window occlusion (mean f-drop per position)"),
+        ("rise", 64, "RISE: random binary keep-masks, E[f | kept] − E[f]"),
+        ("lime", 64, "LIME: weighted ridge regression on position-group masks"),
+    ):
+        update, finalize = perturb._FWD[name][1:]
+        METHODS[name] = MethodSpec(
+            name, name, update, finalize, forward_only=True,
+            grad_linear=False, n_masks=n_masks, description=desc,
+        )
+
+
+_register_forward_only()
+
+
 def get(name: Union[str, MethodSpec]) -> MethodSpec:
     """Look up a registered ``MethodSpec`` by name (specs pass through).
 
         >>> sorted(METHODS)
-        ['expected_grad', 'idgi', 'ig', 'noise_tunnel']
+        ['expected_grad', 'idgi', 'ig', 'lime', 'noise_tunnel', 'occlusion', 'rise']
         >>> get("noise_tunnel").accum  # per row it is the riemann method
         'riemann'
+        >>> get("rise").forward_only  # perturbation class: no gradient
+        True
     """
     if isinstance(name, MethodSpec):
         return name

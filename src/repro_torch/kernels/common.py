@@ -52,6 +52,7 @@ LAUNCHES: dict[str, int] = {
     "flash_fwd": 0,
     "flash_bwd_dq": 0,
     "flash_bwd_dkv": 0,
+    "wls_solve": 0,
 }
 
 
@@ -98,7 +99,7 @@ def check_flat(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple) -> torch
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: expected dtype in {dtypes}, got {t.dtype}")
     if t.device.type != "cuda":
-        raise ValueError(f"{name}: the Triton kernel needs a CUDA tensor, got {t.device}")
+        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {t.device}")
     return t.contiguous()
 
 

@@ -14,7 +14,9 @@ summation order over up to 150,528 terms), its accumulation 1e-5 relative
 to the largest |value|;
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
-order, and one bf16 rounding of each output).
+order, and one bf16 rounding of each output); the Gauss–Jordan solve 1e-6
+of max|β| (the kernel rounds each operation as its plain version does, so
+it is expected to be bit-equal).
 
 The lazy-build test runs everywhere: the package imports and the CPU op runs
 with no ``nvcc`` in reach.
@@ -46,6 +48,9 @@ from repro_torch.kernels.interp_accum.ref import accum_cot_ref, interp_add_ref
 from repro_torch.kernels.interpolate.kernel import interpolate_triton
 from repro_torch.kernels.interpolate.ops import interpolate
 from repro_torch.kernels.interpolate.ref import interpolate_ref
+from repro_torch.kernels.lstsq import ops as lstsq_ops
+from repro_torch.kernels.lstsq import ref as lstsq_ref
+from repro_torch.kernels.lstsq.kernel import wls_solve_cuda
 
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 SHAPES = [(1, 1, 3), (3, 5, 77), (2, 9, 130), (4, 37, 3000), (16, 64, 3072)]  # (B, K, F)
@@ -212,10 +217,90 @@ def test_flash_kernels_match_plain(nvcc_card, dtype, B, S, NQ, NKV, D, causal, r
                                                            lengths=lengths), qg, do)[0], grads[0])
 
 
+def _wls_system(gen, B, N, dtype):
+    """Weighted normal equations of a random binary design with an
+    intercept column, as LIME accumulates them, on the card; 64 masks, or
+    4N where N is larger, so the design has full rank as LIME's has."""
+    P = max(64, 4 * N)
+    X = (torch.rand((B, P, N), generator=gen, device="cuda") < 0.5).to(dtype)
+    X[..., -1] = 1
+    w = torch.rand((B, P), generator=gen, device="cuda").to(dtype)
+    y = torch.randn((B, P), generator=gen, device="cuda").to(dtype)
+    return lstsq_ref.normal_eqs(X, w, y)
+
+
+# (B, N, masked): the LIME slice's shape (16 groups + intercept), a ragged
+# masked shape, and a larger N whose sweep strides over many elements
+WLS_SHAPES = [(16, 17, False), (5, 17, True), (3, 65, False), (2, 3, True), (1, 1, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,N,masked", WLS_SHAPES)
+def test_wls_solve_matches_plain(nvcc_card, dtype, B, N, masked):
+    A, rhs = _wls_system(nvcc_card, B, N, dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((B, N), generator=nvcc_card, device="cuda") > 0.3).to(dtype)
+        mask[:, -1] = 1
+    Ap, bp = lstsq_ref.prepare_normal_eqs(A, rhs, mask, 1e-2)
+    common.reset_launches()
+    got = wls_solve_cuda(Ap, bp)
+    op = lstsq_ops.wls_solve(A, rhs, mask=mask, ridge=1e-2)
+    want = lstsq_ref.gauss_jordan_ref(Ap, bp)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == (B, N)
+    torch.testing.assert_close(got, want, atol=1e-6 * float(want.abs().max()), rtol=0)
+    assert torch.equal(op, got)
+    torch.testing.assert_close(got, lstsq_ref.wls_solve_ref(A, rhs, mask=mask, ridge=1e-2),
+                               atol=1e-3, rtol=1e-3)
+    if masked:
+        assert not bool(got[mask == 0].any())
+    assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES}, "wls_solve": 2}
+
+
+@pytest.mark.cuda
+def test_wls_solve_refuses_what_it_cannot_hold(nvcc_card):
+    """A system larger than a block's shared memory raises; nothing takes
+    the kernel's place."""
+    A = torch.eye(400, device="cuda")[None]
+    with pytest.raises(ValueError, match="shared memory"):
+        wls_solve_cuda(A, torch.ones((1, 400), device="cuda"))
+
+
+@pytest.mark.cuda
+def test_lime_through_the_kernel_matches_the_plain_hook(nvcc_card):
+    """LIME on the card: the default hook (the kernel) against the plain
+    sweep as the hook, on the same masks, ragged rows included."""
+    from repro_torch.core import perturb
+
+    def plain(A, rhs, *, mask=None, ridge=0.0):
+        return lstsq_ref.gauss_jordan_ref(*lstsq_ref.prepare_normal_eqs(A, rhs, mask, ridge))
+
+    def f(xs, t):
+        w = 1.0 + torch.arange(xs.shape[1], dtype=torch.float32, device=xs.device)[None, :, None]
+        return torch.tanh((w * xs).sum((-2, -1)) / 8.0) + 0.01 * (xs**2).sum((-2, -1))
+
+    B, S = 4, 40
+    x = torch.randn((B, S, 3), generator=nvcc_card, device="cuda")
+    mask = (torch.arange(S, device="cuda")[None] < torch.tensor([[40], [33], [20], [7]], device="cuda"))
+    pe = perturb.PerturbExplainer(f, method="lime", n_masks=64, chunk=16, device="cuda")
+    common.reset_launches()
+    got = pe.attribute(x, torch.zeros_like(x), None, mask=mask)
+    assert common.LAUNCHES["wls_solve"] == 1
+    want = perturb.PerturbExplainer(f, method="lime", n_masks=64, chunk=16, device="cuda",
+                                    solve_fn=plain).attribute(x, torch.zeros_like(x), None, mask=mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.attributions, want.attributions,
+                               atol=1e-6 * float(want.attributions.abs().max()), rtol=0)
+    assert not bool(got.attributions[~mask].any())
+    assert common.LAUNCHES["wls_solve"] == 1  # the plain hook launched nothing
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
-    the flash op runs on CPU tensors, no library is loaded, and asking for
-    one raises."""
+    the flash op and the solve op run on CPU tensors, no library is loaded,
+    and asking for one raises."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import importlib, pkgutil, torch, repro_torch\n"
@@ -226,6 +311,9 @@ def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
         "q = torch.randn(2, 5, 2, 4, requires_grad=True)\n"
         "ops.flash_attention(q, q, q).sum().backward()\n"
         "assert q.grad.shape == q.shape and kernel.load_library.cache_info().currsize == 0\n"
+        "from repro_torch.kernels.lstsq import kernel as lk, ops as lo\n"
+        "assert lo.wls_solve(torch.eye(3)[None], torch.ones(1, 3)).shape == (1, 3)\n"
+        "assert lk.load_library.cache_info().currsize == 0\n"
         "assert sum(common.LAUNCHES.values()) == 0\n"
     )
     env = {**os.environ, "PATH": str(Path(sys.executable).parent), "PYTHONPATH": str(src),

@@ -65,10 +65,11 @@ def test_idgi_accum_and_finalize_match_jax(B, K, feat, masked):
 
 
 def test_registry_matches_jax():
-    assert sorted(tmethods.METHODS) == sorted(GRAD_METHODS)
+    assert sorted(tmethods.METHODS) == sorted(jmethods.METHODS)
     for name in GRAD_METHODS:
         js, ts = jmethods.get(name), tmethods.get(name)
-        for field in ("name", "accum", "n_samples", "sigma_default", "grad_linear", "description"):
+        for field in ("name", "accum", "n_samples", "sigma_default", "grad_linear", "forward_only",
+                      "n_masks", "description"):
             assert getattr(ts, field) == getattr(js, field), (name, field)
         assert (ts.expand is None) == (js.expand is None)
         assert ts.expand is None or ts.expand.__name__ == js.expand.__name__
@@ -76,7 +77,7 @@ def test_registry_matches_jax():
         assert row.expand is None and row.n_samples == 1 and row.accum == ts.accum
         assert tmethods.get(ts) is ts
     with pytest.raises(ValueError, match="expected_grad"):
-        tmethods.get("occlusion")
+        tmethods.get("saliency")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
