@@ -20,11 +20,14 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      their plain versions and the op's autograd against the analytic
      oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
      D=64, f32) and at a causal GQA ragged shape (f32 and bf16); timed at
-     the ViT's shape beside the plain version, SDPA and the bound the
-     card's f32 rate sets. The Gauss–Jordan solve kernel against its plain
-     version at the LIME slice's shape (16 systems of 17×17), at a ragged
-     masked shape and at N=65, each timed beside its bound and
-     ``torch.linalg.solve_ex``;
+     the ViT's shape beside the plain version, SDPA pinned to its
+     memory-efficient backend (named in the output) and the bound at f32
+     accuracy on the tensor cores (3xTF32: three TF32 products per f32
+     product, or the bytes, whichever is larger), with the backward pair's
+     summed time against one SDPA backward. The Gauss–Jordan solve kernel
+     against its plain version at the LIME slice's shape (16 systems of
+     17×17), at a ragged masked shape and at N=65, each timed beside its
+     bound and ``torch.linalg.solve_ex``;
   4. the CNN slice — the paper CNN at ``CnnConfig()`` width with seeded
      random weights answers 4 batches of 16 seeded images through
      ``Explainer(method="ig", schedule="paper", m=64, n_int=4)``: fixed-m
@@ -76,6 +79,7 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
 B, K, F = 16, 64, 3072  # the CNN path's stage-2 shape: 16 images, m=64, 32·32·3
 VIT_STAGE2 = (16, 16, 224 * 224 * 3)  # the ViT path's: 16 images, chunk=16 steps
 VIT_ATTN = (16 * 16, 196, 6, 6, 64)  # (B·chunk, S, NQ, NKV, D) of the ViT's attention
@@ -136,9 +140,17 @@ def _check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: error {err} above tolerance {tol}")
 
 
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def _bound(nbytes: int, flops: int, tf32x3: bool = False) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the card's memory
+    rate and the operations over its f32 rate, or, with ``tf32x3``, three
+    TF32 tensor-core operations per f32 operation (f32 accuracy on the
+    tensor cores) over the TF32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if tf32x3:
+        t_ops, ops = 3 * flops / TF32_FLOPS, "operations (3xTF32)"
+    else:
+        t_ops, ops = flops / FP32_FLOPS, "operations"
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else ops
 
 
 def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
@@ -201,7 +213,7 @@ def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
 def _record(s: dict, route: str, err: float, tol: float) -> dict:
     """Time one kernel spec, its plain version and its library call, beside
     its bound; the kernel's record for the kernels line."""
-    bound_ms, bound_by = _bound(s["nbytes"], s["flops"])
+    bound_ms, bound_by = _bound(s["nbytes"], s["flops"], s.get("tf32x3", False))
     return {
         "name": s["name"], "route": route, "source": s["source"], "replaces": s["replaces"],
         "launches": 0, "max_abs_err": err, "tolerance": tol,
@@ -376,9 +388,11 @@ def _flash_check(g, Bq, S, NQ, NKV, D, dtype, causal, ragged) -> dict:
 def flash_kernel_phase() -> list[dict]:
     """The three CUDA flash kernels against their plain versions at the ViT
     slice's attention shape and at a causal GQA ragged shape (f32, bf16);
-    timed at the ViT's shape beside their plain versions, SDPA and the
-    bound. One record each."""
+    timed at the ViT's shape beside their plain versions, SDPA (its
+    memory-efficient backend, which runs f32 as 3xTF32 on the tensor cores)
+    and the 3xTF32 bound. One record each."""
     import torch.nn.functional as tnf
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
 
@@ -395,8 +409,16 @@ def flash_kernel_phase() -> list[dict]:
     delta = (do * o).sum(-1)
     args = (q, k, v, do, lse, delta, kvlen)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    o_sdpa = tnf.scaled_dot_product_attention(*leaves)
+    backend = SDPBackend.EFFICIENT_ATTENTION
+
+    def sdpa_fwd():
+        with sdpa_kernel(backend):
+            return tnf.scaled_dot_product_attention(q, k, v)
+
+    with sdpa_kernel(backend):  # the backward runs the backend the forward chose
+        o_sdpa = tnf.scaled_dot_product_attention(*leaves)
     sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
+    print(f"  SDPA yardstick: backend {backend.name}, backward node {type(o_sdpa.grad_fn).__name__}")
     qkv_bytes, row_bytes = 4 * Bq * S * D * (NQ + 2 * NKV), 4 * Bq * NQ * S
     q_bytes, kv_bytes = 4 * Bq * NQ * S * D, 4 * Bq * NKV * S * D
     work = Bq * NQ * S * S * D
@@ -406,8 +428,7 @@ def flash_kernel_phase() -> list[dict]:
         dict(name="flash_fwd", replaces=replaces + "99",
              kernel=lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=False),
              plain=lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=False),
-             library=lambda: tnf.scaled_dot_product_attention(q, k, v),
-             nbytes=qkv_bytes + q_bytes + row_bytes, flops=4 * work),
+             library=sdpa_fwd, nbytes=qkv_bytes + q_bytes + row_bytes, flops=4 * work),
         dict(name="flash_bwd_dq", replaces=replaces + "212",
              kernel=lambda: fk.flash_bwd_dq_cuda(*args, causal=False),
              plain=lambda: fr.flash_bwd_dq_ref(*args, causal=False), library=sdpa_bwd,
@@ -419,10 +440,13 @@ def flash_kernel_phase() -> list[dict]:
     ]
     records = []
     for s in specs:
-        r = _record(dict(s, source=src), "cuda", errs[s["name"]], FLASH_TOL[torch.float32])
+        r = _record(dict(s, source=src, tf32x3=True), "cuda", errs[s["name"]], FLASH_TOL[torch.float32])
         records.append(r)
         print(f"  {s['name']} at the ViT shape: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    pair, sdpa = records[1]["ms"] + records[2]["ms"], records[1]["library_ms"]
+    print(f"  backward pair (flash_bwd_dq + flash_bwd_dkv): {pair:.4f} ms against one SDPA backward "
+          f"({backend.name}) {sdpa:.4f} ms, ratio {pair / sdpa:.3f}")
     return records
 
 

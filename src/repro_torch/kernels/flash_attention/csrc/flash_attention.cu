@@ -1,5 +1,5 @@
-// Flash attention for sm_90a: the forward, dQ and dK/dV kernels, in plain
-// CUDA C++ with f32 accumulation, bound to Python through ctypes
+// Flash attention for sm_90a: the forward, dQ and dK/dV kernels, in CUDA
+// C++ with f32 accumulation, bound to Python through ctypes
 // (src/repro_torch/kernels/flash_attention/kernel.py).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:
@@ -14,23 +14,67 @@
 // with delta = rowsum(dO O) computed outside, and the scale applied where the
 // Pallas kernels apply it (on Q before Q K^T in the forward, on Q K^T and on
 // the final dQ/dK sums in the backward). Rows with no valid key give O = 0
-// and zero gradients.
+// and zero gradients. Nothing is summed across blocks and no atomics are
+// used, so every output is the same bits on every run.
 //
 // Bound on the H100: operations. At the ViT's shape (256 images, 6 heads,
 // S = 196, D = 64, f32) the forward does 4 S^2 D flops per (image, head)
-// for 2 (S D) reads, about 100 flops per byte. Design, simple before fast:
-// one block of 256 threads (a 16 x 16 grid) per (batch, head, 64-row tile);
-// tiles are staged in shared memory as f32 with an odd row stride, so column
-// reads are free of bank conflicts; every thread owns a 4 x 4 piece of each
-// score tile and a 4 x (DMAX/16) piece of each accumulator, in registers.
-// The K/V (forward, dQ) or Q/dO (dK/dV) sweep is a loop inside the block,
-// in a fixed order, and nothing is summed across blocks: no atomics, so the
-// gradients are the same bits on every run. Tiles in the causal future or
-// past kvlen are skipped; ragged tile edges are masked loads, not copies.
-// Tensor cores, TMA and wgmma are left for later work.
+// for 2 (S D) reads, about 100 flops per byte; the backward pair 14 S^2 D.
+//
+// Forward (simple before fast; the next redesign): one block of 256 threads
+// (a 16 x 16 grid) per (batch, head, 64-row tile), tiles staged in shared
+// memory as f32 with an odd row stride, plain f32 FMAs, each thread a 4 x 4
+// piece of each score tile in registers.
+//
+// Backward (dQ, dK/dV), designed for Hopper's tensor cores:
+// - Products: mma.sync m16n8k8 TF32 in 3xTF32. Each f32 operand is split as
+//   big = tf32(x), small = tf32(x - big), both rounded as cvt.rna rounds
+//   (to nearest, ties away; done with two integer operations, which are
+//   cheaper than cvt.rna's own sequence on sm_90a), and c += a b is taken as
+//   a.small b.big + a.big b.small + a.big b.big with f32 accumulation (the
+//   scheme of CUTLASS's OpMultiplyAddFastF32; dK and dV leave the tensor
+//   core's accumulator after every fragment, see flush): about f32
+//   accuracy, where one TF32 product keeps three decimal digits and would
+//   break the 1e-4 tolerance. bf16 inputs are exact in tf32 (their small part is 0, so
+//   those terms are skipped); P and dS are f32 and always split. wgmma is
+//   not used: for tf32 it takes both operands K-major only, and dS K and
+//   dS^T Q read K and Q along the sequence, which would need transposed
+//   copies in shared memory.
+// - Blocks of 8 warps (4 above D = 64), each warp a 16-row strip. dQ: one
+//   block per (b, h, 128 query rows), sweeping K/V in 16-key tiles. dK/dV:
+//   one block per (b, hk, 128 key rows), K and V staged once, sweeping the
+//   G heads of the group and the live 16-row Q tiles, dK and dV in
+//   registers throughout. Above D = 64 two warps share a strip, each owning
+//   half of the output columns.
+// - The swept tiles are fed by cp.async, double-buffered: the next tile's
+//   copies are in flight while the current one is multiplied (16-byte
+//   copies when every row is 16-byte aligned, else 4-byte; bf16 is
+//   converted to f32 on the way, through registers). Ragged edges are
+//   zero-filled by the copy. Every warp reads the swept tile as its B
+//   operand, so each thread splits the elements it copied, once, into a big
+//   and a small tile, instead of every warp splitting every fragment it
+//   loads; the rows a warp owns (its A operand) are split as they are read.
+// - Dead work is cut at fragment granularity: a warp whose 16 rows lie past
+//   Sq (or whose keys lie past kvlen) does no product, and an 8-wide
+//   fragment wholly past kvlen, past Sq or in the causal future is skipped.
+//   At S = 196 the last block's live warps carry 16, 16, 16 and 4 rows.
+//   A tile whose every score is kept takes a path without per-element mask
+//   tests; a tile with dead fragments, one with per-fragment tests.
+// - Shared memory: K is read both as K^T (the B operand of Q K^T, along D)
+//   and as K (the B operand of dS K, along keys), Q and dO likewise. The
+//   depth of dS K (and P^T dO, dS^T Q) is permuted: depth tg is row 2 tg,
+//   depth tg + 4 row 2 tg + 1, so the accumulator layout of S (columns
+//   2 tg, 2 tg + 1) is already dS's A fragment (no shuffle, no shared-memory
+//   round trip). Rows are DMAX + 4 floats apart: a K^T read (8 rows, 4
+//   columns) hits banks 4 g + tg, a permuted K read (rows 2 tg + e,
+//   8 columns) banks 8 tg + g, both 32 distinct, and every address is a
+//   lane base plus a constant.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -208,27 +252,273 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
 }
 
+// ------------------------------------------- backward: tensor-core building blocks
+
+// x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
+// ties away from zero): half a tf32 ulp added to the magnitude bits, the 13
+// low mantissa bits cleared. Two integer operations, where cvt.rna compiles
+// to a longer sequence on sm_90a.
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// N fragment registers of one mma operand. With SPLIT, x = big + small up
+// to 2^-22 |x| (3xTF32); without it (bf16 inputs, exact in tf32) small is 0
+// and never read.
+template <int N, bool SPLIT>
+struct Frag {
+  uint32_t big[N], small[N];
+  __device__ __forceinline__ void set(int i, float x) {
+    if (SPLIT) {
+      big[i] = to_tf32(x);
+      small[i] = to_tf32(x - __uint_as_float(big[i]));
+    } else {
+      big[i] = __float_as_uint(x);
+    }
+  }
+  // from a tile split once by split_rows: the big part at x[0], the small
+  // at x[soff] (bf16: the value, exact in tf32, at x[0])
+  __device__ __forceinline__ void set_pre(int i, const float* x, int soff) {
+    big[i] = __float_as_uint(x[0]);
+    if (SPLIT) small[i] = __float_as_uint(x[soff]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32: the small cross terms first, then big * big, as
+// CUTLASS's OpMultiplyAddFastF32 orders them; a term whose small part is 0
+// is skipped.
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma3(float c[4], const Frag<4, SA>& a, const Frag<2, SB>& b) {
+  if (SA) mma_tf32(c, a.small, b.big);
+  if (SB) mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// A partial sum t, taken in a zeroed accumulator, joins a sweep-long sum in
+// f32 with round-to-nearest adds. The tensor core's accumulation does not
+// round to nearest: kept in its accumulator over a whole sweep (G Sq = 1,332
+// queries at chip_smoke.py's causal GQA shape), dV was 0.365 of the 1e-4
+// tolerance from its plain version on the card, 0.081 with this flush after
+// every fragment. dQ's sweep is Sk keys; it stays at 0.044 without one, so
+// dQ keeps its sum in the tensor core.
+__device__ __forceinline__ void flush(float acc[4], const float t[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// Fragment reads from a staged tile of rows LD = DMAX + 4 floats apart
+// (see the header note: free of bank conflicts for all three patterns).
+// A: rows m0..m0+15, columns k0..k0+7.
+template <int LD, bool S>
+__device__ __forceinline__ void load_a(Frag<4, S>& f, const float* t, int m0, int k0, int g, int tg) {
+  const float* r = t + (m0 + g) * LD + k0 + tg;
+  f.set(0, r[0]);
+  f.set(1, r[8 * LD]);
+  f.set(2, r[4]);
+  f.set(3, r[8 * LD + 4]);
+}
+
+// B fragments, from a swept tile split by split_rows: its big parts, then
+// its small parts SOFF floats on.
+// B of X^T: X's rows n0..n0+7 are the columns, its columns k0..k0+7 the
+// depth (Q K^T, dO V^T and their transposes).
+template <int LD, int SOFF, bool S>
+__device__ __forceinline__ void load_bt(Frag<2, S>& f, const float* t, int n0, int k0, int g, int tg) {
+  const float* r = t + (n0 + g) * LD + k0 + tg;
+  f.set_pre(0, r, SOFF);
+  f.set_pre(1, r + 4, SOFF);
+}
+
+// B of X along its rows k0..k0+7, columns n0..n0+7, the depth permuted to
+// match a_from_acc: depth tg is row k0 + 2 tg, depth tg + 4 row k0 + 2 tg + 1
+// (dS K, P^T dO, dS^T Q).
+template <int LD, int SOFF, bool S>
+__device__ __forceinline__ void load_b(Frag<2, S>& f, const float* t, int k0, int n0, int g, int tg) {
+  const float* r = t + (k0 + 2 * tg) * LD + n0 + g;
+  f.set_pre(0, r, SOFF);
+  f.set_pre(1, r + LD, SOFF);
+}
+
+// An accumulator fragment (rows g, g + 8; columns 2 tg, 2 tg + 1) taken as
+// an A fragment under load_b's permuted depth: no shuffle, no shared memory.
+__device__ __forceinline__ void a_from_acc(Frag<4, true>& f, const float c[4]) {
+  f.set(0, c[0]);
+  f.set(1, c[2]);
+  f.set(2, c[1]);
+  f.set(3, c[3]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of a (nrows, D) slab with row stride ss into an f32
+// tile of rows LD floats apart, columns [0, DK8); rows at or past nrows and
+// columns at or past D become 0. f32 goes through cp.async (16-byte chunks
+// when vec, else 4-byte words; a zero source size fills zeros); bf16 is
+// converted on the way, through registers. NTH threads share the copy.
+template <typename T, int LD, int NTH>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, long long ss, int row0, int R,
+                                           int nrows, int D, int DK8, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      const int cpr = DK8 >> 2;
+      for (int e = threadIdx.x; e < R * cpr; e += NTH) {
+        const int r = e / cpr, c = 4 * (e - r * cpr), row = row0 + r;
+        const bool ok = row < nrows && c < D;
+        cp_async16(dst + r * LD + c, ok ? src + row * ss + c : src, ok);
+      }
+      return;
+    }
+  }
+  for (int e = threadIdx.x; e < R * DK8; e += NTH) {
+    const int r = e / DK8, c = e - r * DK8, row = row0 + r;
+    const bool ok = row < nrows && c < D;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async4(dst + r * LD + c, ok ? src + row * ss + c : src, ok);
+    } else {
+      dst[r * LD + c] = ok ? Cvt<T>::load(src[row * ss + c]) : 0.f;
+    }
+  }
+}
+
+// Splits, in place, the f32 elements this thread copied into a tile with
+// stage_rows (the same assignment of elements to threads, so its own
+// cp.async copies are complete after cp.async.wait_group and no barrier is
+// needed first): the big part stays, the small part goes SOFF floats on.
+template <int LD, int NTH>
+__device__ __forceinline__ void split_rows(float* t, int R, int DK8, int soff, bool vec) {
+  auto split = [&](float* x) {
+    const float v = *x;
+    const uint32_t bg = to_tf32(v);
+    x[0] = __uint_as_float(bg);
+    x[soff] = __uint_as_float(to_tf32(v - __uint_as_float(bg)));
+  };
+  if (vec) {
+    const int cpr = DK8 >> 2;
+    for (int e = threadIdx.x; e < R * cpr; e += NTH) {
+      const int r = e / cpr, c = 4 * (e - r * cpr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(t + r * LD + c + i);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * DK8; e += NTH) {
+      const int r = e / DK8;
+      split(t + r * LD + e - r * DK8);
+    }
+  }
+}
+
+// What a thread needs of its two rows (query rows in dQ, key rows in dK/dV)
+// and of the mask, for one tile's products.
+struct Lane {
+  int g, tg, m0, n0d, DK8, Sq, kvlen;
+  bool causal;
+  float scale;
+};
+
 // ----------------------------------------------------------------------- dQ
-// grid (ceil(Sq / BT), NQ, B). Shared: Qs, DOs, Ks, Vs (BT x LD), Ps (BT x LP),
-// lse and delta of the tile's rows.
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(NT) flash_dq_kernel(const Params p) {
-  constexpr int TM = BT / 16, TD = DMAX / 16, LD = DMAX + 1, LP = BT + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* DOs = Qs + BT * LD;
-  float* Ks = DOs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* Ps = Vs + BT * LD;
-  float* lse_s = Ps + BT * LP;
-  float* delta_s = lse_s + BT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
+// One K/V tile's products for the warp: S = Q K^T and dP = dO V^T over
+// the live key fragments (all of them when FULL), P and dS in registers
+// (the keep test only when MASKED), then dQ += dS K.
+template <bool SPLIT, int DMAX, int DSPLIT, int BK, bool FULL, bool MASKED>
+__device__ __forceinline__ void dq_tile(float (&acc)[DMAX / DSPLIT / 8][4], const Lane& L, const float* Qs,
+                                        const float* DOs, const float* Kt, const float* Vt, int k0,
+                                        int nlive, int r0, const float lse[2], const float dl[2]) {
+  constexpr int LD = DMAX + 4, NKF = BK / 8, NDF = DMAX / DSPLIT / 8, SOFF = BK * LD;
+  float s[NKF][4] = {}, dp[NKF][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < DMAX / 8; ++ks) {
+    if (8 * ks >= L.DK8) break;
+    Frag<4, SPLIT> qa, ga;
+    load_a<LD>(qa, Qs, L.m0, 8 * ks, L.g, L.tg);
+    load_a<LD>(ga, DOs, L.m0, 8 * ks, L.g, L.tg);
+#pragma unroll
+    for (int n = 0; n < NKF; ++n) {
+      if (FULL || n < nlive) {
+        Frag<2, SPLIT> kb, vb;
+        load_bt<LD, SOFF>(kb, Kt, 8 * n, 8 * ks, L.g, L.tg);
+        load_bt<LD, SOFF>(vb, Vt, 8 * n, 8 * ks, L.g, L.tg);
+        mma3(s[n], qa, kb);
+        mma3(dp[n], ga, vb);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {  // P, then dS = P (dP - delta), in place of S
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pv = expf(s[n][e] * L.scale - lse[e >> 1]);
+      if (MASKED) {
+        const int row = r0 + 8 * (e >> 1), key = k0 + 8 * n + 2 * L.tg + (e & 1);
+        if (!(row < L.Sq && keep_score(row, key, L.kvlen, L.causal))) pv = 0.f;
+      }
+      s[n][e] = pv * (dp[n][e] - dl[e >> 1]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {  // dQ += dS K over the tile's keys
+    if (FULL || n < nlive) {
+      Frag<4, true> da;
+      a_from_acc(da, s[n]);
+#pragma unroll
+      for (int j = 0; j < NDF; ++j) {
+        if (L.n0d + 8 * j < L.DK8) {
+          Frag<2, SPLIT> kb;
+          load_b<LD, SOFF>(kb, Kt, 8 * n, L.n0d + 8 * j, L.g, L.tg);
+          mma3(acc[j], da, kb);
+        }
+      }
+    }
+  }
+}
+
+// grid (ceil(Sq / BM), NQ, B), BM = 16 NWARP / DSPLIT query rows. Warp w owns
+// rows 16 (w / DSPLIT) .. + 15 of the tile and output columns
+// (w % DSPLIT) DMAX / DSPLIT .. + DMAX / DSPLIT - 1. Shared: Qs, DOs (BM rows),
+// two K and two V buffers (BK rows each, split: big parts, then small parts).
+template <typename T, int DMAX, int NWARP, int MINB, int DSPLIT, int BK>
+__global__ void __launch_bounds__(32 * NWARP, MINB) flash_dq_kernel(const Params p, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NTH = 32 * NWARP, LD = DMAX + 4, BM = 16 * NWARP / DSPLIT, NKF = BK / 8;
+  constexpr int NDF = DMAX / DSPLIT / 8;
+  extern __shared__ float4 smem_v[];
+  float* Qs = reinterpret_cast<float*>(smem_v);
+  float* DOs = Qs + BM * LD;
+  constexpr int KV = 2 * BK * LD;  // one split K or V buffer
+  float* Ks = DOs + BM * LD;
+  float* Vs = Ks + 2 * KV;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
   const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
   const int hk = h / (int)(p.NQ / p.NKV);
-  const int kvlen = min(max(p.kvlen[b], 0), Sk);
-  const bool causal = p.causal != 0;
-  const float scale = (float)p.scale;
+  Lane L;
+  L.g = (threadIdx.x & 31) >> 2;
+  L.tg = threadIdx.x & 3;
+  L.m0 = (warp / DSPLIT) * 16;
+  L.n0d = (warp % DSPLIT) * (DMAX / DSPLIT);
+  L.DK8 = (D + 7) & ~7;
+  L.Sq = Sq;
+  L.kvlen = min(max(p.kvlen[b], 0), Sk);
+  L.causal = p.causal != 0;
+  L.scale = (float)p.scale;
   const T* q = static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
   const T* dout = static_cast<const T*>(p.dout) + b * p.st[DOUT][0] + h * p.st[DOUT][1];
   const T* k = static_cast<const T*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
@@ -236,270 +526,318 @@ __global__ void __launch_bounds__(NT) flash_dq_kernel(const Params p) {
   T* dq = static_cast<T*>(p.dq) + b * p.st[DQ][0] + h * p.st[DQ][1];
   const long long row_base = ((long long)b * p.NQ + h) * Sq;
 
-  for (int e = threadIdx.x; e < 4 * BT * LD + BT * LP; e += NT) smem[e] = 0.f;
-  __syncthreads();
-  load_rows<T, BT, LD>(Qs, q, p.st[Q][2], q0, Sq, D, 1.f);
-  load_rows<T, BT, LD>(DOs, dout, p.st[DOUT][2], q0, Sq, D, 1.f);
-  if (threadIdx.x < BT) {
-    const int qi = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = qi < Sq ? p.lse[row_base + qi] : 0.f;
-    delta_s[threadIdx.x] = qi < Sq ? p.delta[row_base + qi] : 0.f;
-  }
+  const int rw = q0 + L.m0, r0 = rw + L.g, r1 = r0 + 8;  // the warp's first row, the thread's two
+  const float lse[2] = {r0 < Sq ? p.lse[row_base + r0] : 0.f, r1 < Sq ? p.lse[row_base + r1] : 0.f};
+  const float dl[2] = {r0 < Sq ? p.delta[row_base + r0] : 0.f, r1 < Sq ? p.delta[row_base + r1] : 0.f};
+  const bool live = rw < Sq;  // a warp wholly past Sq does no product
+  int klim = L.kvlen;         // keys the warp's rows can see
+  if (L.causal) klim = min(klim, min(rw + 16, Sq));
+  int kend = L.kvlen;  // keys any row of the block can see
+  if (L.causal) kend = min(kend, min(q0 + BM, Sq));
+  const int nk = (kend + BK - 1) / BK;
 
-  float acc[TM][TD];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TD; ++c) acc[r][c] = 0.f;
-  int nk = (kvlen + BT - 1) / BT;
-  if (causal) nk = min(nk, (int)blockIdx.x + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_rows<T, BT, LD>(Ks, k, p.st[K][2], k0, Sk, D, 1.f);
-    load_rows<T, BT, LD>(Vs, v, p.st[V][2], k0, Sk, D, 1.f);
-    __syncthreads();
-    float s[TM][TM], dp[TM][TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) s[r][j] = dp[r][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[TM], g[TM], kc[TM], vc[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        a[r] = Qs[(ty * TM + r) * LD + d];
-        g[r] = DOs[(ty * TM + r) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        kc[j] = Ks[(tx + 16 * j) * LD + d];
-        vc[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) {
-          s[r][j] = fmaf(a[r], kc[j], s[r][j]);
-          dp[r][j] = fmaf(g[r], vc[j], dp[r][j]);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int i = ty * TM + r, qi = q0 + i;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const bool keep = qi < Sq && keep_score(qi, k0 + tx + 16 * j, kvlen, causal);
-        const float pv = keep ? expf(s[r][j] * scale - lse_s[i]) : 0.f;
-        Ps[i * LP + tx + 16 * j] = pv * (dp[r][j] - delta_s[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < BT; ++j) {
-      float a[TM], c[TD];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = Ps[(ty * TM + r) * LP + j];
-#pragma unroll
-      for (int cc = 0; cc < TD; ++cc) c[cc] = Ks[j * LD + tx + 16 * cc];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int cc = 0; cc < TD; ++cc) acc[r][cc] = fmaf(a[r], c[cc], acc[r][cc]);
-    }
+  if (nk > 0) {
+    stage_rows<T, LD, NTH>(Qs, q, p.st[Q][2], q0, BM, Sq, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(DOs, dout, p.st[DOUT][2], q0, BM, Sq, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(Ks, k, p.st[K][2], 0, BK, Sk, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(Vs, v, p.st[V][2], 0, BK, Sk, D, L.DK8, vec);
   }
+  cp_async_commit();
+
+  float acc[NDF][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {  // the next tile's copies run while this one is used
+      const int nxt = (kt + 1) * BK;
+      stage_rows<T, LD, NTH>(Ks + (cur ^ 1) * KV, k, p.st[K][2], nxt, BK, Sk, D, L.DK8, vec);
+      stage_rows<T, LD, NTH>(Vs + (cur ^ 1) * KV, v, p.st[V][2], nxt, BK, Sk, D, L.DK8, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (SPLIT) {  // once for all warps, not once per warp and fragment
+      split_rows<LD, NTH>(Ks + cur * KV, BK, L.DK8, BK * LD, vec);
+      split_rows<LD, NTH>(Vs + cur * KV, BK, L.DK8, BK * LD, vec);
+    }
+    __syncthreads();
+    const int k0 = kt * BK;
+    const int nlive = min(max((klim - k0 + 7) >> 3, 0), NKF);  // key fragments with a live key
+    if (live && nlive > 0) {
+      const float* Kt = Ks + cur * KV;
+      const float* Vt = Vs + cur * KV;
+      // every score of the tile kept: no key at or past kvlen, no row past
+      // Sq, no key in the causal future of the warp's first row
+      const bool clear = k0 + BK <= L.kvlen && rw + 16 <= Sq && (!L.causal || k0 + BK - 1 <= rw);
+      if (nlive < NKF)
+        dq_tile<SPLIT, DMAX, DSPLIT, BK, false, true>(acc, L, Qs, DOs, Kt, Vt, k0, nlive, r0, lse, dl);
+      else if (!clear)
+        dq_tile<SPLIT, DMAX, DSPLIT, BK, true, true>(acc, L, Qs, DOs, Kt, Vt, k0, nlive, r0, lse, dl);
+      else
+        dq_tile<SPLIT, DMAX, DSPLIT, BK, true, false>(acc, L, Qs, DOs, Kt, Vt, k0, nlive, r0, lse, dl);
+    }
+    __syncthreads();  // the buffer is refilled next iteration
+  }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int qi = q0 + ty * TM + r;
-    if (qi >= Sq) continue;
+  for (int j = 0; j < NDF; ++j) {
 #pragma unroll
-    for (int cc = 0; cc < TD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) dq[qi * p.st[DQ][2] + d] = Cvt<T>::store(acc[r][cc] * scale);
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e >> 1), d = L.n0d + 8 * j + 2 * L.tg + (e & 1);
+      if (row < Sq && d < D) dq[row * p.st[DQ][2] + d] = Cvt<T>::store(acc[j][e] * L.scale);
     }
   }
 }
 
 // -------------------------------------------------------------------- dK/dV
-// grid (ceil(Sk / BT), NKV, B). The block owns one K/V tile and sweeps the G
-// query heads of its group and every live Q tile, as the Pallas grid's two
-// innermost sequential axes do. Shared: Ks, Vs, Qs, DOs (BT x LD), Ps
-// (BT x LP, P^T and then dS^T), lse and delta of the Q tile's rows. The
-// thread's tile rows are K rows here: j = ty * TM + r, Q columns i = tx + 16 c.
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(NT) flash_dkv_kernel(const Params p) {
-  constexpr int TM = BT / 16, TD = DMAX / 16, LD = DMAX + 1, LP = BT + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BT * LD;
-  float* Qs = Vs + BT * LD;
-  float* DOs = Qs + BT * LD;
-  float* Ps = DOs + BT * LD;
-  float* lse_s = Ps + BT * LP;
-  float* delta_s = lse_s + BT;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BT;
+// One (head, Q tile) step's products for the warp: S^T = K Q^T and
+// dP^T = V dO^T over the query fragments [nlo, nhi) (all when FULL), P^T
+// and dS^T in registers (the keep test only when MASKED), then dV += P^T dO
+// and dK += dS^T Q.
+template <bool SPLIT, int DMAX, int DSPLIT, int BQ, bool FULL, bool MASKED>
+__device__ __forceinline__ void dkv_tile(float (&dka)[DMAX / DSPLIT / 8][4], float (&dva)[DMAX / DSPLIT / 8][4],
+                                         const Lane& L, const float* Ks, const float* Vs, const float* Qt,
+                                         const float* Gt, const float* ls, const float* dls, int q0, int nlo,
+                                         int nhi, int j_0) {
+  constexpr int LD = DMAX + 4, NQF = BQ / 8, NDF = DMAX / DSPLIT / 8, SOFF = BQ * LD;
+  float s[NQF][4] = {}, dp[NQF][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < DMAX / 8; ++ks) {
+    if (8 * ks >= L.DK8) break;
+    Frag<4, SPLIT> ka, va;
+    load_a<LD>(ka, Ks, L.m0, 8 * ks, L.g, L.tg);
+    load_a<LD>(va, Vs, L.m0, 8 * ks, L.g, L.tg);
+#pragma unroll
+    for (int n = 0; n < NQF; ++n) {
+      if (FULL || (n >= nlo && n < nhi)) {
+        Frag<2, SPLIT> qb, gb;
+        load_bt<LD, SOFF>(qb, Qt, 8 * n, 8 * ks, L.g, L.tg);
+        load_bt<LD, SOFF>(gb, Gt, 8 * n, 8 * ks, L.g, L.tg);
+        mma3(s[n], ka, qb);
+        mma3(dp[n], va, gb);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NQF; ++n) {  // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 8 * n + 2 * L.tg + (e & 1);
+      float pv = expf(s[n][e] * L.scale - ls[i]);
+      if (MASKED) {
+        const int qi = q0 + i, key = j_0 + 8 * (e >> 1);
+        if (!(qi < L.Sq && keep_score(qi, key, L.kvlen, L.causal))) pv = 0.f;
+      }
+      s[n][e] = pv;
+      dp[n][e] = pv * (dp[n][e] - dls[i]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NQF; ++n) {  // dV += P^T dO, dK += dS^T Q over the tile's queries
+    if (FULL || (n >= nlo && n < nhi)) {
+      Frag<4, true> pa, da;
+      a_from_acc(pa, s[n]);
+      a_from_acc(da, dp[n]);
+#pragma unroll
+      for (int j = 0; j < NDF; ++j) {
+        if (L.n0d + 8 * j < L.DK8) {
+          Frag<2, SPLIT> gb, qb;
+          load_b<LD, SOFF>(gb, Gt, 8 * n, L.n0d + 8 * j, L.g, L.tg);
+          load_b<LD, SOFF>(qb, Qt, 8 * n, L.n0d + 8 * j, L.g, L.tg);
+          float tv[4] = {}, tk[4] = {};
+          mma3(tv, pa, gb);
+          mma3(tk, da, qb);
+          flush(dva[j], tv);
+          flush(dka[j], tk);
+        }
+      }
+    }
+  }
+}
+
+// grid (ceil(Sk / BN), NKV, B), BN = 16 NWARP / DSPLIT key rows. The block
+// owns one K/V tile and sweeps the G query heads of its group and every live
+// Q tile of BQ rows, as the Pallas grid's two innermost sequential axes do;
+// dK and dV stay in registers for the whole sweep. Warp w owns key rows
+// 16 (w / DSPLIT) .. + 15 and output columns as in dQ. Shared: Ks, Vs (BN
+// rows), two Q, two dO buffers (BQ rows each, split: big parts, then small
+// parts), two lse and two delta rows.
+template <typename T, int DMAX, int NWARP, int MINB, int DSPLIT, int BQ>
+__global__ void __launch_bounds__(32 * NWARP, MINB) flash_dkv_kernel(const Params p, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NTH = 32 * NWARP, LD = DMAX + 4, BN = 16 * NWARP / DSPLIT, NQF = BQ / 8;
+  constexpr int NDF = DMAX / DSPLIT / 8;
+  extern __shared__ float4 smem_v[];
+  float* Ks = reinterpret_cast<float*>(smem_v);
+  float* Vs = Ks + BN * LD;
+  constexpr int QB = 2 * BQ * LD;  // one split Q or dO buffer
+  float* Qs = Vs + BN * LD;
+  float* DOs = Qs + 2 * QB;
+  float* lse_s = DOs + 2 * QB;
+  float* dl_s = lse_s + 2 * BQ;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BN;
   const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
   const int G = (int)(p.NQ / p.NKV);
-  const int kvlen = min(max(p.kvlen[b], 0), Sk);
-  const bool causal = p.causal != 0;
-  const float scale = (float)p.scale;
+  Lane L;
+  L.g = (threadIdx.x & 31) >> 2;
+  L.tg = threadIdx.x & 3;
+  L.m0 = (warp / DSPLIT) * 16;
+  L.n0d = (warp % DSPLIT) * (DMAX / DSPLIT);
+  L.DK8 = (D + 7) & ~7;
+  L.Sq = Sq;
+  L.kvlen = min(max(p.kvlen[b], 0), Sk);
+  L.causal = p.causal != 0;
+  L.scale = (float)p.scale;
   const T* k = static_cast<const T*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
   const T* v = static_cast<const T*>(p.v) + b * p.st[V][0] + hk * p.st[V][1];
   T* dk = static_cast<T*>(p.dk) + b * p.st[DK][0] + hk * p.st[DK][1];
   T* dv = static_cast<T*>(p.dv) + b * p.st[DV][0] + hk * p.st[DV][1];
 
-  for (int e = threadIdx.x; e < 4 * BT * LD + BT * LP; e += NT) smem[e] = 0.f;
-  __syncthreads();
-  load_rows<T, BT, LD>(Ks, k, p.st[K][2], k0, Sk, D, 1.f);
-  load_rows<T, BT, LD>(Vs, v, p.st[V][2], k0, Sk, D, 1.f);
-
-  float dka[TM][TD], dva[TM][TD];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < TD; ++c) dka[r][c] = dva[r][c] = 0.f;
-  const int nq = (Sq + BT - 1) / BT;
+  const int j0 = k0 + L.m0, j_0 = j0 + L.g, j_1 = j_0 + 8;  // the warp's first key, the thread's two
+  const bool live = j0 < L.kvlen;  // keys at or past kvlen are masked for every query
+  const int nq = (Sq + BQ - 1) / BQ;
   // a tile past kvlen has no valid key; causal Q tiles wholly before k0 are dead
-  const int qt0 = k0 >= kvlen ? nq : (causal ? (int)blockIdx.x : 0);
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
+  const int qt0 = k0 >= L.kvlen ? nq : (L.causal ? k0 / BQ : 0);
+  const int per = nq - qt0, total = G * per;  // (head, Q tile) steps, head outermost
+
+  auto stage_q = [&](int it, int buf) {
+    const int h = hk * G + it / per, qr = (qt0 + it % per) * BQ;
     const T* q = static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
     const T* dout = static_cast<const T*>(p.dout) + b * p.st[DOUT][0] + h * p.st[DOUT][1];
-    const long long row_base = ((long long)b * p.NQ + h) * Sq;
-    for (int qt = qt0; qt < nq; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();
-      load_rows<T, BT, LD>(Qs, q, p.st[Q][2], q0, Sq, D, 1.f);
-      load_rows<T, BT, LD>(DOs, dout, p.st[DOUT][2], q0, Sq, D, 1.f);
-      if (threadIdx.x < BT) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < Sq ? p.lse[row_base + qi] : 0.f;
-        delta_s[threadIdx.x] = qi < Sq ? p.delta[row_base + qi] : 0.f;
-      }
-      __syncthreads();
-      float s[TM][TM], dp[TM][TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TM; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kr[TM], vr[TM], qc[TM], gc[TM];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) {
-          kr[r] = Ks[(ty * TM + r) * LD + d];
-          vr[r] = Vs[(ty * TM + r) * LD + d];
-        }
-#pragma unroll
-        for (int c = 0; c < TM; ++c) {
-          qc[c] = Qs[(tx + 16 * c) * LD + d];
-          gc[c] = DOs[(tx + 16 * c) * LD + d];
-        }
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < TM; ++c) {
-            s[r][c] = fmaf(qc[c], kr[r], s[r][c]);
-            dp[r][c] = fmaf(gc[c], vr[r], dp[r][c]);
-          }
-      }
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const int j = ty * TM + r, kj = k0 + j;
-#pragma unroll
-        for (int c = 0; c < TM; ++c) {
-          const int i = tx + 16 * c, qi = q0 + i;
-          const bool keep = qi < Sq && keep_score(qi, kj, kvlen, causal);
-          const float pv = keep ? expf(s[r][c] * scale - lse_s[i]) : 0.f;
-          Ps[j * LP + i] = pv;
-          dp[r][c] = pv * (dp[r][c] - delta_s[i]);  // now dS^T
-        }
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int i = 0; i < BT; ++i) {  // dV += P^T dO
-        float a[TM], c[TD];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) a[r] = Ps[(ty * TM + r) * LP + i];
-#pragma unroll
-        for (int cc = 0; cc < TD; ++cc) c[cc] = DOs[i * LD + tx + 16 * cc];
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int cc = 0; cc < TD; ++cc) dva[r][cc] = fmaf(a[r], c[cc], dva[r][cc]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TM; ++c) Ps[(ty * TM + r) * LP + tx + 16 * c] = dp[r][c];
-      __syncthreads();
-#pragma unroll 8
-      for (int i = 0; i < BT; ++i) {  // dK += dS^T Q
-        float a[TM], c[TD];
-#pragma unroll
-        for (int r = 0; r < TM; ++r) a[r] = Ps[(ty * TM + r) * LP + i];
-#pragma unroll
-        for (int cc = 0; cc < TD; ++cc) c[cc] = Qs[i * LD + tx + 16 * cc];
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int cc = 0; cc < TD; ++cc) dka[r][cc] = fmaf(a[r], c[cc], dka[r][cc]);
-      }
+    stage_rows<T, LD, NTH>(Qs + buf * QB, q, p.st[Q][2], qr, BQ, Sq, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(DOs + buf * QB, dout, p.st[DOUT][2], qr, BQ, Sq, D, L.DK8, vec);
+    const long long rb = ((long long)b * p.NQ + h) * Sq;
+    for (int i = threadIdx.x; i < BQ; i += NTH) {
+      const bool ok = qr + i < Sq;
+      cp_async4(lse_s + buf * BQ + i, p.lse + (ok ? rb + qr + i : 0), ok);
+      cp_async4(dl_s + buf * BQ + i, p.delta + (ok ? rb + qr + i : 0), ok);
     }
+  };
+  if (total > 0) {
+    stage_rows<T, LD, NTH>(Ks, k, p.st[K][2], k0, BN, Sk, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(Vs, v, p.st[V][2], k0, BN, Sk, D, L.DK8, vec);
+    stage_q(0, 0);
   }
+  cp_async_commit();
+
+  float dka[NDF][4] = {}, dva[NDF][4] = {};
+  for (int it = 0; it < total; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < total) {
+      stage_q(it + 1, cur ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (SPLIT) {  // once for all warps, not once per warp and fragment
+      split_rows<LD, NTH>(Qs + cur * QB, BQ, L.DK8, BQ * LD, vec);
+      split_rows<LD, NTH>(DOs + cur * QB, BQ, L.DK8, BQ * LD, vec);
+    }
+    __syncthreads();
+    const int q0 = (qt0 + it % per) * BQ;
+    // live query fragments: inside Sq and, causal, not wholly before the warp's first key
+    const int nlo = L.causal ? max(j0 - q0, 0) >> 3 : 0;
+    const int nhi = min((Sq - q0 + 7) >> 3, NQF);
+    if (live && nlo < nhi) {
+      const float* Qt = Qs + cur * QB;
+      const float* Gt = DOs + cur * QB;
+      const float* ls = lse_s + cur * BQ;
+      const float* dls = dl_s + cur * BQ;
+      // every score of the step kept: no query past Sq, no key at or past
+      // kvlen, no query in the causal past of the warp's last key
+      const bool clear = q0 + BQ <= Sq && j0 + 16 <= L.kvlen && (!L.causal || q0 >= j0 + 15);
+      if (nlo > 0 || nhi < NQF)
+        dkv_tile<SPLIT, DMAX, DSPLIT, BQ, false, true>(dka, dva, L, Ks, Vs, Qt, Gt, ls, dls, q0, nlo, nhi, j_0);
+      else if (!clear)
+        dkv_tile<SPLIT, DMAX, DSPLIT, BQ, true, true>(dka, dva, L, Ks, Vs, Qt, Gt, ls, dls, q0, nlo, nhi, j_0);
+      else
+        dkv_tile<SPLIT, DMAX, DSPLIT, BQ, true, false>(dka, dva, L, Ks, Vs, Qt, Gt, ls, dls, q0, nlo, nhi, j_0);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int kj = k0 + ty * TM + r;
-    if (kj >= Sk) continue;
+  for (int j = 0; j < NDF; ++j) {
 #pragma unroll
-    for (int cc = 0; cc < TD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) {
-        dk[kj * p.st[DK][2] + d] = Cvt<T>::store(dka[r][cc] * scale);
-        dv[kj * p.st[DV][2] + d] = Cvt<T>::store(dva[r][cc]);
+    for (int e = 0; e < 4; ++e) {
+      const int kj = e < 2 ? j_0 : j_1, d = L.n0d + 8 * j + 2 * L.tg + (e & 1);
+      if (kj < Sk && d < D) {
+        dk[kj * p.st[DK][2] + d] = Cvt<T>::store(dka[j][e] * L.scale);
+        dv[kj * p.st[DV][2] + d] = Cvt<T>::store(dva[j][e]);
       }
     }
   }
 }
 
-template <typename KernelFn>
-cudaError_t launch(KernelFn kern, dim3 grid, size_t smem, cudaStream_t stream, const Params& p) {
+template <typename KernelFn, typename... Args>
+cudaError_t launch(KernelFn kern, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                   const Args&... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kern<<<grid, NT, smem, stream>>>(p);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// which: 0 forward, 1 dQ, 2 dK/dV.
+// The forward: BT-row tiles, one 256-thread block each.
 template <typename T, int BT, int DMAX>
-cudaError_t run(int which, const Params& p, cudaStream_t stream) {
+cudaError_t run_fwd(const Params& p, cudaStream_t stream) {
   constexpr size_t tile = sizeof(float) * BT * (DMAX + 1), ps = sizeof(float) * BT * (BT + 1);
-  const unsigned nqt = (unsigned)((p.Sq + BT - 1) / BT), nkt = (unsigned)((p.Sk + BT - 1) / BT);
-  switch (which) {
-    case 0:
-      return launch(flash_fwd_kernel<T, BT, DMAX>, dim3(nqt, (unsigned)p.NQ, (unsigned)p.B),
-                    3 * tile + ps, stream, p);
-    case 1:
-      return launch(flash_dq_kernel<T, BT, DMAX>, dim3(nqt, (unsigned)p.NQ, (unsigned)p.B),
-                    4 * tile + ps + 2 * sizeof(float) * BT, stream, p);
-    case 2:
-      return launch(flash_dkv_kernel<T, BT, DMAX>, dim3(nkt, (unsigned)p.NKV, (unsigned)p.B),
-                    4 * tile + ps + 2 * sizeof(float) * BT, stream, p);
-  }
-  return cudaErrorInvalidValue;
+  const unsigned nqt = (unsigned)((p.Sq + BT - 1) / BT);
+  return launch(flash_fwd_kernel<T, BT, DMAX>, dim3(nqt, (unsigned)p.NQ, (unsigned)p.B), NT,
+                3 * tile + ps, stream, p);
 }
 
-// Head dims up to 64 and 128 take 64-row tiles; up to 256, 32-row tiles, so
-// the dQ and dK/dV kernels' four staged tiles fit in a block's shared memory.
+// Whether every row of q, k, v and dO starts 16-byte aligned and holds whole
+// 16-byte chunks, so f32 tiles can be copied 16 bytes at a time.
+bool rows_aligned16(const Params& p) {
+  if (p.D % 4) return false;
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  const int which[4] = {Q, K, V, DOUT};
+  for (int i = 0; i < 4; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[which[i]][j] % 4) return false;
+  }
+  return true;
+}
+
+// which: 1 dQ, 2 dK/dV. NW warps a block, MINB blocks an SM asked of the
+// register allocator, DSPLIT warps to a 16-row strip, and the swept tiles
+// (K/V for dQ, Q/dO for dK/dV) BT rows.
+template <typename T, int DMAX, int NW, int MINB, int DSPLIT, int BT>
+cudaError_t run_bwd(int which, const Params& p, cudaStream_t stream) {
+  constexpr size_t row = sizeof(float) * (DMAX + 4);
+  const int vec = std::is_same<T, float>::value && rows_aligned16(p);
+  constexpr int rows = 16 * NW / DSPLIT;  // rows a block owns
+  constexpr size_t smem = row * (2 * rows + 8 * BT);  // two owned tiles, two split buffers of two
+  if (which == 1)
+    return launch(flash_dq_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
+                  dim3((unsigned)((p.Sq + rows - 1) / rows), (unsigned)p.NQ, (unsigned)p.B), 32 * NW,
+                  smem, stream, p, vec);
+  return launch(flash_dkv_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
+                dim3((unsigned)((p.Sk + rows - 1) / rows), (unsigned)p.NKV, (unsigned)p.B), 32 * NW,
+                smem + sizeof(float) * 4 * BT, stream, p, vec);
+}
+
+// which: 0 forward, 1 dQ, 2 dK/dV. Forward: head dims up to 64 and 128 take
+// 64-row tiles, up to 256 32-row tiles. Backward (rows a block owns, swept
+// tile, shared memory): up to 64, 8 warps at two blocks an SM (128 rows,
+// 16, 102 KB); up to 128, 4 warps (32 rows, 16, 99 KB); up to 256, 4 warps
+// (32 rows, 16, 195 KB). Above 64 two warps share a 16-row strip, each with
+// half the output columns, so the accumulators fit in registers.
 template <typename T>
 cudaError_t run_d(int which, const Params& p, cudaStream_t stream) {
-  if (p.D <= 64) return run<T, 64, 64>(which, p, stream);
-  if (p.D <= 128) return run<T, 64, 128>(which, p, stream);
-  if (p.D <= 256) return run<T, 32, 256>(which, p, stream);
-  return cudaErrorInvalidValue;
+  if (p.D < 1 || p.D > 256 || which < 0 || which > 2) return cudaErrorInvalidValue;
+  if (which == 0) {
+    if (p.D <= 64) return run_fwd<T, 64, 64>(p, stream);
+    if (p.D <= 128) return run_fwd<T, 64, 128>(p, stream);
+    return run_fwd<T, 32, 256>(p, stream);
+  }
+  if (p.D <= 64) return run_bwd<T, 64, 8, 2, 1, 16>(which, p, stream);
+  if (p.D <= 128) return run_bwd<T, 128, 4, 1, 2, 16>(which, p, stream);
+  return run_bwd<T, 256, 4, 1, 2, 16>(which, p, stream);
 }
 
 }  // namespace

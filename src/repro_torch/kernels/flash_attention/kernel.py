@@ -12,7 +12,10 @@ wrapper padding them), and any strides are taken as long as the head dim is
 contiguous, so the op passes transposed views of the model's (B, S, H, D)
 tensors and copies nothing. Outputs are allocated with their input's
 strides. The Pallas block sizes are TPU tiles and are not taken: the CUDA
-kernels use 64-row tiles (32 for head dims above 128).
+forward uses 64-row tiles (32 for head dims above 128); the backward kernels
+give each warp a 16-row strip (8 warps, 128 rows a block up to head dim 64;
+4 warps, 32 rows above) and sweep the other side in 16-row tiles, on the
+tensor cores in 3xTF32 (about f32 accuracy).
 
 The bound on the card, the design and the masks are described in the CUDA
 source. The library is built by ``common.load_cuda`` at the first launch;

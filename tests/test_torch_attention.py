@@ -120,3 +120,98 @@ def test_full_attention_matches_jax(causal, ragged):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     assert torch.equal(tattn.expand_kv(torch.from_numpy(k), 6),
                        torch.from_numpy(np.array(jattn.expand_kv(jnp.asarray(k), 6))))
+
+
+# ------------------------------------------ the CUDA backward's 3xTF32 scheme
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (to nearest,
+    ties away from zero): an integer add of half a TF32 ulp (0x1000) to the
+    magnitude bits, then the 13 low mantissa bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the kernels' tensor-core products take it:
+    a = big + small, b likewise, each part TF32, and small·big + big·small +
+    big·big summed in f32 (every product of two TF32 values is exact in f32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    return torch.einsum(eq, asm, bb) + torch.einsum(eq, ab, bsm) + torch.einsum(eq, ab, bb)
+
+
+def _mm_tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product, f32 accumulation (what TF32 alone would give)."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _bwd_with(mm, q, k, v, do, lse, delta, kvlen, causal):
+    """``flash_bwd_dq_ref`` and ``flash_bwd_dkv_ref`` with their five products
+    taken by ``mm``: (dq, dk, dv) f32."""
+    B, NQ, Sq, D = q.shape
+    NKV = k.shape[1]
+    G, scale = NQ // NKV, D**-0.5
+    qg, dog, kf, vf = tref._grouped(q, NKV), tref._grouped(do, NKV), k.float(), v.float()
+    s = mm("bhgqd,bhkd->bhgqk", qg, kf) * scale
+    keep = tref._keep(Sq, k.shape[2], causal=causal, lengths=kvlen, device=q.device)
+    p = torch.where(keep, torch.exp(s - lse.reshape(B, NKV, G, Sq, 1)), 0.0)
+    dp = mm("bhgqd,bhkd->bhgqk", dog, vf)
+    ds = p * (dp - delta.reshape(B, NKV, G, Sq, 1))
+    dq = mm("bhgqk,bhkd->bhgqd", ds, kf).reshape(q.shape) * scale
+    return dq, mm("bhgqk,bhgqd->bhkd", ds, qg) * scale, mm("bhgqk,bhgqd->bhkd", p, dog)
+
+
+def _vit_head_inputs(causal: bool, seed: int = 3):
+    """The ViT's head shape (S=196, D=64, 3 heads) in the kernels' layout,
+    standard normal as ``chip_smoke.py`` draws them, one full and one ragged
+    row; with the forward's lse and delta."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 3, 196, 64)).astype(np.float32))
+                   for _ in range(4))
+    kvlen = torch.tensor([196, 97], dtype=torch.int32)
+    o, lse = tref.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    return q, k, v, do, lse, (do * o).sum(-1), kvlen
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_backward_within_flash_tolerance(causal):
+    """The CUDA backward's scheme, emulated on the CPU at the ViT's head
+    shape, holds the f32 flash tolerance against the exact plain versions."""
+    args = _vit_head_inputs(causal)
+    dq = tref.flash_bwd_dq_ref(*args, causal=causal)
+    dk, dv = tref.flash_bwd_dkv_ref(*args, causal=causal)
+    tol = TOL["float32"]
+    for name, got, want in zip(("dq", "dk", "dv"), _bwd_with(_mm_3xtf32, *args, causal), (dq, dk, dv)):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol, msg=name)
+
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_breaks_flash_tolerance(causal):
+    """Why three products: TF32 alone misses the f32 tolerance by several
+    times at the same inputs (so the card gates would catch a kernel that
+    dropped the small terms)."""
+    args = _vit_head_inputs(causal)
+    dq = tref.flash_bwd_dq_ref(*args, causal=causal)
+    got = _bwd_with(_mm_tf32, *args, causal)[0]
+    tol = TOL["float32"]
+    assert float(((got - dq).abs() / (tol * (1 + dq.abs()))).max()) > 2
+
+def test_tf32_rounding_matches_cvt_rna():
+    """Ties round away from zero, the 13 low bits are cleared, and the split
+    leaves a remainder below half a TF32 ulp."""
+    one = 0x3F800000
+    sign = -(2**31)  # the sign bit, as an int32
+    # 1, 1 + just under half an ulp, two ties (+ and −) and a tie above an odd ulp
+    bits = torch.tensor([one, one + 0x0FFF, one + 0x1000, sign + one + 0x1000, one + 0x3000],
+                        dtype=torch.int32)
+    x = bits.view(torch.float32)
+    want = torch.tensor([one, one, one + 0x2000, sign + one + 0x2000, one + 0x4000],
+                        dtype=torch.int32)
+    assert torch.equal(_tf32(x).view(torch.int32), want)
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000).astype(np.float32))
+    big = _tf32(y)
+    assert bool(((y - big).abs() <= big.abs() * 2.0**-11).all())
+    assert bool(((y - big - _tf32(y - big)).abs() <= y.abs() * 2.0**-21).all())

@@ -140,15 +140,27 @@ def test_idgi_kernels_match_plain(card, dtype, B, K, F):
 
 
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- and 16-row edges
 # (B, S, NQ, NKV, D, causal, ragged): the ViT's attention at a smaller batch,
 # the LMs' causal GQA ragged shape, and the JAX tests' odd head dims and
-# sequence lengths, one per head-dim bucket of the kernels
+# sequence lengths, one per head-dim bucket of the kernels; then the
+# backward's fragment edges: S=196 with kvlen on and beside them (ragged
+# given as the lengths), S at 1 and around one 16-row strip, a head dim
+# that is not a multiple of 8 and one that is not a power of two
 FLASH_SHAPES = [
     (8, 196, 6, 6, 64, False, False),
     (2, 333, 8, 2, 128, True, True),
     (1, 17, 4, 2, 8, True, True),
     (2, 33, 6, 6, 4, False, True),
     (2, 70, 4, 1, 256, True, False),
+    (8, 196, 6, 6, 64, False, EDGE_KVLEN),
+    (8, 196, 4, 2, 64, True, EDGE_KVLEN),
+    (2, 1, 4, 2, 64, True, False),
+    (2, 15, 6, 6, 64, False, True),
+    (2, 16, 4, 2, 64, True, True),
+    (3, 17, 2, 1, 64, False, False),
+    (2, 50, 4, 2, 20, True, True),
+    (2, 70, 6, 3, 72, False, True),
 ]
 
 
@@ -166,7 +178,9 @@ def nvcc_card():
 def _flash_inputs(gen, B, S, NQ, NKV, D, ragged, dtype):
     rnd = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
     q, k, v, do = rnd(B, S, NQ, D), rnd(B, S, NKV, D), rnd(B, S, NKV, D), rnd(B, S, NQ, D)
-    if ragged:  # a different prefix per row; at short S one row has no key at all
+    if isinstance(ragged, tuple):
+        kvlen = torch.tensor(ragged, dtype=torch.int32)
+    elif ragged:  # a different prefix per row; at short S one row has no key at all
         kvlen = torch.tensor([(S * (b + 1)) // (B + 1) for b in range(B)], dtype=torch.int32)
         if S < 100 and B > 1:
             kvlen[0] = 0
@@ -212,9 +226,33 @@ def test_flash_kernels_match_plain(nvcc_card, dtype, B, S, NQ, NKV, D, causal, r
         torch.testing.assert_close(got.float(), t(w).float(), atol=tol, rtol=tol, msg=name)
     assert (common.LAUNCHES["flash_fwd"], common.LAUNCHES["flash_bwd_dq"],
             common.LAUNCHES["flash_bwd_dkv"]) == (2, 2, 2)
-    # no atomics: the same inputs give the same bits
-    assert torch.equal(torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal,
-                                                           lengths=lengths), qg, do)[0], grads[0])
+    # no atomics: the same inputs give the same bits, for dQ, dK and dV
+    again = torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal, lengths=lengths),
+                                (qg, kg, vg), do)
+    for name, a, g in zip(("dq", "dk", "dv"), again, grads):
+        assert torch.equal(a, g), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 6])
+def test_flash_backward_on_unaligned_rows(nvcc_card, dtype, D):
+    """Rows that do not start on 16 bytes (views one element into a wider
+    buffer) and a head dim of 6 take the backward's 4-byte copies; they
+    agree with the plain versions as the aligned rows do."""
+    B, S, NQ, NKV = 2, 77, 4, 2
+    rnd = lambda h: torch.randn((B, S, h, D + 1), generator=nvcc_card, device="cuda").to(dtype)
+    q, k, v, do = (x[..., 1:].transpose(1, 2) for x in (rnd(NQ), rnd(NKV), rnd(NKV), rnd(NQ)))
+    kvlen = torch.tensor([S, 40], dtype=torch.int32, device="cuda")
+    tol = FLASH_TOL[dtype]
+    o, lse = fref.flash_fwd_ref(q, k, v, kvlen, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, kvlen)
+    got = (fk.flash_bwd_dq_cuda(*args, causal=True),) + fk.flash_bwd_dkv_cuda(*args, causal=True)
+    want = (fref.flash_bwd_dq_ref(*args, causal=True),) + fref.flash_bwd_dkv_ref(*args, causal=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol, msg=name)
 
 
 def _wls_system(gen, B, N, dtype):
