@@ -20,32 +20,41 @@
 // Bound on the H100: operations. At the ViT's shape (256 images, 6 heads,
 // S = 196, D = 64, f32) the forward does 4 S^2 D flops per (image, head)
 // for 2 (S D) reads, about 100 flops per byte; the backward pair 14 S^2 D.
+// At f32 accuracy on the tensor cores (3xTF32, below: three TF32 operations
+// per f32 operation) the forward's bounds by operations and by bytes are
+// about equal there.
 //
-// Forward (simple before fast; the next redesign): one block of 256 threads
-// (a 16 x 16 grid) per (batch, head, 64-row tile), tiles staged in shared
-// memory as f32 with an odd row stride, plain f32 FMAs, each thread a 4 x 4
-// piece of each score tile in registers.
-//
-// Backward (dQ, dK/dV), designed for Hopper's tensor cores:
+// All three kernels are designed for Hopper's tensor cores:
 // - Products: mma.sync m16n8k8 TF32 in 3xTF32. Each f32 operand is split as
 //   big = tf32(x), small = tf32(x - big), both rounded as cvt.rna rounds
 //   (to nearest, ties away; done with two integer operations, which are
 //   cheaper than cvt.rna's own sequence on sm_90a), and c += a b is taken as
 //   a.small b.big + a.big b.small + a.big b.big with f32 accumulation (the
-//   scheme of CUTLASS's OpMultiplyAddFastF32; dK and dV leave the tensor
-//   core's accumulator after every fragment, see flush): about f32
-//   accuracy, where one TF32 product keeps three decimal digits and would
-//   break the 1e-4 tolerance. bf16 inputs are exact in tf32 (their small part is 0, so
-//   those terms are skipped); P and dS are f32 and always split. wgmma is
-//   not used: for tf32 it takes both operands K-major only, and dS K and
-//   dS^T Q read K and Q along the sequence, which would need transposed
-//   copies in shared memory.
-// - Blocks of 8 warps (4 above D = 64), each warp a 16-row strip. dQ: one
-//   block per (b, h, 128 query rows), sweeping K/V in 16-key tiles. dK/dV:
-//   one block per (b, hk, 128 key rows), K and V staged once, sweeping the
-//   G heads of the group and the live 16-row Q tiles, dK and dV in
-//   registers throughout. Above D = 64 two warps share a strip, each owning
-//   half of the output columns.
+//   scheme of CUTLASS's OpMultiplyAddFastF32): about f32 accuracy, where one
+//   TF32 product keeps three decimal digits and would break the 1e-4
+//   tolerance of dQ. bf16 inputs are exact in tf32 (their small part is 0,
+//   so those terms are skipped); P, dS and the forward's scaled Q (q scale
+//   is not exact in tf32 even for bf16 q) are f32 and always split. Sums
+//   that run over a whole sweep leave the tensor core's accumulator after
+//   every tile (the forward's O) or fragment (dK, dV) and are added in f32,
+//   see flush. wgmma is not used: for tf32 it takes both operands K-major
+//   only, and P V, dS K and dS^T Q read V, K and Q along the sequence, which
+//   would need transposed copies in shared memory.
+// - Blocks of 8 warps (4 above D = 64), each warp a 16-row strip. Forward
+//   and dQ: one block per (b, h, 128 query rows), sweeping K/V in 16-key
+//   tiles. dK/dV: one block per (b, hk, 128 key rows), K and V staged once,
+//   sweeping the G heads of the group and the live 16-row Q tiles, dK and dV
+//   in registers throughout. Above D = 64 two warps share a strip, each
+//   owning half of the output columns (both take the strip's scores).
+// - The forward's online softmax: a thread holds two rows of its strip
+//   (g, g + 8); their running max is taken over the 4 lanes of a quad each
+//   tile, their sums per lane and over the quad once at the end. Scores are
+//   in base 2 (log2(e) folded into Q's scale, exp2f; lse converted back).
+//   Each tile's P V is taken in a zeroed accumulator and joins O as
+//   O corr + t in f32. Q is scaled and split once per block and read, like
+//   K, through ldmatrix. Holding Q's fragments in registers instead (64 a
+//   thread at D = 64) left room for one block an SM, not two, and ran
+//   slower on the card.
 // - The swept tiles are fed by cp.async, double-buffered: the next tile's
 //   copies are in flight while the current one is multiplied (16-byte
 //   copies when every row is 16-byte aligned, else 4-byte; bf16 is
@@ -53,22 +62,26 @@
 //   zero-filled by the copy. Every warp reads the swept tile as its B
 //   operand, so each thread splits the elements it copied, once, into a big
 //   and a small tile, instead of every warp splitting every fragment it
-//   loads; the rows a warp owns (its A operand) are split as they are read.
+//   loads; the rows a warp owns (its A operand) are split as they are read
+//   in the backward, once per block in the forward.
 // - Dead work is cut at fragment granularity: a warp whose 16 rows lie past
 //   Sq (or whose keys lie past kvlen) does no product, and an 8-wide
 //   fragment wholly past kvlen, past Sq or in the causal future is skipped.
-//   At S = 196 the last block's live warps carry 16, 16, 16 and 4 rows.
+//   At S = 196 a second block of 128 rows has live warps of 16, 16, 16, 16
+//   and 4 rows, and three idle ones.
 //   A tile whose every score is kept takes a path without per-element mask
-//   tests; a tile with dead fragments, one with per-fragment tests.
+//   tests; a tile with dead fragments, one with per-fragment tests. A
+//   masked score's p is set to 0 explicitly: exp(NEG_INF - m) is 1 on a
+//   row that has no kept score yet.
 // - Shared memory: K is read both as K^T (the B operand of Q K^T, along D)
-//   and as K (the B operand of dS K, along keys), Q and dO likewise. The
-//   depth of dS K (and P^T dO, dS^T Q) is permuted: depth tg is row 2 tg,
-//   depth tg + 4 row 2 tg + 1, so the accumulator layout of S (columns
-//   2 tg, 2 tg + 1) is already dS's A fragment (no shuffle, no shared-memory
-//   round trip). Rows are DMAX + 4 floats apart: a K^T read (8 rows, 4
-//   columns) hits banks 4 g + tg, a permuted K read (rows 2 tg + e,
-//   8 columns) banks 8 tg + g, both 32 distinct, and every address is a
-//   lane base plus a constant.
+//   and as K (the B operand of dS K, along keys), Q and dO likewise, V as V
+//   (P V). The depth of P V, dS K (and P^T dO, dS^T Q) is permuted: depth tg
+//   is row 2 tg, depth tg + 4 row 2 tg + 1, so the accumulator layout of S
+//   (columns 2 tg, 2 tg + 1) is already P's or dS's A fragment (no shuffle,
+//   no shared-memory round trip). Rows are DMAX + 4 floats apart: a K^T read
+//   (8 rows, 4 columns) hits banks 4 g + tg, a permuted K read (rows
+//   2 tg + e, 8 columns) banks 8 tg + g, both 32 distinct, and every
+//   address is a lane base plus a constant.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,7 +91,6 @@
 
 namespace {
 
-constexpr int NT = 256;            // threads per block: tx = tid % 16, ty = tid / 16
 constexpr float NEG_INF = -1e30f;  // the reference's mask floor
 
 // Mirrored field for field by kernel.py's ctypes Structure; every field is
@@ -115,144 +127,11 @@ struct Cvt<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
 };
 
-// Rows [row0, row0 + BT) of a (rows, D) slab with row stride ss, as f32 times
-// mul, into dst (BT rows of LD floats); rows at or past nrows become 0.
-template <typename T, int BT, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, long long ss, int row0,
-                                          int nrows, int D, float mul) {
-  for (int e = threadIdx.x; e < BT * D; e += NT) {
-    const int r = e / D, d = e - r * D, row = row0 + r;
-    dst[r * LD + d] = row < nrows ? Cvt<T>::load(src[row * ss + d]) * mul : 0.f;
-  }
-}
-
-// Reductions over the 16 lanes that share ty (one row of a score tile).
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 __device__ __forceinline__ bool keep_score(int qi, int kj, int kvlen, bool causal) {
   return kj < kvlen && (!causal || qi >= kj);
 }
 
-// ------------------------------------------------------------------ forward
-// grid (ceil(Sq / BT), NQ, B). Shared: Qs, Ks, Vs (BT x LD), Ps (BT x LP).
-template <typename T, int BT, int DMAX>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  constexpr int TM = BT / 16, TD = DMAX / 16, LD = DMAX + 1, LP = BT + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* Ps = Vs + BT * LD;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BT;
-  const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
-  const int hk = h / (int)(p.NQ / p.NKV);
-  const int kvlen = min(max(p.kvlen[b], 0), Sk);
-  const bool causal = p.causal != 0;
-  const T* q = static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
-  const T* k = static_cast<const T*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
-  const T* v = static_cast<const T*>(p.v) + b * p.st[V][0] + hk * p.st[V][1];
-  T* o = static_cast<T*>(p.o) + b * p.st[O][0] + h * p.st[O][1];
-
-  for (int e = threadIdx.x; e < 3 * BT * LD + BT * LP; e += NT) smem[e] = 0.f;
-  __syncthreads();
-  load_rows<T, BT, LD>(Qs, q, p.st[Q][2], q0, Sq, D, (float)p.scale);
-
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) acc[r][c] = 0.f;
-  }
-  int nk = (kvlen + BT - 1) / BT;
-  if (causal) nk = min(nk, (int)blockIdx.x + 1);  // tiles wholly in the future are dead
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, BT, LD>(Ks, k, p.st[K][2], k0, Sk, D, 1.f);
-    load_rows<T, BT, LD>(Vs, v, p.st[V][2], k0, Sk, D, 1.f);
-    __syncthreads();
-    float s[TM][TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int j = 0; j < TM; ++j) s[r][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[TM], c[TM];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = Qs[(ty * TM + r) * LD + d];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) s[r][j] = fmaf(a[r], c[j], s[r][j]);
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int qi = q0 + ty * TM + r;
-      bool keep[TM];
-      float mt = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        keep[j] = keep_score(qi, k0 + tx + 16 * j, kvlen, causal);
-        if (keep[j]) mt = fmaxf(mt, s[r][j]);
-      }
-      const float mn = fmaxf(m[r], max16(mt));
-      const float corr = expf(m[r] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < TM; ++j) {
-        const float pv = keep[j] ? expf(s[r][j] - mn) : 0.f;
-        Ps[(ty * TM + r) * LP + tx + 16 * j] = pv;
-        rs += pv;
-      }
-      l[r] = l[r] * corr + sum16(rs);
-      m[r] = mn;
-#pragma unroll
-      for (int c = 0; c < TD; ++c) acc[r][c] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < BT; ++j) {
-      float a[TM], c[TD];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = Ps[(ty * TM + r) * LP + j];
-#pragma unroll
-      for (int cc = 0; cc < TD; ++cc) c[cc] = Vs[j * LD + tx + 16 * cc];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int cc = 0; cc < TD; ++cc) acc[r][cc] = fmaf(a[r], c[cc], acc[r][cc]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int qi = q0 + ty * TM + r;
-    if (qi >= Sq) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int cc = 0; cc < TD; ++cc) {
-      const int d = tx + 16 * cc;
-      if (d < D) o[qi * p.st[O][2] + d] = Cvt<T>::store(acc[r][cc] / lc);
-    }
-    if (tx == 0) p.lse[((long long)b * p.NQ + h) * Sq + qi] = m[r] + logf(lc);
-  }
-}
-
-// ------------------------------------------- backward: tensor-core building blocks
+// ------------------------------------------------------- tensor-core building blocks
 
 // x rounded to tf32 as cvt.rna.tf32.f32 rounds a finite value (to nearest,
 // ties away from zero): half a tf32 ulp added to the magnitude bits, the 13
@@ -305,7 +184,8 @@ __device__ __forceinline__ void mma3(float c[4], const Frag<4, SA>& a, const Fra
 // queries at chip_smoke.py's causal GQA shape), dV was 0.365 of the 1e-4
 // tolerance from its plain version on the card, 0.081 with this flush after
 // every fragment. dQ's sweep is Sk keys; it stays at 0.044 without one, so
-// dQ keeps its sum in the tensor core.
+// dQ keeps its sum in the tensor core. The forward's O is rescaled every
+// tile anyway, so it joins each tile's P V as O corr + t (one FMA).
 __device__ __forceinline__ void flush(float acc[4], const float t[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += t[e];
@@ -336,7 +216,7 @@ __device__ __forceinline__ void load_bt(Frag<2, S>& f, const float* t, int n0, i
 
 // B of X along its rows k0..k0+7, columns n0..n0+7, the depth permuted to
 // match a_from_acc: depth tg is row k0 + 2 tg, depth tg + 4 row k0 + 2 tg + 1
-// (dS K, P^T dO, dS^T Q).
+// (P V, dS K, P^T dO, dS^T Q).
 template <int LD, int SOFF, bool S>
 __device__ __forceinline__ void load_b(Frag<2, S>& f, const float* t, int k0, int n0, int g, int tg) {
   const float* r = t + (k0 + 2 * tg) * LD + n0 + g;
@@ -351,6 +231,49 @@ __device__ __forceinline__ void a_from_acc(Frag<4, true>& f, const float c[4]) {
   f.set(1, c[2]);
   f.set(2, c[1]);
   f.set(3, c[3]);
+}
+
+// ldmatrix on 32-bit elements (as pairs of b16): four (two) 8 x 8 matrices,
+// lane l giving the address of row l % 8 of matrix l / 8 (16-byte aligned),
+// and thread t receiving row t / 4, column t % 4 of matrix i in x[i]: the
+// layout of an mma.sync tf32 fragment. One instruction in place of four
+// (two) 32-bit loads; rows LD = DMAX + 4 floats apart are 16 bytes apart in
+// the banks, so the eight rows of a matrix do not conflict.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t x[4], const float* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t x[2], const float* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];" : "=r"(x[0]), "=r"(x[1]) : "r"(a));
+}
+
+// load_a and load_bt through ldmatrix, from tiles split once by split_rows
+// (big parts, small parts SOFF floats on): the forward's Q and K.
+template <int LD, int SOFF>
+__device__ __forceinline__ void ldm_a(Frag<4, true>& f, const float* t, int m0, int k0, int lane) {
+  // matrices: rows m0 and m0 + 8, columns k0 and k0 + 4
+  const float* r = t + (m0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + k0 + (lane >> 4) * 4;
+  ldmatrix_x4(f.big, r);
+  ldmatrix_x4(f.small, r + SOFF);
+}
+template <int LD, int SOFF, bool S>
+__device__ __forceinline__ void ldm_bt(Frag<2, S>& f, const float* t, int n0, int k0, int lane) {
+  // matrices: columns k0 and k0 + 4 of the big parts, then of the small
+  const int j = lane >> 3;
+  const float* r = t + (n0 + (lane & 7)) * LD + k0 + (j & 1) * 4;
+  if constexpr (S) {
+    uint32_t x[4];
+    ldmatrix_x4(x, r + (j >> 1) * SOFF);
+    f.big[0] = x[0];
+    f.big[1] = x[1];
+    f.small[0] = x[2];
+    f.small[1] = x[3];
+  } else {
+    ldmatrix_x2(f.big, r);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src, bool ok) {
@@ -403,36 +326,240 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long s
 // stage_rows (the same assignment of elements to threads, so its own
 // cp.async copies are complete after cp.async.wait_group and no barrier is
 // needed first): the big part stays, the small part goes SOFF floats on.
+// Each element is multiplied by mul first, rounded once (the forward's scale
+// on Q). 16-byte chunks go through 16-byte loads and stores, which keeps the
+// chunk-per-lane pattern free of bank conflicts.
 template <int LD, int NTH>
-__device__ __forceinline__ void split_rows(float* t, int R, int DK8, int soff, bool vec) {
-  auto split = [&](float* x) {
-    const float v = *x;
-    const uint32_t bg = to_tf32(v);
-    x[0] = __uint_as_float(bg);
-    x[soff] = __uint_as_float(to_tf32(v - __uint_as_float(bg)));
+__device__ __forceinline__ void split_rows(float* t, int R, int DK8, int soff, bool vec, float mul = 1.f) {
+  auto split = [&](float x, float& big, float& small) {
+    const float v = __fmul_rn(x, mul);
+    big = __uint_as_float(to_tf32(v));
+    small = __uint_as_float(to_tf32(v - big));
   };
   if (vec) {
     const int cpr = DK8 >> 2;
     for (int e = threadIdx.x; e < R * cpr; e += NTH) {
       const int r = e / cpr, c = 4 * (e - r * cpr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(t + r * LD + c + i);
+      float4* x = reinterpret_cast<float4*>(t + r * LD + c);
+      const float4 v = *x;
+      float4 bg, sm;
+      split(v.x, bg.x, sm.x);
+      split(v.y, bg.y, sm.y);
+      split(v.z, bg.z, sm.z);
+      split(v.w, bg.w, sm.w);
+      *x = bg;
+      x[soff >> 2] = sm;
     }
   } else {
     for (int e = threadIdx.x; e < R * DK8; e += NTH) {
-      const int r = e / DK8;
-      split(t + r * LD + e - r * DK8);
+      float* x = t + (e / DK8) * LD + e % DK8;
+      split(*x, x[0], x[soff]);
     }
   }
 }
 
-// What a thread needs of its two rows (query rows in dQ, key rows in dK/dV)
-// and of the mask, for one tile's products.
+// What a thread needs of its two rows (query rows in the forward and dQ,
+// key rows in dK/dV) and of the mask, for one tile's products.
 struct Lane {
   int g, tg, m0, n0d, DK8, Sq, kvlen;
   bool causal;
   float scale;
 };
+
+// ------------------------------------------------------------------ forward
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+// One K/V tile for the warp: S = (scale log2(e) Q) K^T over the live key
+// fragments (all of them when FULL), the online softmax of the thread's two
+// rows in base 2 (the keep test only when MASKED), then O = O corr + P V,
+// P V taken in a zeroed accumulator per output fragment. S keeps big·big
+// and the two small cross terms in separate accumulators, two dependency
+// chains instead of one, and adds them at the end.
+template <bool SPLIT, int DMAX, int DSPLIT, int BK, int QSOFF, bool FULL, bool MASKED>
+__device__ __forceinline__ void fwd_tile(float (&acc)[DMAX / DSPLIT / 8][4], float m[2], float l[2], const Lane& L,
+                                         const float* Qs, const float* Kt, const float* Vt, int k0, int nlive,
+                                         int r0) {
+  constexpr int LD = DMAX + 4, NKF = BK / 8, NDF = DMAX / DSPLIT / 8, SOFF = BK * LD;
+  const int lane = 4 * L.g + L.tg;
+  float s[NKF][4] = {}, sc[NKF][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < DMAX / 8; ++ks) {
+    if (8 * ks >= L.DK8) break;
+    Frag<4, true> qa;
+    ldm_a<LD, QSOFF>(qa, Qs, L.m0, 8 * ks, lane);
+#pragma unroll
+    for (int n = 0; n < NKF; ++n) {
+      if (FULL || n < nlive) {
+        Frag<2, SPLIT> kb;
+        ldm_bt<LD, SOFF>(kb, Kt, 8 * n, 8 * ks, lane);
+        mma_tf32(sc[n], qa.small, kb.big);
+        if (SPLIT) mma_tf32(sc[n], qa.big, kb.small);
+        mma_tf32(s[n], qa.big, kb.big);
+      }
+    }
+  }
+  // element e of fragment n: row r0 + 8 (e / 2), key k0 + 8 n + 2 tg + e % 2
+  auto keep = [&](int n, int e) {
+    return !MASKED || ((FULL || n < nlive) &&
+                       keep_score(r0 + 8 * (e >> 1), k0 + 8 * n + 2 * L.tg + (e & 1), L.kvlen, L.causal));
+  };
+  float mt[2] = {NEG_INF, NEG_INF}, corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] += sc[n][e];
+      if (keep(n, e)) mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the row's max over the quad's four lanes
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float mn = fmaxf(m[r], mt[r]);
+    corr[r] = exp2f(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {  // P in place of S
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = keep(n, e) ? exp2f(s[n][e] - m[e >> 1]) : 0.f;
+      s[n][e] = pv;
+      rs[e >> 1] += pv;
+    }
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+  Frag<4, true> pa[NKF];
+#pragma unroll
+  for (int n = 0; n < NKF; ++n)
+    if (FULL || n < nlive) a_from_acc(pa[n], s[n]);
+#pragma unroll
+  for (int j = 0; j < NDF; ++j) {  // O = O corr + P V over the tile's keys
+    if (L.n0d + 8 * j < L.DK8) {
+      float t[4] = {};
+#pragma unroll
+      for (int n = 0; n < NKF; ++n) {
+        if (FULL || n < nlive) {
+          Frag<2, SPLIT> vb;
+          load_b<LD, SOFF>(vb, Vt, 8 * n, L.n0d + 8 * j, L.g, L.tg);
+          mma3(t, pa[n], vb);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], corr[e >> 1], t[e]);
+    }
+  }
+}
+
+// grid (ceil(Sq / BM), NQ, B), BM = 16 NWARP / DSPLIT query rows. Warp w owns
+// rows 16 (w / DSPLIT) .. + 15 of the tile and output columns
+// (w % DSPLIT) DMAX / DSPLIT .. + DMAX / DSPLIT - 1. Shared: Qs (BM rows,
+// scaled and split once: big parts, then small parts), two K and two V
+// buffers (BK rows each, split likewise).
+template <typename T, int DMAX, int NWARP, int MINB, int DSPLIT, int BK>
+__global__ void __launch_bounds__(32 * NWARP, MINB) flash_fwd_kernel(const Params p, int vec) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int NTH = 32 * NWARP, LD = DMAX + 4, BM = 16 * NWARP / DSPLIT, NKF = BK / 8;
+  constexpr int NDF = DMAX / DSPLIT / 8, QSOFF = BM * LD, KV = 2 * BK * LD;  // KV: one split K or V buffer
+  extern __shared__ float4 smem_v[];
+  float* Qs = reinterpret_cast<float*>(smem_v);
+  float* Ks = Qs + 2 * QSOFF;
+  float* Vs = Ks + 2 * KV;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
+  const int hk = h / (int)(p.NQ / p.NKV);
+  Lane L;
+  L.g = (threadIdx.x & 31) >> 2;
+  L.tg = threadIdx.x & 3;
+  L.m0 = (warp / DSPLIT) * 16;
+  L.n0d = (warp % DSPLIT) * (DMAX / DSPLIT);
+  L.DK8 = (D + 7) & ~7;
+  L.Sq = Sq;
+  L.kvlen = min(max(p.kvlen[b], 0), Sk);
+  L.causal = p.causal != 0;
+  L.scale = (float)p.scale;
+  const T* q = static_cast<const T*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
+  const T* k = static_cast<const T*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
+  const T* v = static_cast<const T*>(p.v) + b * p.st[V][0] + hk * p.st[V][1];
+  T* o = static_cast<T*>(p.o) + b * p.st[O][0] + h * p.st[O][1];
+
+  const int rw = q0 + L.m0, r0 = rw + L.g, r1 = r0 + 8;  // the warp's first row, the thread's two
+  const bool live = rw < Sq;  // a warp wholly past Sq does no product
+  int klim = L.kvlen;         // keys the warp's rows can see
+  if (L.causal) klim = min(klim, min(rw + 16, Sq));
+  int kend = L.kvlen;  // keys any row of the block can see
+  if (L.causal) kend = min(kend, min(q0 + BM, Sq));
+  const int nk = (kend + BK - 1) / BK;
+
+  if (nk > 0) {
+    stage_rows<T, LD, NTH>(Qs, q, p.st[Q][2], q0, BM, Sq, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(Ks, k, p.st[K][2], 0, BK, Sk, D, L.DK8, vec);
+    stage_rows<T, LD, NTH>(Vs, v, p.st[V][2], 0, BK, Sk, D, L.DK8, vec);
+  }
+  cp_async_commit();
+
+  float acc[NDF][4] = {}, m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {  // the next tile's copies run while this one is used
+      const int nxt = (kt + 1) * BK;
+      stage_rows<T, LD, NTH>(Ks + (cur ^ 1) * KV, k, p.st[K][2], nxt, BK, Sk, D, L.DK8, vec);
+      stage_rows<T, LD, NTH>(Vs + (cur ^ 1) * KV, v, p.st[V][2], nxt, BK, Sk, D, L.DK8, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (kt == 0) split_rows<LD, NTH>(Qs, BM, L.DK8, QSOFF, vec, L.scale * LOG2E);  // S in base 2
+    if (SPLIT) {  // once for all warps, not once per warp and fragment
+      split_rows<LD, NTH>(Ks + cur * KV, BK, L.DK8, BK * LD, vec);
+      split_rows<LD, NTH>(Vs + cur * KV, BK, L.DK8, BK * LD, vec);
+    }
+    __syncthreads();
+    const int k0 = kt * BK;
+    const int nlive = min(max((klim - k0 + 7) >> 3, 0), NKF);  // key fragments with a live key
+    if (live && nlive > 0) {
+      const float* Kt = Ks + cur * KV;
+      const float* Vt = Vs + cur * KV;
+      // every score of the tile kept: no key at or past kvlen, no key in the
+      // causal future of the warp's first row
+      const bool clear = k0 + BK <= L.kvlen && (!L.causal || k0 + BK - 1 <= rw);
+      if (nlive < NKF)
+        fwd_tile<SPLIT, DMAX, DSPLIT, BK, QSOFF, false, true>(acc, m, l, L, Qs, Kt, Vt, k0, nlive, r0);
+      else if (!clear)
+        fwd_tile<SPLIT, DMAX, DSPLIT, BK, QSOFF, true, true>(acc, m, l, L, Qs, Kt, Vt, k0, nlive, r0);
+      else
+        fwd_tile<SPLIT, DMAX, DSPLIT, BK, QSOFF, true, false>(acc, m, l, L, Qs, Kt, Vt, k0, nlive, r0);
+    }
+    __syncthreads();  // the buffer is refilled next iteration
+  }
+  cp_async_wait<0>();
+  float lc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the row's sum over the quad's four lanes
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lc[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < NDF; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + 8 * (e >> 1), d = L.n0d + 8 * j + 2 * L.tg + (e & 1);
+      if (row < Sq && d < D) o[row * p.st[O][2] + d] = Cvt<T>::store(acc[j][e] / lc[e >> 1]);
+    }
+  }
+  if (L.tg == 0 && L.n0d == 0) {  // one lane of each quad, one warp of each strip
+    const long long row_base = ((long long)b * p.NQ + h) * Sq;
+    const int rows[2] = {r0, r1};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)  // lse = m + log(l) in base e; a row with no key keeps NEG_INF
+      if (rows[r] < Sq) p.lse[row_base + rows[r]] = (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(lc[r]);
+  }
+}
 
 // ----------------------------------------------------------------------- dQ
 // One K/V tile's products for the warp: S = Q K^T and dP = dO V^T over
@@ -780,15 +907,6 @@ cudaError_t launch(KernelFn kern, dim3 grid, int threads, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
-// The forward: BT-row tiles, one 256-thread block each.
-template <typename T, int BT, int DMAX>
-cudaError_t run_fwd(const Params& p, cudaStream_t stream) {
-  constexpr size_t tile = sizeof(float) * BT * (DMAX + 1), ps = sizeof(float) * BT * (BT + 1);
-  const unsigned nqt = (unsigned)((p.Sq + BT - 1) / BT);
-  return launch(flash_fwd_kernel<T, BT, DMAX>, dim3(nqt, (unsigned)p.NQ, (unsigned)p.B), NT,
-                3 * tile + ps, stream, p);
-}
-
 // Whether every row of q, k, v and dO starts 16-byte aligned and holds whole
 // 16-byte chunks, so f32 tiles can be copied 16 bytes at a time.
 bool rows_aligned16(const Params& p) {
@@ -803,9 +921,20 @@ bool rows_aligned16(const Params& p) {
   return true;
 }
 
-// which: 1 dQ, 2 dK/dV. NW warps a block, MINB blocks an SM asked of the
-// register allocator, DSPLIT warps to a 16-row strip, and the swept tiles
-// (K/V for dQ, Q/dO for dK/dV) BT rows.
+// NW warps a block, MINB blocks an SM asked of the register allocator,
+// DSPLIT warps to a 16-row strip, and the swept tiles (K/V for the forward
+// and dQ, Q/dO for dK/dV) BT rows.
+template <typename T, int DMAX, int NW, int MINB, int DSPLIT, int BT>
+cudaError_t run_fwd(const Params& p, cudaStream_t stream) {
+  constexpr int rows = 16 * NW / DSPLIT;  // query rows a block owns
+  constexpr size_t smem = sizeof(float) * (DMAX + 4) * (2 * rows + 8 * BT);  // split Q, two split buffers of two
+  const int vec = std::is_same<T, float>::value && rows_aligned16(p);
+  return launch(flash_fwd_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
+                dim3((unsigned)((p.Sq + rows - 1) / rows), (unsigned)p.NQ, (unsigned)p.B), 32 * NW, smem,
+                stream, p, vec);
+}
+
+// which: 1 dQ, 2 dK/dV.
 template <typename T, int DMAX, int NW, int MINB, int DSPLIT, int BT>
 cudaError_t run_bwd(int which, const Params& p, cudaStream_t stream) {
   constexpr size_t row = sizeof(float) * (DMAX + 4);
@@ -821,19 +950,19 @@ cudaError_t run_bwd(int which, const Params& p, cudaStream_t stream) {
                 smem + sizeof(float) * 4 * BT, stream, p, vec);
 }
 
-// which: 0 forward, 1 dQ, 2 dK/dV. Forward: head dims up to 64 and 128 take
-// 64-row tiles, up to 256 32-row tiles. Backward (rows a block owns, swept
-// tile, shared memory): up to 64, 8 warps at two blocks an SM (128 rows,
-// 16, 102 KB); up to 128, 4 warps (32 rows, 16, 99 KB); up to 256, 4 warps
-// (32 rows, 16, 195 KB). Above 64 two warps share a 16-row strip, each with
-// half the output columns, so the accumulators fit in registers.
+// which: 0 forward, 1 dQ, 2 dK/dV; three head-dim tiers (rows a block owns,
+// swept tile, shared memory, the same for all three kernels): up to 64,
+// 8 warps at two blocks an SM (128 rows, 16, 102 KB); up to 128, 4 warps
+// (32 rows, 16, 99 KB); up to 256, 4 warps (32 rows, 16, 195 KB). Above 64 two warps
+// share a 16-row strip, each with half the output columns, so the
+// accumulators fit in registers.
 template <typename T>
 cudaError_t run_d(int which, const Params& p, cudaStream_t stream) {
   if (p.D < 1 || p.D > 256 || which < 0 || which > 2) return cudaErrorInvalidValue;
   if (which == 0) {
-    if (p.D <= 64) return run_fwd<T, 64, 64>(p, stream);
-    if (p.D <= 128) return run_fwd<T, 64, 128>(p, stream);
-    return run_fwd<T, 32, 256>(p, stream);
+    if (p.D <= 64) return run_fwd<T, 64, 8, 2, 1, 16>(p, stream);
+    if (p.D <= 128) return run_fwd<T, 128, 4, 1, 2, 16>(p, stream);
+    return run_fwd<T, 256, 4, 1, 2, 16>(p, stream);
   }
   if (p.D <= 64) return run_bwd<T, 64, 8, 2, 1, 16>(which, p, stream);
   if (p.D <= 128) return run_bwd<T, 128, 4, 1, 2, 16>(which, p, stream);

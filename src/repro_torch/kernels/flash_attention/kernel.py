@@ -11,11 +11,12 @@ be multiples of a block (the kernels mask the ragged tiles instead of the
 wrapper padding them), and any strides are taken as long as the head dim is
 contiguous, so the op passes transposed views of the model's (B, S, H, D)
 tensors and copies nothing. Outputs are allocated with their input's
-strides. The Pallas block sizes are TPU tiles and are not taken: the CUDA
-forward uses 64-row tiles (32 for head dims above 128); the backward kernels
-give each warp a 16-row strip (8 warps, 128 rows a block up to head dim 64;
-4 warps, 32 rows above) and sweep the other side in 16-row tiles, on the
-tensor cores in 3xTF32 (about f32 accuracy).
+strides. The Pallas block sizes are TPU tiles and are not taken: all three
+kernels give each warp a 16-row strip (8 warps, 128 rows a block up to head
+dim 64; 4 warps, 32 rows above, two warps to a strip) and sweep the other
+side in 16-row tiles brought in by ``cp.async``, with every product on the
+tensor cores in 3xTF32 (about f32 accuracy); the forward keeps its online
+softmax per strip and adds each tile's P·V to O in f32.
 
 The bound on the card, the design and the masks are described in the CUDA
 source. The library is built by ``common.load_cuda`` at the first launch;

@@ -122,7 +122,7 @@ def test_full_attention_matches_jax(causal, ragged):
                        torch.from_numpy(np.array(jattn.expand_kv(jnp.asarray(k), 6))))
 
 
-# ------------------------------------------ the CUDA backward's 3xTF32 scheme
+# ---------------------------------------- the CUDA kernels' 3xTF32 scheme
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -198,6 +198,76 @@ def test_one_tf32_product_breaks_flash_tolerance(causal):
     got = _bwd_with(_mm_tf32, *args, causal)[0]
     tol = TOL["float32"]
     assert float(((got - dq).abs() / (tol * (1 + dq.abs()))).max()) > 2
+
+
+FWD_BK = 16  # the CUDA forward's key tile
+
+
+def _fwd_with(mm, q, k, v, kvlen, causal):
+    """``flash_fwd_ref`` as the CUDA forward takes it: scores in base 2 (Q
+    scaled by scale·log2(e) in f32, ``exp2``, lse converted back), K/V swept
+    in ``FWD_BK``-key tiles with the online rescale, each tile's P V taken
+    alone and added to O in f32 (O corr + t), the two products taken by
+    ``mm``: (o, lse) f32."""
+    B, NQ, Sq, D = q.shape
+    NKV, Sk = k.shape[1], k.shape[2]
+    qg = tref._grouped(q, NKV) * np.float32(D**-0.5 * np.log2(np.e))
+    keep = tref._keep(Sq, Sk, causal=causal, lengths=kvlen, device=q.device)
+    m = torch.full(qg.shape[:-1], tref.NEG_INF)
+    l, acc = torch.zeros(qg.shape[:-1]), torch.zeros(qg.shape)
+    for k0 in range(0, Sk, FWD_BK):
+        kt, vt = (x.float()[:, :, None, k0:k0 + FWD_BK] for x in (k, v))
+        kp = keep[..., k0:k0 + FWD_BK]
+        s = mm("bhgqd,bhgkd->bhgqk", qg, kt)
+        mn = torch.maximum(m, torch.where(kp, s, tref.NEG_INF).amax(-1))
+        corr = torch.exp2(m - mn)
+        p = torch.where(kp, torch.exp2(s - mn[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + mm("bhgqk,bhgkd->bhgqd", p, vt)
+        m = mn
+    lc = l.clamp_min(1e-30)
+    lse = torch.where(m == tref.NEG_INF, m, m * np.float32(np.log(2))) + torch.log(lc)
+    return (acc / lc[..., None]).reshape(q.shape), lse.reshape(B, NQ, Sq)
+
+
+def _gqa_1024_inputs(D: int, seed: int = 4):
+    """A causal GQA ragged shape with a long key sweep (Sq = Sk = 1024, 8
+    query heads on 2 kv heads), one full row and one ragged, standard normal."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((2, 8, 1024, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 1024, D)).astype(np.float32)) for _ in range(2))
+    return q, k, v, torch.tensor([1024, 611], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", ["vit", "vit causal", "gqa 1024 D=16", "gqa 1024 D=128"])
+def test_3xtf32_forward_within_flash_tolerance(case):
+    """The CUDA forward's scheme, emulated on the CPU, holds the f32 flash
+    tolerance against the exact plain version: at the ViT's head shape and
+    over a 1024-key causal GQA sweep."""
+    if case.startswith("vit"):
+        causal = case == "vit causal"
+        q, k, v, _, _, _, kvlen = _vit_head_inputs(causal)
+    else:
+        causal = True
+        q, k, v, kvlen = _gqa_1024_inputs(int(case.split("D=")[1]))
+    o, lse = tref.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    got_o, got_lse = _fwd_with(_mm_3xtf32, q, k, v, kvlen, causal)
+    tol = TOL["float32"]
+    torch.testing.assert_close(got_o, o, atol=tol, rtol=tol, msg="o")
+    torch.testing.assert_close(got_lse, lse, atol=tol, rtol=tol, msg="lse")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_breaks_forward_tolerance(causal):
+    """The forward needs three products too: with TF32 alone O misses the
+    f32 tolerance by several times at the ViT's head shape (rows that see
+    few keys carry V's own rounding into O almost undamped)."""
+    q, k, v, _, _, _, kvlen = _vit_head_inputs(causal)
+    o, _ = tref.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    got, _ = _fwd_with(_mm_tf32, q, k, v, kvlen, causal)
+    tol = TOL["float32"]
+    assert float(((got - o).abs() / (tol * (1 + o.abs()))).max()) > 2
+
 
 def test_tf32_rounding_matches_cvt_rna():
     """Ties round away from zero, the 13 low bits are cleared, and the split

@@ -53,7 +53,11 @@ from repro_torch.kernels.lstsq import ref as lstsq_ref
 from repro_torch.kernels.lstsq.kernel import wls_solve_cuda
 
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
-SHAPES = [(1, 1, 3), (3, 5, 77), (2, 9, 130), (4, 37, 3000), (16, 64, 3072)]  # (B, K, F)
+# (B, K, F): odd shapes, ragged ones (K and F multiples of no tile, at
+# accum_cot's narrowest and widest F tile), the CNN path's stage-2 shape
+# and the ViT path's
+SHAPES = [(1, 1, 3), (3, 5, 77), (2, 9, 130), (4, 37, 3000), (5, 19, 4099), (3, 13, 100_003),
+          (16, 64, 3072), (16, 16, 224 * 224 * 3)]
 
 
 @pytest.fixture
@@ -101,6 +105,16 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
                                "interpolate": 2, "ig_accum": 2, "interp_add": 3, "accum_cot": 2}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,F", [(5, 19, 4099), (16, 64, 3072), (16, 16, 224 * 224 * 3)])
+def test_accum_cot_same_bits_on_every_call(card, dtype, B, K, F):
+    """No atomics and a fixed sum order: two calls on the same input give
+    the same bits (the resume gates compare with ``torch.equal``)."""
+    g = torch.randn((B, K, F), generator=card, device="cuda").to(dtype)
+    assert torch.equal(accum_cot_triton(g), accum_cot_triton(g))
+
+
 # (B, K, F): odd shapes, the CNN path's stage-2 shape and the ViT path's
 IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), (16, 64, 3072), (16, 16, 224 * 224 * 3)]
 
@@ -142,7 +156,9 @@ def test_idgi_kernels_match_plain(card, dtype, B, K, F):
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- and 16-row edges
 # (B, S, NQ, NKV, D, causal, ragged): the ViT's attention at a smaller batch,
-# the LMs' causal GQA ragged shape, and the JAX tests' odd head dims and
+# the LMs' causal GQA ragged shape, a long causal GQA key sweep (1024 keys,
+# the engine's largest bucket) at D = 128 and the reduced LM's D = 16, one
+# row full and one ragged, and the JAX tests' odd head dims and
 # sequence lengths, one per head-dim bucket of the kernels; then the
 # backward's fragment edges: S=196 with kvlen on and beside them (ragged
 # given as the lengths), S at 1 and around one 16-row strip, a head dim
@@ -150,6 +166,8 @@ EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- a
 FLASH_SHAPES = [
     (8, 196, 6, 6, 64, False, False),
     (2, 333, 8, 2, 128, True, True),
+    (2, 1024, 8, 2, 128, True, (1024, 611)),
+    (2, 1024, 8, 2, 16, True, (1024, 611)),
     (1, 17, 4, 2, 8, True, True),
     (2, 33, 6, 6, 4, False, True),
     (2, 70, 4, 1, 256, True, False),
@@ -253,6 +271,26 @@ def test_flash_backward_on_unaligned_rows(nvcc_card, dtype, D):
     torch.cuda.synchronize()
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 6])
+def test_flash_forward_on_unaligned_rows(nvcc_card, dtype, D, causal):
+    """The forward on the same unaligned views: its 4-byte copies and the
+    element-wise split of Q (scaled), K and V agree with the plain version
+    as the aligned rows do."""
+    B, S, NQ, NKV = 2, 77, 4, 2
+    rnd = lambda h: torch.randn((B, S, h, D + 1), generator=nvcc_card, device="cuda").to(dtype)
+    q, k, v = (x[..., 1:].transpose(1, 2) for x in (rnd(NQ), rnd(NKV), rnd(NKV)))
+    kvlen = torch.tensor([S, 40], dtype=torch.int32, device="cuda")
+    tol = FLASH_TOL[dtype]
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=causal)
+    o_ref, lse_ref = fref.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol, msg="o")
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol, msg="lse")
 
 
 def _wls_system(gen, B, N, dtype):
