@@ -13,10 +13,12 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      PyTorch version on the card: at the CNN path's shape (B=16, K=64,
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
      masked shape through the op wrappers, in bf16, and (IDGI's two) on
-     zero-gradient rows, and ``accum_cot`` twice on one input for the same
-     bits; times the kernel, its plain version and one PyTorch library call
-     of the same function, each with a cold L2, beside the bound the card's
-     bandwidth sets;
+     zero-gradient rows, and the three K-sweeps (``accum_cot``,
+     ``ig_accum``, ``ig_accum_sq``) twice on one input for the same bits at
+     both stage-2 shapes, printing the tile each chose; times the kernel,
+     its plain version and one PyTorch library call of the same function,
+     each with a cold L2, beside the bound the card's bandwidth sets, and
+     one launch on a single 128-column row (the floor of that timing);
   3. CUDA kernels — the three flash kernels (forward, dQ, dK/dV) against
      their plain versions and the op's autograd against the analytic
      oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
@@ -103,7 +105,7 @@ TOL_BF16 = 2.0**-7  # one bf16 ulp for values in [1, 2)
 # kernel groups of a profiler trace, by substrings of the kernels' names
 PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
-                            "_accum_cot_kernel", "_dots_kernel", "_accum_sq_kernel"),
+                            "_accum_cot_kernel", "_dots_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "solve (the port's)": ("gauss_jordan_kernel",),
     "GEMM (cuBLAS)": ("gemm", "Gemm"),
@@ -250,6 +252,7 @@ def kernel_phase() -> list[dict]:
     """Each Triton kernel vs its plain version on the card; one record each,
     timed at the CNN's stage-2 shape and again at the ViT's."""
     from repro_torch.core import methods, paths
+    from repro_torch.kernels import common
     from repro_torch.kernels.ig_accum import kernel as k_acc, ops as o_acc, ref as r_acc
     from repro_torch.kernels.interp_accum import kernel as k_ia, ops as o_ia, ref as r_ia
     from repro_torch.kernels.interpolate import kernel as k_int, ops as o_int, ref as r_int
@@ -305,15 +308,27 @@ def kernel_phase() -> list[dict]:
     _check("accum_cot bf16", _err(k_ia.accum_cot_triton(grads.bfloat16()),
                                   r_ia.accum_cot_ref(grads.bfloat16())),
            TOL_SUM * float(grads.abs().sum(1).max()))
+    sms = common.sm_count(torch.device(DEV))
     for shape in ((B, K, F), VIT_STAGE2):  # the resume gates compare with torch.equal
+        Bs, Ks, Fs = shape
         gs = torch.randn(shape, generator=g, device=DEV)
-        if not torch.equal(k_ia.accum_cot_triton(gs), k_ia.accum_cot_triton(gs)):
-            raise AssertionError(f"accum_cot at {shape}: two calls on one input differ")
-    print("  accum_cot: the same bits on a second call at both stage-2 shapes")
+        accs, cs = torch.randn(Bs, Fs, generator=g, device=DEV), rnd(Bs, Ks) / Ks
+        sweeps = {"accum_cot": lambda: k_ia.accum_cot_triton(gs),
+                  "ig_accum": lambda: k_acc.ig_accum_triton(accs, gs, cs),
+                  "ig_accum_sq": lambda: k_acc.ig_accum_sq_triton(accs, gs, cs)}
+        for name, fn in sweeps.items():
+            if not torch.equal(fn(), fn()):
+                raise AssertionError(f"{name} at {shape}: two calls on one input differ")
+        tile = common.sweep_tile(Bs, Fs, gs.dtype, sms)
+        print(f"  {', '.join(sweeps)} at {shape}: the same bits on a second call; "
+              f"(BLOCK_F, num_warps) {tile} each")
     gb, db = grads.bfloat16(), (x - b).bfloat16()
     for i, (got, want) in enumerate(zip(k_acc.idgi_dots_triton(gb, db), r_acc.idgi_dots_ref(gb, db))):
         _check(f"idgi_dots bf16 output {i}", _err(got, want), TOL_SUM * float(want.abs().max()))
     w = rnd(B, K) / K
+    want = r_acc.ig_accum_ref(carry, gb, w)
+    _check("ig_accum bf16", _err(k_acc.ig_accum_triton(carry, gb, w), want),
+           TOL_SUM * float(want.abs().max()))
     want = r_acc.ig_accum_sq_ref(carry, gb, w)
     _check("ig_accum_sq bf16", _err(k_acc.ig_accum_sq_triton(carry, gb, w), want),
            TOL_SUM * float(want.abs().max()))
@@ -328,6 +343,12 @@ def kernel_phase() -> list[dict]:
     if not (all(not bool(z.any()) for z in zero) and bool(torch.isfinite(out).all())):
         raise AssertionError("IDGI on zero-gradient rows: not exactly 0 or not finite")
     print("  ⟨g,g⟩, ⟨g,diff⟩ and the accumulation exactly 0 on the zero rows, all finite")
+    # what a launch costs in this timing with next to no work: the floor under
+    # every kernel's time at the small CNN shape
+    one = (torch.zeros(1, 128, device=DEV), torch.zeros(1, 1, 128, device=DEV),
+           torch.zeros(1, 1, device=DEV))
+    print(f"launch floor: ig_accum on one 128-column row, cold L2, "
+          f"{_cold_ms(lambda: k_acc.ig_accum_triton(*one)):.5f} ms")
     return records
 
 

@@ -39,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "
               "-Xcompiler", "-fPIC")
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's usual home
 FLOATS = (torch.float32, torch.bfloat16, torch.float16)  # what the kernels take
+SWEEP_ROW_BYTES = (8192, 4096, 2048, 1024, 512)  # a K-sweep's F tiles, bytes a row, widest first
+SWEEP_PROGRAMS_PER_SM = 2  # a K-sweep's tile is no wider than leaves each SM this many
 
 # Kernel launches by kernel name. Each kernel wrapper adds one per launch and
 # nothing else touches the counts, so a run can show which kernels it reached.
@@ -90,6 +92,31 @@ def import_triton():
     except ImportError as e:
         raise RuntimeError("CUDA inputs need the triton package to launch the port's kernels") from e
     return triton, tl
+
+
+@functools.cache
+def sm_count(device: torch.device | str = "cuda") -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def sweep_tile(B: int, F: int, dtype: torch.dtype, sms: int) -> tuple[int, int]:
+    """(BLOCK_F, num_warps) of a K-sweep over (B, K, F): one program per
+    (row, F tile), each thread summing its own columns over K with 16-byte
+    loads. The tile is the widest of ``SWEEP_ROW_BYTES`` bytes a row that
+    gives at least ``SWEEP_PROGRAMS_PER_SM`` programs to each of ``sms``
+    SMs, else the narrowest (one warp, one 16-byte load a thread a row); a
+    thread takes 64 bytes of a row (four loads) where the tile has 2048
+    bytes or more. In f32 that is 128 to 2048 columns, in bf16 256 to 4096.
+
+        >>> sweep_tile(16, 150_528, torch.float32, 132), sweep_tile(16, 3072, torch.float32, 132)
+        ((2048, 4), (128, 1))
+        >>> sweep_tile(16, 150_528, torch.bfloat16, 132), sweep_tile(16, 3072, torch.bfloat16, 132)
+        ((4096, 4), (256, 1))
+    """
+    cols = [nbytes // dtype.itemsize for nbytes in SWEEP_ROW_BYTES]
+    block = next((c for c in cols if B * -(-F // c) >= SWEEP_PROGRAMS_PER_SM * sms), cols[-1])
+    return block, max(1, block * dtype.itemsize // 2048)
 
 
 def check_flat(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple) -> torch.Tensor:

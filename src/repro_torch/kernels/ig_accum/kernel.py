@@ -7,7 +7,8 @@ Replace ``repro/kernels/ig_accum/kernel.py``:
   * ``idgi_dots_triton`` ← ``idgi_dots_pallas`` (``_dots_kernel``):
     ⟨g_k, g_k⟩ and ⟨g_k, diff⟩ per (row, step), each reduced over all of F;
   * ``ig_accum_sq_triton`` ← ``ig_accum_sq_pallas`` (``_accum_sq_kernel``):
-    acc + Σ_k c_k g_k², IDGI's weighting pass (g² is never stored).
+    acc + Σ_k c_k g_k², IDGI's weighting pass (g² is never stored); the
+    same Triton body as ``ig_accum_triton``, compiled with ``SQUARE``.
 
 IDGI's coefficient c = w·⟨g,diff⟩/⟨g,g⟩ is formed between its two kernels
 (``ops.ig_accum_idgi``), since the dot products reduce over the whole row,
@@ -24,14 +25,26 @@ dots) was a sequential grid axis with the output tile carried in VMEM.
 Here blocks run in no order, so a block owns its outputs and loops over
 the reduced axis inside itself, in f32 registers, storing once:
 
-  * the accumulations: one program per (row, F-tile), looping over K;
+  * the accumulations, one body for both (``SQUARE`` picks g or g², squared
+    in f32 after the cast): one program per (row, F tile) that sweeps K one
+    row at a time (ACCUM_UNROLL rows a loop step, their loads in flight
+    together) into a per-thread f32 vector started from acc. Each thread
+    sums only its own columns, so nothing is reduced across threads, each
+    row's load is coalesced, 16 bytes a load, and every thread loads the
+    step's coefficient from the same address. The F tile is the
+    one ``accum_cot`` uses (``common.sweep_tile``): 2048 f32 columns on 4
+    warps at the ViT's (16, ·, 150,528), 128 on one at the CNN's
+    (16, ·, 3072); bf16 takes twice the columns, so a load still carries
+    16 bytes. Splitting K across a program's warps (slots summed once after
+    the loop) ran no faster at either shape, so it is not kept;
   * the dots: one program per (row, step), looping over F in BLOCK_F-wide
     tiles into two f32 vectors, summed across the vector once at the end.
 
-No atomics: every sum is taken in a fixed order, so the results are the
-same bits on every run, which bit-identical adaptive resume relies on (for
-IDGI the coefficients, and so every attribution, depend on the dots'
-bits). Ragged K and F are masked loads, not padding copies.
+No atomics: every sum is taken in a fixed order (the accumulations k = 0,
+1, … after acc), so the results are the same bits on every run, which
+bit-identical adaptive resume relies on (for IDGI the coefficients, and so
+every attribution, depend on the dots' bits). Ragged K and F are masked
+loads, not padding copies; a zero coefficient adds exactly 0.
 """
 from __future__ import annotations
 
@@ -41,28 +54,33 @@ import torch
 
 from repro_torch.kernels import common
 
-BLOCK_K = 16
-BLOCK_F = 128
-NUM_WARPS = 4
+ACCUM_UNROLL = 8  # K rows whose loads are in flight together
 DOTS_BLOCK_F = 2048  # 8 f32 a thread a tile at 8 warps
 DOTS_NUM_WARPS = 8
 
 tl = None  # triton.language, bound on the first launch
 
 
-def _accum_kernel(acc_ptr, g_ptr, w_ptr, o_ptr, K, F,
-                  BLOCK_K: "tl.constexpr", BLOCK_F: "tl.constexpr"):
+def _accum_kernel(acc_ptr, g_ptr, c_ptr, o_ptr, K, F, SQUARE: "tl.constexpr",
+                  UNROLL: "tl.constexpr", BLOCK_F: "tl.constexpr"):
     row = tl.program_id(0).to(tl.int64)
     offs_f = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
     fmask = offs_f < F
-    acc = tl.load(acc_ptr + row * F + offs_f, mask=fmask, other=0.0)
-    for k0 in range(0, K, BLOCK_K):
-        offs_k = k0 + tl.arange(0, BLOCK_K)
-        kmask = offs_k < K
-        g = tl.load(g_ptr + (row * K + offs_k[:, None]) * F + offs_f[None, :],
-                    mask=kmask[:, None] & fmask[None, :], other=0.0).to(tl.float32)
-        w = tl.load(w_ptr + row * K + offs_k, mask=kmask, other=0.0).to(tl.float32)
-        acc += tl.sum(g * w[:, None], axis=0)
+    g_ptrs = g_ptr + row * K * F + offs_f
+    # the step's coefficient through a one-element vector: on the H100 a scalar
+    # pointer took more registers and ran slower at the ViT's shape
+    c_ptrs = c_ptr + row * K + tl.arange(0, 1)
+    acc = tl.load(acc_ptr + row * F + offs_f, mask=fmask, other=0.0)  # the sum starts from acc
+    for k0 in range(0, K, UNROLL):
+        for u in tl.static_range(UNROLL):  # one row at a time, each thread its own columns
+            live = k0 + u < K
+            c = tl.sum(tl.load(c_ptrs, mask=live, other=0.0).to(tl.float32), axis=0)
+            g = tl.load(g_ptrs, mask=fmask & live, other=0.0).to(tl.float32)
+            if SQUARE:
+                g = g * g
+            acc += c * g
+            g_ptrs += F
+            c_ptrs += 1
     tl.store(o_ptr + row * F + offs_f, acc, mask=fmask)
 
 
@@ -82,43 +100,35 @@ def _dots_kernel(g_ptr, d_ptr, s_ptr, p_ptr, K, F, BLOCK_F: "tl.constexpr"):
     tl.store(p_ptr + r, tl.sum(p, axis=0))
 
 
-def _accum_sq_kernel(acc_ptr, g_ptr, c_ptr, o_ptr, K, F,
-                     BLOCK_K: "tl.constexpr", BLOCK_F: "tl.constexpr"):
-    row = tl.program_id(0).to(tl.int64)
-    offs_f = tl.program_id(1) * BLOCK_F + tl.arange(0, BLOCK_F)
-    fmask = offs_f < F
-    acc = tl.load(acc_ptr + row * F + offs_f, mask=fmask, other=0.0)
-    for k0 in range(0, K, BLOCK_K):
-        offs_k = k0 + tl.arange(0, BLOCK_K)
-        kmask = offs_k < K
-        g = tl.load(g_ptr + (row * K + offs_k[:, None]) * F + offs_f[None, :],
-                    mask=kmask[:, None] & fmask[None, :], other=0.0).to(tl.float32)
-        c = tl.load(c_ptr + row * K + offs_k, mask=kmask, other=0.0).to(tl.float32)
-        acc += tl.sum((g * g) * c[:, None], axis=0)
-    tl.store(o_ptr + row * F + offs_f, acc, mask=fmask)
-
-
 @functools.cache
 def _compiled():
     global tl
     triton, tl = common.import_triton()
-    return (triton, triton.jit(_accum_kernel), triton.jit(_dots_kernel),
-            triton.jit(_accum_sq_kernel))
+    return triton, triton.jit(_accum_kernel), triton.jit(_dots_kernel)
+
+
+def _accum(name: str, acc: torch.Tensor, grads: torch.Tensor, c: torch.Tensor,
+           square: bool) -> torch.Tensor:
+    """Launch the K-sweep: acc + Σ_k c_k g_k (``square``: c_k g_k²)."""
+    B, K, F = grads.shape
+    grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
+    acc = common.check_flat("acc", acc, (B, F), (torch.float32,))
+    if square:
+        c = common.check_flat("coeff", c, (B, K), (torch.float32,))
+    else:
+        c = common.check_flat("weights", c, (B, K), common.FLOATS)
+    out = torch.empty((B, F), dtype=torch.float32, device=acc.device)
+    triton, kern, _ = _compiled()
+    block, warps = common.sweep_tile(B, F, grads.dtype, common.sm_count(grads.device))
+    kern[(B, triton.cdiv(F, block))](acc, grads, c, out, K, F, SQUARE=square, UNROLL=ACCUM_UNROLL,
+                                     BLOCK_F=block, num_warps=warps)
+    common.LAUNCHES[name] += 1
+    return out
 
 
 def ig_accum_triton(acc: torch.Tensor, grads: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """acc (B, F) f32; grads (B, K, F); weights (B, K), CUDA -> (B, F) f32."""
-    B, K, F = grads.shape
-    grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
-    acc = common.check_flat("acc", acc, (B, F), (torch.float32,))
-    weights = common.check_flat("weights", weights, (B, K), common.FLOATS)
-    out = torch.empty((B, F), dtype=torch.float32, device=acc.device)
-    triton, kern, _, _ = _compiled()
-    grid = (B, triton.cdiv(F, BLOCK_F))
-    kern[grid](acc, grads, weights, out, K, F, BLOCK_K=BLOCK_K, BLOCK_F=BLOCK_F,
-               num_warps=NUM_WARPS)
-    common.LAUNCHES["ig_accum"] += 1
-    return out
+    return _accum("ig_accum", acc, grads, weights, square=False)
 
 
 def idgi_dots_triton(grads: torch.Tensor, diff: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -128,7 +138,7 @@ def idgi_dots_triton(grads: torch.Tensor, diff: torch.Tensor) -> tuple[torch.Ten
     diff = common.check_flat("diff", diff, (B, F), common.FLOATS)
     s = torch.empty((B, K), dtype=torch.float32, device=grads.device)
     p = torch.empty((B, K), dtype=torch.float32, device=grads.device)
-    _, _, kern, _ = _compiled()
+    _, _, kern = _compiled()
     kern[(B * K,)](grads, diff, s, p, K, F, BLOCK_F=DOTS_BLOCK_F, num_warps=DOTS_NUM_WARPS)
     common.LAUNCHES["idgi_dots"] += 1
     return s, p
@@ -137,14 +147,4 @@ def idgi_dots_triton(grads: torch.Tensor, diff: torch.Tensor) -> tuple[torch.Ten
 def ig_accum_sq_triton(acc: torch.Tensor, grads: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
     """acc (B, F) f32; grads (B, K, F); coeff (B, K) f32, CUDA -> (B, F) f32
     = acc + Σ_k coeff_k · g_k²."""
-    B, K, F = grads.shape
-    grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
-    acc = common.check_flat("acc", acc, (B, F), (torch.float32,))
-    coeff = common.check_flat("coeff", coeff, (B, K), (torch.float32,))
-    out = torch.empty((B, F), dtype=torch.float32, device=acc.device)
-    triton, _, _, kern = _compiled()
-    grid = (B, triton.cdiv(F, BLOCK_F))
-    kern[grid](acc, grads, coeff, out, K, F, BLOCK_K=BLOCK_K, BLOCK_F=BLOCK_F,
-               num_warps=NUM_WARPS)
-    common.LAUNCHES["ig_accum_sq"] += 1
-    return out
+    return _accum("ig_accum_sq", acc, grads, coeff, square=True)

@@ -25,9 +25,10 @@ row at a time (COT_UNROLL rows a loop step, their loads in flight together)
 into a per-thread f32 vector over its F tile: each thread sums only its own
 columns, so nothing is reduced across threads, and each row's load is
 coalesced, 16 bytes a load. Its F tile is the widest that still gives
-every SM two programs (``_cot_config``): at the ViT's (16, ·, 150,528) 2048
-columns on 4 warps, at the CNN's (16, ·, 3072) 128 on one. No atomics and a
-fixed sum order (k = 0, 1, …), so the same input gives the same bits.
+every SM two programs (``common.sweep_tile``): at the ViT's (16, ·,
+150,528) 2048 f32 columns on 4 warps, at the CNN's (16, ·, 3072) 128 on
+one. No atomics and a fixed sum order (k = 0, 1, …), so the same input
+gives the same bits.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ BLOCK_K = 16
 BLOCK_F = 128
 NUM_WARPS = 4
 COT_UNROLL = 8  # accum_cot: K rows whose loads are in flight together
-COT_BLOCKS_F = (2048, 1024, 512, 256, 128)  # accum_cot's F tiles, widest first
 
 tl = None  # triton.language, bound on the first launch
 
@@ -114,31 +114,13 @@ def interp_add_triton(
     return out
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _cot_config(B: int, F: int, sms: int) -> tuple[int, int]:
-    """accum_cot's (BLOCK_F, num_warps): the widest F tile of
-    ``COT_BLOCKS_F`` that gives at least two programs to each of ``sms``
-    SMs (else the narrowest), 16 columns to a thread (four 16-byte loads a
-    row) where the tile has 512 or more.
-
-        >>> _cot_config(16, 150_528, 132), _cot_config(16, 3072, 132)
-        ((2048, 4), (128, 1))
-    """
-    block = next((bf for bf in COT_BLOCKS_F if B * -(-F // bf) >= 2 * sms), COT_BLOCKS_F[-1])
-    return block, max(1, block // 512)
-
-
 def accum_cot_triton(grads: torch.Tensor) -> torch.Tensor:
     """grads (B, K, F) CUDA -> (B, F) f32 = Σ_k grads[:, k]."""
     B, K, F = grads.shape
     grads = common.check_flat("grads", grads, (B, K, F), common.FLOATS)
     out = torch.empty((B, F), dtype=torch.float32, device=grads.device)
     triton, _, kern = _compiled()
-    block, warps = _cot_config(B, F, _sm_count(grads.device))
+    block, warps = common.sweep_tile(B, F, grads.dtype, common.sm_count(grads.device))
     kern[(B, triton.cdiv(F, block))](grads, out, K, F, UNROLL=COT_UNROLL, BLOCK_F=block, num_warps=warps)
     common.LAUNCHES["accum_cot"] += 1
     return out

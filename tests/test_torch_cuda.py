@@ -54,10 +54,14 @@ from repro_torch.kernels.lstsq.kernel import wls_solve_cuda
 
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 # (B, K, F): odd shapes, ragged ones (K and F multiples of no tile, at
-# accum_cot's narrowest and widest F tile), the CNN path's stage-2 shape
-# and the ViT path's
+# the K-sweeps' narrowest and widest F tile), the K-sweeps' tile edges (K=1;
+# K not a multiple of their UNROLL; F one past a 128-, 2048- and, in bf16,
+# a 256- or 4096-column tile), the CNN path's stage-2 shape and the ViT
+# path's
+RAGGED_SWEEPS = [(16, 1, 3072), (16, 37, 3073), (16, 63, 2049), (16, 9, 2048 * 37 + 1),
+                 (16, 7, 4096 * 19 + 1)]
 SHAPES = [(1, 1, 3), (3, 5, 77), (2, 9, 130), (4, 37, 3000), (5, 19, 4099), (3, 13, 100_003),
-          (16, 64, 3072), (16, 16, 224 * 224 * 3)]
+          *RAGGED_SWEEPS, (16, 64, 3072), (16, 16, 224 * 224 * 3)]
 
 
 @pytest.fixture
@@ -106,17 +110,25 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["accum_cot", "ig_accum", "ig_accum_sq"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,F", [(5, 19, 4099), (16, 64, 3072), (16, 16, 224 * 224 * 3)])
-def test_accum_cot_same_bits_on_every_call(card, dtype, B, K, F):
+def test_k_sweeps_same_bits_on_every_call(card, kernel, dtype, B, K, F):
     """No atomics and a fixed sum order: two calls on the same input give
     the same bits (the resume gates compare with ``torch.equal``)."""
     g = torch.randn((B, K, F), generator=card, device="cuda").to(dtype)
-    assert torch.equal(accum_cot_triton(g), accum_cot_triton(g))
+    acc = torch.randn((B, F), generator=card, device="cuda")
+    c = torch.rand((B, K), generator=card, device="cuda")
+    call = {"accum_cot": lambda: accum_cot_triton(g),
+            "ig_accum": lambda: ig_accum_triton(acc, g, c),
+            "ig_accum_sq": lambda: ig_accum_sq_triton(acc, g, c)}[kernel]
+    assert torch.equal(call(), call())
 
 
-# (B, K, F): odd shapes, the CNN path's stage-2 shape and the ViT path's
-IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), (16, 64, 3072), (16, 16, 224 * 224 * 3)]
+# (B, K, F): odd shapes, the K-sweeps' tile edges, the CNN path's stage-2
+# shape and the ViT path's
+IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), *RAGGED_SWEEPS, (16, 64, 3072),
+               (16, 16, 224 * 224 * 3)]
 
 
 @pytest.mark.cuda

@@ -270,3 +270,23 @@ def test_missing_triton_raises(monkeypatch, tmp_path):
     monkeypatch.setitem(sys.modules, "triton", None)
     with pytest.raises(RuntimeError, match="triton"):
         common.import_triton()
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F", [(16, 224 * 224 * 3), (16, 3072), (1, 3), (5, 4099), (3, 100_003),
+                                 (64, 3072), (1, 1 << 22)])
+def test_sweep_tile_choices(sms, dtype, B, F):
+    """The K-sweeps' shared tile chooser (accum_cot, ig_accum, ig_accum_sq),
+    a pure function of (B, F, dtype, SMs): 16 bytes a thread a row or more,
+    the widest tile of ``SWEEP_ROW_BYTES`` that gives every SM
+    ``SWEEP_PROGRAMS_PER_SM`` programs, else the narrowest; and accum_cot's
+    choices at both stage-2 shapes as they were."""
+    widths = [n // dtype.itemsize for n in common.SWEEP_ROW_BYTES]
+    block, warps = common.sweep_tile(B, F, dtype, sms)
+    assert block in widths and block * dtype.itemsize // (32 * warps) >= 16
+    enough = lambda w: B * -(-F // w) >= common.SWEEP_PROGRAMS_PER_SM * sms
+    assert enough(block) or block == widths[-1]
+    assert not any(enough(w) for w in widths[: widths.index(block)])  # no wider tile would do
+    if dtype == torch.float32 and sms == 132 and (B, F) in ((16, 224 * 224 * 3), (16, 3072)):
+        assert (block, warps) == {224 * 224 * 3: (2048, 4), 3072: (128, 1)}[F]
