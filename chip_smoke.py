@@ -14,8 +14,9 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
      masked shape through the op wrappers, in bf16, and (IDGI's two) on
      zero-gradient rows, and the three K-sweeps (``accum_cot``,
-     ``ig_accum``, ``ig_accum_sq``) twice on one input for the same bits at
-     both stage-2 shapes, printing the tile each chose; times the kernel,
+     ``ig_accum``, ``ig_accum_sq``), ``idgi_dots`` and ``interpolate``
+     twice on one input for the same bits at both stage-2 shapes, printing
+     the tile and the dots plan they chose; times the kernel,
      its plain version and one PyTorch library call of the same function,
      each with a cold L2, beside the bound the card's bandwidth sets, and
      one launch on a single 128-column row (the floor of that timing);
@@ -105,7 +106,7 @@ TOL_BF16 = 2.0**-7  # one bf16 ulp for values in [1, 2)
 # kernel groups of a profiler trace, by substrings of the kernels' names
 PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
-                            "_accum_cot_kernel", "_dots_kernel"),
+                            "_accum_cot_kernel", "_dots_kernel", "_dots_sum_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "solve (the port's)": ("gauss_jordan_kernel",),
     "GEMM (cuBLAS)": ("gemm", "Gemm"),
@@ -117,24 +118,11 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _cold_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, timed with CUDA
-    events. Each call is queued behind a read of 256 MB, which leaves none
-    of ``fn``'s data in the 50 MB L2 (and no dirty lines to write back) and
-    keeps the card busy while the host launches ``fn``, so the host's launch
-    cost is hidden wherever the card would hide it in a stream of work."""
-    flush = torch.ones(256 << 20, dtype=torch.uint8, device=DEV)
-    for _ in range(3):
-        fn()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(iters)]
-    for start, end in events:
-        flush.sum()
-        start.record()
-        fn()
-        end.record()
-    _sync()
-    return sum(start.elapsed_time(end) for start, end in events) / iters
+def _cold_ms(fn) -> float:
+    """Mean device time of ``fn`` with a cold L2 (``repro_torch.kernels.sweep.cold_ms``)."""
+    from repro_torch.kernels.sweep import cold_ms
+
+    return cold_ms(fn)
 
 
 def _err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -313,15 +301,19 @@ def kernel_phase() -> list[dict]:
         Bs, Ks, Fs = shape
         gs = torch.randn(shape, generator=g, device=DEV)
         accs, cs = torch.randn(Bs, Fs, generator=g, device=DEV), rnd(Bs, Ks) / Ks
-        sweeps = {"accum_cot": lambda: k_ia.accum_cot_triton(gs),
-                  "ig_accum": lambda: k_acc.ig_accum_triton(accs, gs, cs),
-                  "ig_accum_sq": lambda: k_acc.ig_accum_sq_triton(accs, gs, cs)}
+        bs = rnd(Bs, Fs)
+        sweeps = {"accum_cot": lambda: (k_ia.accum_cot_triton(gs),),
+                  "ig_accum": lambda: (k_acc.ig_accum_triton(accs, gs, cs),),
+                  "ig_accum_sq": lambda: (k_acc.ig_accum_sq_triton(accs, gs, cs),),
+                  "idgi_dots": lambda: k_acc.idgi_dots_triton(gs, accs),
+                  "interpolate": lambda: (k_int.interpolate_triton(accs, bs, cs),)}
         for name, fn in sweeps.items():
-            if not torch.equal(fn(), fn()):
+            if not all(torch.equal(a1, a2) for a1, a2 in zip(fn(), fn())):
                 raise AssertionError(f"{name} at {shape}: two calls on one input differ")
         tile = common.sweep_tile(Bs, Fs, gs.dtype, sms)
-        print(f"  {', '.join(sweeps)} at {shape}: the same bits on a second call; "
-              f"(BLOCK_F, num_warps) {tile} each")
+        print(f"  {', '.join(sweeps)} at {shape}: the same bits on a second call; (BLOCK_F, "
+              f"num_warps) {tile} for all but idgi_dots, whose plan is "
+              f"{common.dots_plan(Bs, Ks, Fs, gs.dtype, sms)}")
     gb, db = grads.bfloat16(), (x - b).bfloat16()
     for i, (got, want) in enumerate(zip(k_acc.idgi_dots_triton(gb, db), r_acc.idgi_dots_ref(gb, db))):
         _check(f"idgi_dots bf16 output {i}", _err(got, want), TOL_SUM * float(want.abs().max()))

@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -41,6 +42,10 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")  # the toolkit's usual home
 FLOATS = (torch.float32, torch.bfloat16, torch.float16)  # what the kernels take
 SWEEP_ROW_BYTES = (8192, 4096, 2048, 1024, 512)  # a K-sweep's F tiles, bytes a row, widest first
 SWEEP_PROGRAMS_PER_SM = 2  # a K-sweep's tile is no wider than leaves each SM this many
+DOTS_KB = 4  # idgi_dots: steps (rows of g) a program sweeps together, sharing one diff load
+DOTS_ROW_BYTES = 4096  # idgi_dots: a tile's bytes a row, 32 bytes (two loads) a thread a row
+DOTS_PROGRAMS_PER_SM = 2  # idgi_dots: split F until each SM has this many programs
+DOTS_MIN_CHUNK_TILES = 4  # idgi_dots: an F chunk is never narrower than this many tiles
 
 # Kernel launches by kernel name. Each kernel wrapper adds one per launch and
 # nothing else touches the counts, so a run can show which kernels it reached.
@@ -117,6 +122,43 @@ def sweep_tile(B: int, F: int, dtype: torch.dtype, sms: int) -> tuple[int, int]:
     cols = [nbytes // dtype.itemsize for nbytes in SWEEP_ROW_BYTES]
     block = next((c for c in cols if B * -(-F // c) >= SWEEP_PROGRAMS_PER_SM * sms), cols[-1])
     return block, max(1, block * dtype.itemsize // 2048)
+
+
+class DotsPlan(NamedTuple):
+    """How ``idgi_dots`` cuts (B, K, F): one program per (row, block of
+    ``kb`` steps, F chunk), ``split`` chunks of ``chunk`` columns (the last
+    one ragged), each swept in ``block_f``-wide tiles on ``num_warps``."""
+
+    kb: int
+    split: int
+    chunk: int
+    block_f: int
+    num_warps: int
+
+
+def dots_plan(B: int, K: int, F: int, dtype: torch.dtype, sms: int) -> DotsPlan:
+    """The plan of ``idgi_dots`` over (B, K, F) on ``sms`` SMs: ``DOTS_KB``
+    steps a program (past K masked), so one load of diff serves that many
+    rows of g; a tile of ``DOTS_ROW_BYTES`` bytes a row on 4 warps, 32
+    bytes (two 16-byte loads) a thread a row; and F split into chunks of
+    whole tiles until each SM has ``DOTS_PROGRAMS_PER_SM`` programs, but no
+    chunk narrower than ``DOTS_MIN_CHUNK_TILES`` tiles. With a split the
+    chunks' partial sums take a second, small pass.
+
+        >>> dots_plan(16, 16, 150_528, torch.float32, 132)
+        DotsPlan(kb=4, split=5, chunk=30720, block_f=1024, num_warps=4)
+        >>> dots_plan(16, 64, 3072, torch.float32, 132)
+        DotsPlan(kb=4, split=1, chunk=3072, block_f=1024, num_warps=4)
+        >>> dots_plan(16, 16, 150_528, torch.bfloat16, 132).split, dots_plan(16, 64, 3072, torch.bfloat16, 132)
+        (5, DotsPlan(kb=4, split=1, chunk=4096, block_f=2048, num_warps=4))
+    """
+    cdiv = lambda a, b: -(-a // b)
+    block = DOTS_ROW_BYTES // dtype.itemsize
+    tiles = max(1, cdiv(F, block))
+    want = cdiv(DOTS_PROGRAMS_PER_SM * sms, B * cdiv(K, DOTS_KB))
+    split = max(1, min(want, tiles // DOTS_MIN_CHUNK_TILES))
+    per = cdiv(tiles, split)  # whole tiles a chunk; no chunk is left empty
+    return DotsPlan(DOTS_KB, cdiv(tiles, per), per * block, block, DOTS_ROW_BYTES // (32 * 32))
 
 
 def check_flat(name: str, t: torch.Tensor, shape: tuple, dtypes: tuple) -> torch.Tensor:

@@ -110,25 +110,34 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["accum_cot", "ig_accum", "ig_accum_sq"])
+@pytest.mark.parametrize("kernel", ["accum_cot", "ig_accum", "ig_accum_sq", "idgi_dots", "interpolate"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,F", [(5, 19, 4099), (16, 64, 3072), (16, 16, 224 * 224 * 3)])
 def test_k_sweeps_same_bits_on_every_call(card, kernel, dtype, B, K, F):
     """No atomics and a fixed sum order: two calls on the same input give
-    the same bits (the resume gates compare with ``torch.equal``)."""
+    the same bits (the resume gates compare with ``torch.equal``); for
+    ``idgi_dots`` both outputs, through the split's second pass where
+    ``common.dots_plan`` splits F."""
     g = torch.randn((B, K, F), generator=card, device="cuda").to(dtype)
     acc = torch.randn((B, F), generator=card, device="cuda")
     c = torch.rand((B, K), generator=card, device="cuda")
-    call = {"accum_cot": lambda: accum_cot_triton(g),
-            "ig_accum": lambda: ig_accum_triton(acc, g, c),
-            "ig_accum_sq": lambda: ig_accum_sq_triton(acc, g, c)}[kernel]
-    assert torch.equal(call(), call())
+    x, b = acc.to(dtype), torch.rand((B, F), generator=card, device="cuda").to(dtype)
+    call = {"accum_cot": lambda: (accum_cot_triton(g),),
+            "ig_accum": lambda: (ig_accum_triton(acc, g, c),),
+            "ig_accum_sq": lambda: (ig_accum_sq_triton(acc, g, c),),
+            "idgi_dots": lambda: idgi_dots_triton(g, x),
+            "interpolate": lambda: (interpolate_triton(x, b, c),)}[kernel]
+    first, second = call(), call()
+    assert len(first) == len(second) and all(torch.equal(a, z) for a, z in zip(first, second))
 
 
-# (B, K, F): odd shapes, the K-sweeps' tile edges, the CNN path's stage-2
-# shape and the ViT path's
-IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), *RAGGED_SWEEPS, (16, 64, 3072),
-               (16, 16, 224 * 224 * 3)]
+# (B, K, F): odd shapes, the K-sweeps' tile edges, the dots plan's edges on
+# 132 SMs (K not a multiple of its 4 steps a program; F one past a
+# 1024-column tile with one chunk, and one past four chunks of 5120 with
+# five), the CNN path's stage-2 shape (one chunk) and the ViT path's (F
+# split in 5)
+IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), *RAGGED_SWEEPS, (4, 7, 2049),
+               (2, 13, 4 * 5120 + 1), (16, 64, 3072), (16, 16, 224 * 224 * 3)]
 
 
 @pytest.mark.cuda

@@ -290,3 +290,29 @@ def test_sweep_tile_choices(sms, dtype, B, F):
     assert not any(enough(w) for w in widths[: widths.index(block)])  # no wider tile would do
     if dtype == torch.float32 and sms == 132 and (B, F) in ((16, 224 * 224 * 3), (16, 3072)):
         assert (block, warps) == {224 * 224 * 3: (2048, 4), 3072: (128, 1)}[F]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,F", [(16, 16, 224 * 224 * 3), (16, 64, 3072), (1, 1, 3), (5, 19, 4099),
+                                   (3, 13, 100_003), (4, 7, 2049), (2, 13, 4 * 5120 + 1),
+                                   (64, 64, 3072), (1, 7, 1 << 22)])
+def test_dots_plan_choices(sms, dtype, B, K, F):
+    """idgi_dots' plan, a pure function of (B, K, F, dtype, SMs): its step
+    blocks cover every step of K exactly once, its F chunks (whole tiles,
+    none empty) cover [0, F) exactly once, each thread loads whole 16-byte
+    vectors of a row, and F is split only where a chunk keeps
+    ``DOTS_MIN_CHUNK_TILES`` tiles, so not at the CNN's stage-2 shape."""
+    kb, split, chunk, block, warps = common.dots_plan(B, K, F, dtype, sms)
+    assert kb == common.DOTS_KB
+    steps = [j * kb + i for j in range(-(-K // kb)) for i in range(kb) if j * kb + i < K]
+    assert steps == list(range(K))
+    assert block * dtype.itemsize == common.DOTS_ROW_BYTES and chunk % block == 0
+    assert block * dtype.itemsize % (16 * 32 * warps) == 0  # whole 16-byte loads a thread a row
+    # chunk c takes [c·chunk, min((c + 1)·chunk, F)): back to back, the last one not empty
+    assert (split - 1) * chunk < F <= split * chunk
+    if split > 1:
+        assert chunk // block >= common.DOTS_MIN_CHUNK_TILES
+        assert B * -(-K // kb) * (split - 1) < common.DOTS_PROGRAMS_PER_SM * sms  # no more than it needs
+    if (B, K, F) == (16, 64, 3072):
+        assert split == 1
