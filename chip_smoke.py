@@ -14,12 +14,14 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
      masked shape through the op wrappers, in bf16, and (IDGI's two) on
      zero-gradient rows, and the three K-sweeps (``accum_cot``,
-     ``ig_accum``, ``ig_accum_sq``), ``idgi_dots`` and ``interpolate``
-     twice on one input for the same bits at both stage-2 shapes, printing
-     the tile and the dots plan they chose; times the kernel,
-     its plain version and one PyTorch library call of the same function,
-     each with a cold L2, beside the bound the card's bandwidth sets, and
-     one launch on a single 128-column row (the floor of that timing);
+     ``ig_accum``, ``ig_accum_sq``), ``idgi_dots``, ``interpolate`` and
+     ``interp_add`` (both carry ranks) twice on one input for the same bits
+     at both stage-2 shapes, printing the tile and the dots plan they
+     chose; times the kernel, its plain version and one PyTorch library
+     call of the same function, each with a cold L2, beside the bound the
+     card's bandwidth sets (``interp_add`` with each carry rank: the (B, F)
+     carry broadcast over the steps and IDGI's (B, K, F) per-step carry),
+     and one launch on a single 128-column row (the floor of that timing);
   3. CUDA kernels — the three flash kernels (forward, dQ, dK/dV) against
      their plain versions and the op's autograd against the analytic
      oracle, at the ViT's attention shape (256 images, 6 heads, S=196,
@@ -31,10 +33,10 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      memory-efficient backend (named in the output) and the bound at f32
      accuracy on the tensor cores (3xTF32: three TF32 products per f32
      product, or the bytes, whichever is larger), with the backward pair's
-     summed time against one SDPA backward. The Gauss–Jordan solve kernel
-     against its plain version at the LIME slice's shape (16 systems of
-     17×17), at a ragged masked shape and at N=65, each timed beside its
-     bound and ``torch.linalg.solve_ex``;
+     summed time against one SDPA backward. The Gauss–Jordan solve kernels
+     bit-equal to their plain version at the LIME slice's shape (16 systems
+     of 17×17), at a ragged masked shape and at N=65, each with the variant
+     it took, timed beside its bound and ``torch.linalg.solve_ex``;
   4. the CNN slice — the paper CNN at ``CnnConfig()`` width with seeded
      random weights answers 4 batches of 16 seeded images through
      ``Explainer(method="ig", schedule="paper", m=64, n_int=4)``: fixed-m
@@ -64,7 +66,9 @@ Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
 forward-only call) is bit-identical, and the card agrees with the port run
 on CPU copies (the CNN's first batch; two ViT images at m=16 or P=16). The
-launch counts are reset before each slice and read after it.
+launch counts are reset before each slice and read after it; ``interp_add``'s
+are split by carry rank (the ``ig`` slices broadcast, the ViT IDGI slice
+per step).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -108,7 +112,7 @@ PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
                             "_accum_cot_kernel", "_dots_kernel", "_dots_sum_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
-    "solve (the port's)": ("gauss_jordan_kernel",),
+    "solve (the port's)": ("gauss_jordan",),
     "GEMM (cuBLAS)": ("gemm", "Gemm"),
 }
 
@@ -207,6 +211,24 @@ def _triton_specs(g: torch.Generator, B: int, K: int, F: int) -> list[dict]:
     ]
 
 
+def _step_carry_spec(g: torch.Generator, B: int, K: int, F: int) -> dict:
+    """``interp_add`` with the per-step (B, K, F) f32 carry, IDGI's fused
+    form, on seeded inputs of the stage-2 shape (B, K, F) f32: it reads the
+    carry in full, so its bound has twice the other form's bytes."""
+    from repro_torch.kernels.interp_accum import kernel as k_ia, ref as r_ia
+
+    rnd = lambda *s: torch.rand(s, generator=g, device=DEV)
+    x, b, a = rnd(B, F), rnd(B, F), rnd(B, K)
+    carry = torch.randn(B, K, F, generator=g, device=DEV) * 0.01
+    return dict(name="interp_add", label="interp_add (per-step carry)",
+                source="src/repro_torch/kernels/interp_accum/kernel.py",
+                replaces="src/repro/kernels/interp_accum/kernel.py:64",
+                kernel=lambda: k_ia.interp_add_triton(x, b, a, carry),
+                plain=lambda: r_ia.interp_add_ref(x, b, a, carry),
+                library=None, tol=TOL_F32, nbytes=4 * (2 * B * F + B * K + 2 * B * K * F),
+                flops=B * F + 3 * B * K * F)
+
+
 def _record(s: dict, route: str, err: float, tol: float) -> dict:
     """Time one kernel spec, its plain version and its library call, beside
     its bound; the kernel's record for the kernels line."""
@@ -231,7 +253,7 @@ def _measure(s: dict) -> dict:
     for i, (gi, wi) in enumerate(zip(got, want)):
         e = _err(gi, wi)
         t = s["tol"] if s["tol"] is not None else TOL_SUM * float(wi.abs().max())
-        _check(s["name"] + (f" output {i}" if len(got) > 1 else ""), e, t)
+        _check(s.get("label", s["name"]) + (f" output {i}" if len(got) > 1 else ""), e, t)
         err, tol = max(err, e), max(tol, t)
     return _record(s, "triton", err, tol)
 
@@ -247,14 +269,22 @@ def kernel_phase() -> list[dict]:
 
     g = torch.Generator(device=DEV).manual_seed(0)
     rnd = lambda *s: torch.rand(s, generator=g, device=DEV)
+    keys = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"kernels at the CNN path's shape B={B} K={K} F={F} f32:")
     records = [_measure(s) for s in _triton_specs(g, B, K, F)]
+    step = {k: v for k, v in _measure(_step_carry_spec(g, B, K, F)).items() if k in keys}
     Bv, Kv, Fv = VIT_STAGE2
     print(f"kernels at the ViT path's shape B={Bv} K={Kv} F={Fv} f32:")
     for rec, s in zip(records, _triton_specs(g, Bv, Kv, Fv)):
         vit = _measure(s)
-        rec["at_vit_shape"] = {k: vit[k] for k in ("max_abs_err", "tolerance", "ms", "plain_ms",
-                                                   "bound_ms", "bound_by", "library_ms")}
+        rec["at_vit_shape"] = {k: vit[k] for k in keys}
+    step["at_vit_shape"] = {k: v for k, v in _measure(_step_carry_spec(g, Bv, Kv, Fv)).items() if k in keys}
+    ia = next(r for r in records if r["name"] == "interp_add")
+    ia["per_step_carry"] = step
+    for form, r in (("broadcast carry", ia), ("per-step carry", step)):
+        print(f"  interp_add ({form}): {r['ms']:.5f} ms at the CNN's shape (bound {r['bound_ms']:.5f}), "
+              f"{r['at_vit_shape']['ms']:.5f} ms at the ViT's (bound {r['at_vit_shape']['bound_ms']:.5f}), "
+              f"{r['at_vit_shape']['bound_ms'] / r['at_vit_shape']['ms']:.3f} of the bound there")
     x, b, a = rnd(B, F), rnd(B, F), rnd(B, K)
     carry = torch.randn(B, F, generator=g, device=DEV) * 0.01
     grads = torch.randn(B, K, F, generator=g, device=DEV)
@@ -301,19 +331,23 @@ def kernel_phase() -> list[dict]:
         Bs, Ks, Fs = shape
         gs = torch.randn(shape, generator=g, device=DEV)
         accs, cs = torch.randn(Bs, Fs, generator=g, device=DEV), rnd(Bs, Ks) / Ks
-        bs = rnd(Bs, Fs)
+        bs, us = rnd(Bs, Fs), torch.randn(Bs, Fs, generator=g, device=DEV) * 0.01
         sweeps = {"accum_cot": lambda: (k_ia.accum_cot_triton(gs),),
                   "ig_accum": lambda: (k_acc.ig_accum_triton(accs, gs, cs),),
                   "ig_accum_sq": lambda: (k_acc.ig_accum_sq_triton(accs, gs, cs),),
                   "idgi_dots": lambda: k_acc.idgi_dots_triton(gs, accs),
-                  "interpolate": lambda: (k_int.interpolate_triton(accs, bs, cs),)}
+                  "interpolate": lambda: (k_int.interpolate_triton(accs, bs, cs),),
+                  "interp_add": lambda: (k_ia.interp_add_triton(accs, bs, cs, us),),
+                  "interp_add (per-step carry)": lambda: (k_ia.interp_add_triton(accs, bs, cs, gs * 0.01),)}
         for name, fn in sweeps.items():
             if not all(torch.equal(a1, a2) for a1, a2 in zip(fn(), fn())):
                 raise AssertionError(f"{name} at {shape}: two calls on one input differ")
         tile = common.sweep_tile(Bs, Fs, gs.dtype, sms)
         print(f"  {', '.join(sweeps)} at {shape}: the same bits on a second call; (BLOCK_F, "
-              f"num_warps) {tile} for all but idgi_dots, whose plan is "
-              f"{common.dots_plan(Bs, Ks, Fs, gs.dtype, sms)}")
+              f"num_warps) {tile} for the K-sums and interpolate, (BLOCK_F, num_warps, UNROLL) "
+              f"{k_ia.interp_add_plan(Bs, Fs, gs.dtype, False, sms)} for interp_add, "
+              f"{k_ia.interp_add_plan(Bs, Fs, gs.dtype, True, sms)} with the per-step carry; "
+              f"idgi_dots' plan {common.dots_plan(Bs, Ks, Fs, gs.dtype, sms)}")
     gb, db = grads.bfloat16(), (x - b).bfloat16()
     for i, (got, want) in enumerate(zip(k_acc.idgi_dots_triton(gb, db), r_acc.idgi_dots_ref(gb, db))):
         _check(f"idgi_dots bf16 output {i}", _err(got, want), TOL_SUM * float(want.abs().max()))
@@ -510,12 +544,13 @@ def _lime_system(g, B: int, N: int, masked: bool):
 
 
 def solve_kernel_phase() -> dict:
-    """The Gauss–Jordan kernel against its plain version (expected equal
-    bit for bit, gated at 1e-6 of max|β|) at the LIME slice's shape, at a
+    """The Gauss–Jordan kernels against their plain version (gated equal
+    bit for bit, and at 1e-6 of max|β|) at the LIME slice's shape, at a
     ragged masked shape (β exactly 0 where masked, through the op) and at
-    N=65; each timed beside its bound, the plain sweep and
-    ``torch.linalg.solve_ex`` (LU with pivoting; ``solve`` itself would
-    wait on the host to check its info). One record, at the slice's shape."""
+    N=65, printing the variant ``solve_plan`` chose for each; each timed
+    beside its bound, the plain sweep and ``torch.linalg.solve_ex`` (LU
+    with pivoting; ``solve`` itself would wait on the host to check its
+    info). One record, at the slice's shape."""
     from repro_torch.kernels.lstsq import kernel as lk, ops as lo, ref as lr
 
     g = torch.Generator(device=DEV).manual_seed(3)
@@ -527,7 +562,10 @@ def solve_kernel_phase() -> dict:
         name = f"wls_solve B={B_} N={N}" + (" masked" if masked else "")
         err, tol = _err(got, want), 1e-6 * float(want.abs().max())
         _check(name, err, tol)
-        print(f"    bit-equal to the plain sweep: {torch.equal(got, want)}; against "
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit-equal to the plain sweep")
+        limit = torch.cuda.get_device_properties(Ap.device).shared_memory_per_block_optin
+        print(f"    bit-equal to the plain sweep; plan {tuple(lk.solve_plan(N, Ap.dtype, limit))}; against "
               f"torch.linalg.solve: {_err(got, lr.wls_solve_ref(A, rhs, mask=mask, ridge=1e-2)):.3g}")
         if masked:
             op = lo.wls_solve(A, rhs, mask=mask, ridge=1e-2)
@@ -739,7 +777,8 @@ def slice_phase() -> dict:
             for key in ("m_used", "hops", "converged"):
                 if not ((info[key] == info_c[key]) | edge).all():
                     raise AssertionError(f"card vs CPU adaptive {key}: {info[key]} != {info_c[key]}")
-    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
 
 
 def _tree_to(tree: dict, device: str) -> dict:
@@ -872,7 +911,8 @@ def vit_phase(method: str) -> dict:
             _profile(f"{tag} unfused", lambda: ex.attribute(x, bl, t))
             _profile(f"{tag} fused", lambda: ex_fused.attribute(x, bl, t))
     print(f"  peak device memory over the {tag} slice: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
 
 
 def zoo_phase() -> dict:
@@ -946,7 +986,8 @@ def zoo_phase() -> dict:
         raise AssertionError(f"zoo lime cells: non-finite result or shape {tuple(res.attributions.shape)}")
     print(f"  lime over {xc.shape[1]} cells of {CNN_CELL}×{CNN_CELL}×{cfg.channels}: {ms:.2f} ms, "
           f"{N_MASKS} masks a row, mean |score| {float(res.attributions.abs().mean()):.3g}")
-    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
 
 
 def _perturb_close(name: str, got, want, amp: torch.Tensor) -> None:
@@ -1050,7 +1091,8 @@ def vit_fwd_phase() -> dict:
               f"mean δ {float(res.delta.mean()):.3g}")
     print(f"  peak device memory over the forward-only slice: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "per_path": paths_launched}
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
 
 
 def main() -> int:
@@ -1099,6 +1141,20 @@ def main() -> int:
     for r in records:
         r["launches_by_slice"] = {n: out["launches"][r["name"]] for n, out in slices.items()}
         r["launches"] = sum(r["launches_by_slice"].values())
+    # interp_add's launches by carry rank: the riemann class's fused paths
+    # broadcast a (B, F) carry, IDGI's fused path takes a (B, K, F) one
+    ia = next(r for r in records if r["name"] == "interp_add")
+    ia["launches_by_carry"] = {n: {"broadcast": out["carry_ranks"][2], "per_step": out["carry_ranks"][3]}
+                               for n, out in slices.items()}
+    print("interp_add launches by carry rank, per slice:", json.dumps(ia["launches_by_carry"]))
+    for name, out in slices.items():
+        if sum(out["carry_ranks"].values()) != out["launches"]["interp_add"]:
+            raise AssertionError(f"slice {name}: interp_add's carry ranks {out['carry_ranks']} do not add "
+                                 f"up to its {out['launches']['interp_add']} launches")
+    for name, rank in (("cnn", 3), ("vit", 3), ("vit_idgi", 2)):
+        if slices[name]["carry_ranks"][rank]:
+            raise AssertionError(f"slice {name} launched interp_add with a rank-{rank} carry: "
+                                 f"{slices[name]['carry_ranks']}")
     # each slice launched every kernel of its paths, and the IDGI slice no riemann kernel
     for name, out in slices.items():
         want = {k for path in out["per_path"].values() for k, n in path.items() if n}

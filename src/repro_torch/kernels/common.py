@@ -61,12 +61,16 @@ LAUNCHES: dict[str, int] = {
     "flash_bwd_dkv": 0,
     "wls_solve": 0,
 }
+# interp_add's launches by carry rank, counted beside LAUNCHES: 2 is the
+# (B, F) carry broadcast over the steps, 3 the (B, K, F) per-step carry
+CARRY_RANKS: dict[int, int] = {2: 0, 3: 0}
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CARRY_RANKS):
+        for name in counts:
+            counts[name] = 0
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -5,19 +5,25 @@ Replaces ``repro/kernels/lstsq/kernel.py`` ``wls_solve_pallas`` →
 (``ref.prepare_normal_eqs``), solved per batch row without pivoting, in
 float32 or float64. One difference: the Pallas op pads N to the TPU's
 sublane multiple of 8 with identity rows, which never couple to the real
-block; the CUDA kernel takes any N, so nothing is padded. An N whose system
-does not fit in a block's shared memory raises; nothing takes the kernel's
-place.
+block; the CUDA kernels take any N, so nothing is padded.
 
-The bound on the card and the design are described in the CUDA source. The
-library is built by ``common.load_cuda`` at the first launch; the launch goes
-on PyTorch's current stream, adds one to ``common.LAUNCHES["wls_solve"]``
-and raises on the error it reports.
+Which kernel runs follows N (``solve_plan``, a pure function): a warp per
+system with the sweep in registers up to N = 31 (LIME's 17 included), a
+block per system with each thread's rows and columns in registers up to
+N = 68 (the CNN zoo's 65), and the whole system in shared memory beyond.
+The plan (variant, threads and systems a block, shared-memory bytes) is
+worked out here alone and passed whole to the library's ``wls_launch``. An
+N whose system does not fit in a block's shared memory raises; nothing
+takes the kernel's place. The bound on the card and each design are
+described in the CUDA source. The library is built by ``common.load_cuda``
+at the first launch; the launch goes on PyTorch's current stream, adds one
+to ``common.LAUNCHES["wls_solve"]`` and raises on the error it reports.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -26,6 +32,65 @@ from repro_torch.kernels import common
 SOURCES = ("lstsq/csrc/lstsq.cu",)
 _DTYPES = {torch.float32: 0, torch.float64: 1}
 _MAX_GRID_X = 2**31 - 1
+WARP_MAX_N = 31  # the warp kernel: lane j holds column j of [A | b], N + 1 ≤ 32 lanes
+WARP_SYSTEMS = 4  # the warp kernel: systems (one warp each) a block
+# the register kernel: side × side threads a system, each holding REGS_R rows
+# and REGS_R columns, so up to N = side·REGS_R; side ≤ REGS_MAX_SIDE, the
+# block that lstsq.cu's __launch_bounds__ admits (N ≤ 68)
+REGS_R, REGS_MAX_SIDE = 4, 17
+SHARED_THREADS = 256  # the shared-memory kernel's block
+# the library's codes of the variants, smallest systems first
+VARIANTS = {"warp": 0, "regs4": 1, "shared": 2}
+
+
+class SolvePlan(NamedTuple):
+    """How ``wls_solve`` runs N×N systems: ``variant`` (a key of
+    ``VARIANTS``), ``threads`` and ``systems`` a block, and the bytes of
+    shared memory a block takes."""
+
+    variant: str
+    threads: int
+    systems: int
+    smem: int
+
+
+def variant_plan(variant: str, N: int, dtype: torch.dtype) -> Optional[SolvePlan]:
+    """The plan of one variant (a key of ``VARIANTS``) for N×N systems of
+    ``dtype``, or None where the variant cannot hold N.
+
+        >>> variant_plan("regs4", 17, torch.float32), variant_plan("warp", 32, torch.float32)
+        (SolvePlan(variant='regs4', threads=25, systems=1, smem=328), None)
+    """
+    size = torch.empty((), dtype=dtype).element_size()
+    if variant == "warp":
+        return None if N > WARP_MAX_N else SolvePlan(variant, 32 * WARP_SYSTEMS, WARP_SYSTEMS, 0)
+    if variant == "shared":
+        return SolvePlan(variant, SHARED_THREADS, 1, size * (N * N + 3 * N + 1))
+    side = -(-N // REGS_R)  # threads down and across; rows and columns past N are padding
+    if side > REGS_MAX_SIDE:
+        return None
+    # two pivot rows (b_k last) and two pivot columns, double-buffered
+    return SolvePlan(variant, side * side, 1, size * (4 * side * REGS_R + 2))
+
+
+def solve_plan(N: int, dtype: torch.dtype, smem_limit: int) -> SolvePlan:
+    """The solve's plan for N×N systems of ``dtype`` (float32 or float64):
+    the first variant of ``VARIANTS`` that holds N. Raises ``ValueError``
+    when the shared-memory variant's system exceeds ``smem_limit`` bytes,
+    the shared memory a block of the card can opt into.
+
+        >>> solve_plan(17, torch.float32, 232_448)
+        SolvePlan(variant='warp', threads=128, systems=4, smem=0)
+        >>> solve_plan(65, torch.float32, 232_448)
+        SolvePlan(variant='regs4', threads=289, systems=1, smem=1096)
+        >>> solve_plan(69, torch.float64, 232_448).variant
+        'shared'
+    """
+    plan = next(p for v in VARIANTS if (p := variant_plan(v, N, dtype)) is not None)
+    if plan.smem > smem_limit:
+        raise ValueError(f"wls_solve: an {N}×{N} {dtype} system needs {plan.smem} bytes of shared "
+                         f"memory, a block has {smem_limit}")
+    return plan
 
 
 @functools.cache
@@ -33,10 +98,9 @@ def load_library() -> ctypes.CDLL:
     """The built and loaded kernel library (built at the first call)."""
     lib = common.load_cuda("lstsq", SOURCES)
     lib.wls_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_void_p]
     lib.wls_launch.restype = ctypes.c_int
-    lib.wls_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.wls_smem_bytes.restype = ctypes.c_longlong
     lib.wls_error_string.argtypes = [ctypes.c_int]
     lib.wls_error_string.restype = ctypes.c_char_p
     return lib
@@ -57,17 +121,21 @@ def wls_solve_cuda(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(rhs)
     if not out.numel():
         return out
-    lib = load_library()
-    dt = _DTYPES[A.dtype]
-    need = lib.wls_smem_bytes(N, dt)
-    have = torch.cuda.get_device_properties(A.device).shared_memory_per_block_optin
-    if need > have:
-        raise ValueError(f"wls_solve: an {N}×{N} {A.dtype} system needs {need} bytes of shared "
-                         f"memory, a block has {have}")
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        err = lib.wls_launch(A.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, N, dt, stream)
-    if err:
-        raise RuntimeError(f"wls_solve: CUDA error {err}: {lib.wls_error_string(err).decode()}")
+    limit = torch.cuda.get_device_properties(A.device).shared_memory_per_block_optin
+    launch_solve(A, rhs, out, solve_plan(N, A.dtype, limit))
     common.LAUNCHES["wls_solve"] += 1
     return out
+
+
+def launch_solve(A: torch.Tensor, rhs: torch.Tensor, out: torch.Tensor, plan: SolvePlan) -> None:
+    """Solve checked operands into ``out`` with ``plan``'s kernel, a plan
+    of ``variant_plan`` for their N and dtype; raises on the error the
+    launch reports. Counts nothing (``wls_solve_cuda`` does)."""
+    lib = load_library()
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        err = lib.wls_launch(A.data_ptr(), rhs.data_ptr(), out.data_ptr(), A.shape[0], A.shape[1],
+                             _DTYPES[A.dtype], VARIANTS[plan.variant], plan.threads, plan.systems,
+                             plan.smem, stream)
+    if err:
+        raise RuntimeError(f"wls_solve: CUDA error {err}: {lib.wls_error_string(err).decode()}")

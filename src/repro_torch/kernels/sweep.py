@@ -1,19 +1,24 @@
-"""Time the launch plans of two stage-2 Triton kernels on a CUDA card.
+"""Time the launch plans of the stage-2 Triton kernels and the solve's variants on a CUDA card.
 
     PYTHONPATH=src python -m repro_torch.kernels.sweep [OUT.json]
 
 At the CNN path's stage-2 shape (B=16, K=64, F=3072) and the ViT path's
 (B=16, K=16, F=150,528), f32, times with a cold L2 (``cold_ms``)
-``idgi_dots`` over its plans (steps a program, tile, warps, F split) and
-``interpolate`` over tiles, warps and rows a loop step. Each candidate is
-first held against its plain version: the dots within 1e-5 of the sum of
-|terms|, the interpolants within 1e-6. Times every candidate twice, in two
-rounds, so the spread shows the noise. Prints one line per candidate, the
-fastest five at each shape, what the choosers (``common.dots_plan``,
-``common.sweep_tile``) pick and, for the chosen dots plan, the time of its
-first pass and of the split's second pass alone; writes every time to
-OUT.json (default ``build/sweep_stage2.json``). Needs a card and
-``triton``.
+``idgi_dots`` over its plans (steps a program, tile, warps, F split),
+``interpolate`` and ``interp_add`` (with each carry rank: the (B, F) carry
+broadcast over the steps and the (B, K, F) per-step carry) over tiles,
+warps and rows a loop step. Each candidate is first held against its plain
+version: the dots within 1e-5 of the sum of |terms|, the interpolants
+within 1e-6. Then the Gauss–Jordan solve at 16 systems of 17×17 and of
+65×65 (f32, LIME's normal equations): every kernel variant that holds N
+(the warp variant at 1 to 8 systems a block), each first bit-equal to its
+plain sweep, beside the plain sweep's time. Times every candidate twice, in
+two rounds, so the spread shows the noise. Prints one line per candidate,
+the fastest five at each shape, what the choosers (``common.dots_plan``,
+``common.sweep_tile``, ``lstsq.kernel.solve_plan``) pick and, for the
+chosen dots plan, the time of its first pass and of the split's second pass
+alone; writes every time to OUT.json (default ``build/sweep_stage2.json``).
+Needs a card, ``triton`` and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ DOTS_PROGRAMS_PER_SM = (0, 1, 2, 4, 8)  # 0: no split
 INTERP_ROW_BYTES = common.SWEEP_ROW_BYTES
 INTERP_WARPS = (1, 2, 4, 8)
 INTERP_UNROLL = (1, 2, 4, 8, 16)
+SOLVE_SHAPES = ((16, 17), (16, 65))  # (systems, N): LIME on the ViT's patches, on the CNN's cells
+SOLVE_SYSTEMS = (1, 2, 4, 8)  # the warp variant's systems a block
 
 
 def cold_ms(fn, iters: int = 20) -> float:
@@ -132,6 +139,12 @@ def dots_passes(B: int, K: int, F: int, sms: int) -> dict:
     return times
 
 
+def _interp_cands() -> list[dict]:
+    return [{"block_f": row_bytes // 4, "num_warps": warps, "unroll": unroll}
+            for row_bytes in INTERP_ROW_BYTES for warps in INTERP_WARPS for unroll in INTERP_UNROLL
+            if 16 * 32 * warps <= row_bytes]
+
+
 def sweep_interp(B: int, K: int, F: int) -> list[dict]:
     from repro_torch.kernels.interpolate import kernel, ref
 
@@ -140,9 +153,7 @@ def sweep_interp(B: int, K: int, F: int) -> list[dict]:
     a = torch.rand((B, K), generator=g, device="cuda")
     want = ref.interpolate_ref(x, b, a)
     out = torch.empty_like(want)
-    cands = [{"block_f": row_bytes // 4, "num_warps": warps, "unroll": unroll}
-             for row_bytes in INTERP_ROW_BYTES for warps in INTERP_WARPS for unroll in INTERP_UNROLL
-             if 16 * 32 * warps <= row_bytes]
+    cands = _interp_cands()
     run = lambda c: kernel.launch_interp(x, b, a, out, c["block_f"], c["num_warps"], c["unroll"])
     for c in cands:
         out.zero_()
@@ -153,6 +164,69 @@ def sweep_interp(B: int, K: int, F: int) -> list[dict]:
     return _timed_twice(cands, run, "interpolate")
 
 
+def sweep_interp_add(B: int, K: int, F: int, step_carry: bool) -> list[dict]:
+    from repro_torch.kernels.interp_accum import kernel, ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x, b = torch.rand((B, F), generator=g, device="cuda"), torch.rand((B, F), generator=g, device="cuda")
+    a = torch.rand((B, K), generator=g, device="cuda")
+    u = torch.randn((B, K, F) if step_carry else (B, F), generator=g, device="cuda") * 0.01
+    want = ref.interp_add_ref(x, b, a, u)
+    out = torch.empty_like(want)
+    run = lambda c: kernel.launch_interp_add(x, b, a, u, out, c["block_f"], c["num_warps"], c["unroll"])
+    cands = _interp_cands()
+    for c in cands:
+        out.zero_()
+        run(c)
+        torch.cuda.synchronize()
+        if not float((out - want).abs().max()) <= 1e-6:
+            raise AssertionError(f"interp_add {c} at {(B, K, F)}: disagrees with the plain version")
+        c["bit_equal"] = bool(torch.equal(out, want))
+    return _timed_twice(cands, run, "interp_add " + ("per-step" if step_carry else "broadcast"))
+
+
+def sweep_solve(B: int, N: int) -> dict:
+    """Every variant of the solve that holds N, bit-equal to the plain
+    sweep first, timed twice; and the plain sweep's time."""
+    from repro_torch.kernels.lstsq import kernel, ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    P = max(64, 4 * N)  # LIME's design: binary groups and an intercept, full rank
+    X = (torch.rand((B, P, N), generator=g, device="cuda") < 0.5).float()
+    X[..., -1] = 1
+    w, y = torch.rand((B, P), generator=g, device="cuda"), torch.randn((B, P), generator=g, device="cuda")
+    A, rhs = ref.prepare_normal_eqs(*ref.normal_eqs(X, w, y), ridge=1e-2)
+    want = ref.gauss_jordan_ref(A, rhs)
+    out = torch.empty_like(want)
+    plans = []
+    for v in kernel.VARIANTS:
+        plan = kernel.variant_plan(v, N, A.dtype)
+        if plan is not None and v == "warp":
+            plans += [plan._replace(threads=32 * n, systems=n) for n in SOLVE_SYSTEMS]
+        elif plan is not None:
+            plans.append(plan)
+    for plan in plans:
+        out.zero_()
+        kernel.launch_solve(A, rhs, out, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"wls_solve {plan} at B={B} N={N}: not bit-equal to the plain sweep")
+    plan_of = lambda c: kernel.SolvePlan(*(c[f] for f in kernel.SolvePlan._fields))
+    run = lambda c: kernel.launch_solve(A, rhs, out, plan_of(c))
+    rows = _timed_twice([p._asdict() for p in plans], run, "wls_solve")
+    plain = cold_ms(lambda: ref.gauss_jordan_ref(A, rhs))
+    limit = torch.cuda.get_device_properties(A.device).shared_memory_per_block_optin
+    print(f"  wls_solve B={B} N={N}: plain sweep {plain:.5f} ms; "
+          f"chosen {tuple(kernel.solve_plan(N, A.dtype, limit))}", flush=True)
+    return {"plans": rows, "plain_ms": plain}
+
+
+def _fastest(kern: str, rows: list[dict], chosen: tuple) -> None:
+    print(f"  {kern} fastest (mean of the two rounds): " + "; ".join(
+        f"{tuple(v for k, v in r.items() if k != 'ms')} {sum(r['ms']) / 2:.5f}"
+        for r in sorted(rows, key=lambda r: sum(r["ms"]))[:5]) + f"; chosen {chosen}")
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("the sweep needs a CUDA card", file=sys.stderr)
@@ -161,21 +235,29 @@ def main(argv: list[str]) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi)
+    from repro_torch.kernels.interp_accum.kernel import interp_add_plan
     from repro_torch.kernels.interpolate.kernel import INTERP_UNROLL as unroll
+    from repro_torch.kernels.lstsq.kernel import solve_plan
 
     sms = common.sm_count("cuda")
-    result = {"device": smi, "idgi_dots": {}, "interpolate": {}}
+    smem_limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    result = {"device": smi, "idgi_dots": {}, "interpolate": {}, "interp_add": {}, "wls_solve": {}}
     for name, (B, K, F) in SHAPES.items():
         print(f"{name} shape B={B} K={K} F={F} f32:")
         dots, interp = sweep_dots(B, K, F, sms), sweep_interp(B, K, F)
         result["idgi_dots"][name], result["interpolate"][name] = dots, interp
         result.setdefault("idgi_dots_passes", {})[name] = dots_passes(B, K, F, sms)
-        for kern, rows, chosen in (
-                ("idgi_dots", dots, tuple(common.dots_plan(B, K, F, torch.float32, sms))),
-                ("interpolate", interp, (*common.sweep_tile(B, F, torch.float32, sms), unroll))):
-            print(f"  {kern} fastest (mean of the two rounds): " + "; ".join(
-                f"{tuple(v for k, v in r.items() if k != 'ms')} {sum(r['ms']) / 2:.5f}"
-                for r in sorted(rows, key=lambda r: sum(r["ms"]))[:5]) + f"; chosen {chosen}")
+        tile = common.sweep_tile(B, F, torch.float32, sms)
+        _fastest("idgi_dots", dots, tuple(common.dots_plan(B, K, F, torch.float32, sms)))
+        _fastest("interpolate", interp, (*tile, unroll))
+        for form, step in (("broadcast", False), ("per-step", True)):
+            rows = sweep_interp_add(B, K, F, step)
+            result["interp_add"][f"{name} {form}"] = rows
+            _fastest(f"interp_add {form}", rows, interp_add_plan(B, F, torch.float32, step, sms))
+    for B, N in SOLVE_SHAPES:
+        print(f"solve B={B} N={N} f32:")
+        result["wls_solve"][f"B={B} N={N}"] = res = sweep_solve(B, N)
+        _fastest("wls_solve", res["plans"], tuple(solve_plan(N, torch.float32, smem_limit)))
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(result, indent=1))
     return 0

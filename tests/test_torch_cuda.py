@@ -15,8 +15,8 @@ to the largest |value|;
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
 order, and one bf16 rounding of each output); the Gauss–Jordan solve 1e-6
-of max|β| (the kernel rounds each operation as its plain version does, so
-it is expected to be bit-equal).
+of max|β| and, at the sizes where its plan changes kernel, bit-equal (each
+kernel rounds each operation as its plain version does).
 
 The lazy-build test runs everywhere: the package imports and the CPU op runs
 with no ``nvcc`` in reach.
@@ -107,17 +107,19 @@ def test_triton_kernels_match_plain(card, dtype, B, K, F):
     # each wrapper counts exactly its own launches, and no other kernel ran
     assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES},
                                "interpolate": 2, "ig_accum": 2, "interp_add": 3, "accum_cot": 2}
+    assert common.CARRY_RANKS == {2: 2, 3: 1}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["accum_cot", "ig_accum", "ig_accum_sq", "idgi_dots", "interpolate"])
+@pytest.mark.parametrize("kernel", ["accum_cot", "ig_accum", "ig_accum_sq", "idgi_dots", "interpolate",
+                                    "interp_add", "interp_add_step"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,F", [(5, 19, 4099), (16, 64, 3072), (16, 16, 224 * 224 * 3)])
 def test_k_sweeps_same_bits_on_every_call(card, kernel, dtype, B, K, F):
     """No atomics and a fixed sum order: two calls on the same input give
     the same bits (the resume gates compare with ``torch.equal``); for
     ``idgi_dots`` both outputs, through the split's second pass where
-    ``common.dots_plan`` splits F."""
+    ``common.dots_plan`` splits F; ``interp_add`` with each carry rank."""
     g = torch.randn((B, K, F), generator=card, device="cuda").to(dtype)
     acc = torch.randn((B, F), generator=card, device="cuda")
     c = torch.rand((B, K), generator=card, device="cuda")
@@ -126,7 +128,9 @@ def test_k_sweeps_same_bits_on_every_call(card, kernel, dtype, B, K, F):
             "ig_accum": lambda: (ig_accum_triton(acc, g, c),),
             "ig_accum_sq": lambda: (ig_accum_sq_triton(acc, g, c),),
             "idgi_dots": lambda: idgi_dots_triton(g, x),
-            "interpolate": lambda: (interpolate_triton(x, b, c),)}[kernel]
+            "interpolate": lambda: (interpolate_triton(x, b, c),),
+            "interp_add": lambda: (interp_add_triton(x, b, c, acc),),
+            "interp_add_step": lambda: (interp_add_triton(x, b, c, g.float()),)}[kernel]
     first, second = call(), call()
     assert len(first) == len(second) and all(torch.equal(a, z) for a, z in zip(first, second))
 
@@ -354,6 +358,32 @@ def test_wls_solve_matches_plain(nvcc_card, dtype, B, N, masked):
     if masked:
         assert not bool(got[mask == 0].any())
     assert common.LAUNCHES == {**{name: 0 for name in common.LAUNCHES}, "wls_solve": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [1, 2, 17, 31, 32, 33, 64, 65, 68, 69, 128, 129])
+def test_wls_solve_bit_equal_at_variant_edges(nvcc_card, N, dtype, masked):
+    """On both sides of each size where ``solve_plan`` changes kernel (the
+    warp variant to N = 31, the register variant to 68, shared memory
+    beyond, at 128 and 129 too), the kernel equals its plain sweep bit for
+    bit, through the launcher and the op, and masked entries give β
+    exactly 0."""
+    B = 5
+    A, rhs = _wls_system(nvcc_card, B, N, dtype)
+    mask = None
+    if masked:
+        mask = (torch.rand((B, N), generator=nvcc_card, device="cuda") > 0.3).to(dtype)
+        mask[:, -1] = 1
+    Ap, bp = lstsq_ref.prepare_normal_eqs(A, rhs, mask, 1e-2)
+    got = wls_solve_cuda(Ap, bp)
+    op = lstsq_ops.wls_solve(A, rhs, mask=mask, ridge=1e-2)
+    want = lstsq_ref.gauss_jordan_ref(Ap, bp)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want) and torch.equal(op, got)
+    if masked:
+        assert not bool(op[mask == 0].any())
 
 
 @pytest.mark.cuda

@@ -39,7 +39,12 @@ from repro_torch.kernels.ig_accum.ref import (
     ig_accum_ref,
     ig_accum_sq_ref,
 )
-from repro_torch.kernels.interp_accum.kernel import accum_cot_triton, interp_add_triton
+from repro_torch.kernels.interp_accum.kernel import (
+    INTERP_ADD_VALUES,
+    accum_cot_triton,
+    interp_add_plan,
+    interp_add_triton,
+)
 from repro_torch.kernels.interp_accum.ops import interp_accum
 from repro_torch.kernels.interp_accum.ref import accum_cot_ref, interp_add_ref
 from repro_torch.kernels.interpolate.kernel import interpolate_triton
@@ -50,6 +55,11 @@ torch.set_num_threads(1)
 
 TOL = {"float32": 1e-6, "bfloat16": 2.0**-6}
 SHAPES = [(1, 1, (3,)), (3, 5, (7, 11)), (2, 9, (130,))]  # (B, K, feature shape)
+# (B, K, F): the K-sweeps' tile edges on the card (test_torch_cuda.py's
+# RAGGED_SWEEPS): K=1, K not a multiple of their UNROLL, F one past a 128-,
+# 2048- and, in bf16, a 256- or 4096-column tile
+RAGGED_SWEEPS = [(16, 1, 3072), (16, 37, 3073), (16, 63, 2049), (16, 9, 2048 * 37 + 1),
+                 (16, 7, 4096 * 19 + 1)]
 
 
 def _data(seed, B, K, feat, masked):
@@ -203,6 +213,24 @@ def test_interp_add_plain_matches_jax(dtype, B, K, feat, step_carry):
     _close(flat, jf, TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,K,F", RAGGED_SWEEPS)
+@pytest.mark.parametrize("step_carry", [False, True])
+def test_interp_add_plain_matches_jax_at_sweep_edges(dtype, B, K, F, step_carry):
+    """The kernel's plain version against JAX's at ``common.sweep_tile``'s
+    edges, where the card's K-sweep of stores masks its last rows and
+    columns, with each carry rank. The JAX side is its plain reference:
+    the Pallas op in interpret mode pads F to its 512-column tiles and takes
+    tens of seconds at these widths (it is run at small shapes above)."""
+    rng = np.random.default_rng(K)
+    x, b = (rng.uniform(-1, 1, (B, F)).astype(np.float32) for _ in range(2))
+    a = rng.uniform(0, 1, (B, K)).astype(np.float32)
+    u = rng.normal(0, 0.1, (B, K, F) if step_carry else (B, F)).astype(np.float32)
+    out = interp_add_ref(_t(x, dtype), _t(b, dtype), _t(a), _t(u))
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == (B, K, F)
+    _close(out, j_interp_add_ref(_j(x, dtype), _j(b, dtype), _j(a), _j(u)), TOL[dtype])
+
+
 @pytest.mark.parametrize("B,K,feat", SHAPES)
 @pytest.mark.parametrize("step_carry", [False, True])
 def test_interp_accum_backward_matches_jax_grad(B, K, feat, step_carry):
@@ -240,7 +268,10 @@ def test_cpu_path_launches_no_kernel():
     ig_accum_idgi(_t(d["acc"]), _t(d["g"]), _t(d["w"]), diff=_t(d["x"]))
     u = _t(d["u"]).requires_grad_()
     torch.autograd.grad(interp_accum(_t(d["x"]), _t(d["b"]), _t(d["a"]), u).sum(), u)
+    us = _t(d["g"]).requires_grad_()  # the per-step carry
+    torch.autograd.grad(interp_accum(_t(d["x"]), _t(d["b"]), _t(d["a"]), us).sum(), us)
     assert common.LAUNCHES == {name: 0 for name in common.LAUNCHES}
+    assert common.CARRY_RANKS == {2: 0, 3: 0}
 
 
 def test_mixed_devices_raise():
@@ -249,7 +280,7 @@ def test_mixed_devices_raise():
 
 
 @pytest.mark.parametrize("launch", ["interpolate", "ig_accum", "idgi_dots", "ig_accum_sq",
-                                    "interp_add", "accum_cot"])
+                                    "interp_add", "interp_add_step", "accum_cot"])
 def test_triton_wrappers_refuse_cpu_tensors(launch):
     d = _data(7, 2, 3, (5,), False)
     x, b, a, g = _t(d["x"]), _t(d["b"]), _t(d["a"]), _t(d["g"])
@@ -259,6 +290,7 @@ def test_triton_wrappers_refuse_cpu_tensors(launch):
         "idgi_dots": lambda: idgi_dots_triton(g, x),
         "ig_accum_sq": lambda: ig_accum_sq_triton(_t(d["acc"]), g, _t(d["w"])),
         "interp_add": lambda: interp_add_triton(x, b, a, _t(d["u"])),
+        "interp_add_step": lambda: interp_add_triton(x, b, a, _t(d["us"])),
         "accum_cot": lambda: accum_cot_triton(g),
     }[launch]
     with pytest.raises(ValueError, match="CUDA"):
@@ -290,6 +322,23 @@ def test_sweep_tile_choices(sms, dtype, B, F):
     assert not any(enough(w) for w in widths[: widths.index(block)])  # no wider tile would do
     if dtype == torch.float32 and sms == 132 and (B, F) in ((16, 224 * 224 * 3), (16, 3072)):
         assert (block, warps) == {224 * 224 * 3: (2048, 4), 3072: (128, 1)}[F]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F", [(16, 224 * 224 * 3), (16, 3072), (1, 3), (5, 4099), (3, 100_003),
+                                 (64, 3072), (1, 1 << 22)])
+@pytest.mark.parametrize("step_carry", [False, True])
+def test_interp_add_plan_choices(sms, dtype, B, F, step_carry):
+    """interp_add's plan, a pure function: the K-sweeps' tile (over the f32
+    carry rows for the per-step form), and rows a loop step that make 64
+    values a thread; the plan it takes at both stage-2 shapes."""
+    block, warps, unroll = interp_add_plan(B, F, dtype, step_carry, sms)
+    assert (block, warps) == common.sweep_tile(B, F, torch.float32 if step_carry else dtype, sms)
+    cols = block // (32 * warps)  # a thread's columns, 16 bytes or more of a row
+    assert cols * unroll == INTERP_ADD_VALUES and unroll >= 1 and unroll & (unroll - 1) == 0
+    if dtype == torch.float32 and sms == 132 and (B, F) in ((16, 224 * 224 * 3), (16, 3072)):
+        assert (block, warps, unroll) == {224 * 224 * 3: (2048, 4, 4), 3072: (128, 1, 16)}[F]
 
 
 @pytest.mark.parametrize("sms", [132, 114, 1])

@@ -11,6 +11,9 @@ equations XᵀWX, XᵀWy in float32, handed to both packages. Tolerances:
   least squares): another algorithm, whose rounding the solve amplifies by
   the ridge-bounded condition number;
 - ``prepare_normal_eqs`` exactly.
+
+The kernel's plan chooser (``kernel.solve_plan``) is a pure function and is
+tested here; the kernels themselves run in ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ from repro.kernels.lstsq import ref as jref
 from repro.kernels.lstsq.ops import wls_solve as j_wls_solve
 from repro_torch.kernels import common
 from repro_torch.kernels.lstsq import ops, ref
+from repro_torch.kernels.lstsq import kernel
 from repro_torch.kernels.lstsq.kernel import wls_solve_cuda
 
 torch.set_num_threads(1)
@@ -70,6 +74,55 @@ def test_gauss_jordan_matches_jax_kernel(B, P, N):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
     # the op on CPU tensors is that sweep over the prepared system
     assert torch.equal(ops.wls_solve(_t(A), _t(rhs), ridge=0.1), got)
+
+
+@pytest.mark.parametrize("N", [31, 32, 33, 64, 65, 68, 69])
+def test_gauss_jordan_matches_jax_kernel_at_variant_edges(N):
+    """The plain sweep against the Pallas kernel around the sizes where the
+    card's plan changes kernel (``kernel.solve_plan``: the warp variant up
+    to N = 31, the register variant up to 68), LIME's design ratio of
+    about four masks a column."""
+    A, rhs = _system(2, 4 * N, N, seed=N)
+    want = np.asarray(j_wls_solve(jnp.asarray(A), jnp.asarray(rhs), ridge=0.1, interpret=True))
+    got = ref.gauss_jordan_ref(*ref.prepare_normal_eqs(_t(A), _t(rhs), ridge=0.1))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+H100_SMEM_OPTIN = 232_448  # bytes of shared memory a block can opt into on an H100
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [1, 2, 17, 31, 32, 33, 64, 65, 68, 69, 128, 129])
+def test_solve_plan_choices(dtype, N):
+    """Each N maps to exactly one variant, the first of ``VARIANTS`` that
+    holds it; the register variants stay within their compile-time
+    maxima (32 lanes; 17 × 17 threads of 4 × 4 elements), and each
+    block's threads and shared memory are what its kernel is built for."""
+    plan = kernel.solve_plan(N, dtype, H100_SMEM_OPTIN)
+    holds = [v for v in kernel.VARIANTS if kernel.variant_plan(v, N, dtype) is not None]
+    assert plan == kernel.variant_plan(holds[0], N, dtype)
+    size = 4 if dtype == torch.float32 else 8
+    if plan.variant == "warp":
+        assert N + 1 <= 32 and plan.threads == 32 * plan.systems and plan.smem == 0
+    elif plan.variant == "shared":
+        assert N > 68 and (plan.threads, plan.systems) == (256, 1)
+        assert plan.smem == size * (N * N + 3 * N + 1)
+    else:
+        side = -(-N // 4)  # threads down and across, each 4 rows × 4 columns
+        assert side <= 17 and side * 4 >= N
+        assert plan.threads == side * side and plan.systems == 1
+        assert plan.smem == size * (4 * side * 4 + 2)  # two pivot rows (b_k last) and columns
+    assert plan.variant == {1: "warp", 2: "warp", 17: "warp", 31: "warp", 32: "regs4", 33: "regs4",
+                            64: "regs4", 65: "regs4", 68: "regs4", 69: "shared", 128: "shared",
+                            129: "shared"}[N]
+    # a system past a block's shared memory is refused: an H100's, or a card's given limit
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.solve_plan(400, dtype, H100_SMEM_OPTIN)
+    big = N + 129  # the shared-memory variant
+    need = size * (big * big + 3 * big + 1)
+    assert kernel.solve_plan(big, dtype, smem_limit=need).smem == need
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.solve_plan(big, dtype, smem_limit=need - 1)
 
 
 @pytest.mark.parametrize("B,P,N", SHAPES)
