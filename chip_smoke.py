@@ -60,7 +60,25 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      and the solve kernel only, occlusion and RISE through the flash
      forward only, a replayed call bit-identical, the card against the port
      on CPU copies of two images at P=16 on the same masks; wall time per
-     batch, peak memory and one profiled explanation per method.
+     batch, peak memory and one profiled explanation per method;
+  9. the LM engine — ``ExplainEngine`` on llama3-8b at full width cut to
+     4 layers (``attn="flash"``, bf16 compute, weights drawn on the card
+     from a seeded CUDA generator) over 20 seeded requests (16 of 17–128
+     tokens, 4 of 300–512: buckets of S 32, 64, 128 and 512), m=64,
+     n_int=4, chunk 16: ig unfused, ig fused, IDGI fused, the adaptive
+     ladder (tol 1e-2, m_max 256) and occlusion, RISE and LIME at 64
+     masks, each served twice (the replay adds no miss and gives the same
+     bits); fused against unfused and a mixed-length bucket against its
+     requests served one by one within rtol = atol = 2e-2 (bf16), the
+     card against the port on the CPU (2 prompts of ≤ 16 tokens, m=8, f32);
+     the stage-2 plans at the LM's F, walls per path and bucket, misses and
+     hits, mean δ and m_used, peak memory and one profiled warm round.
+
+Before the slices, the kernels at the LM engine's shapes in bf16: the
+stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
+flash trio at 256 sequences of 128 (32 query heads on 8, head dim 128,
+causal, ragged lengths) beside SDPA on the same tensors and their bounds
+at the bf16 rate (``at_lm_shape`` in each kernel's record).
 
 Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
@@ -68,7 +86,8 @@ forward-only call) is bit-identical, and the card agrees with the port run
 on CPU copies (the CNN's first batch; two ViT images at m=16 or P=16). The
 launch counts are reset before each slice and read after it; ``interp_add``'s
 are split by carry rank (the ``ig`` slices broadcast, the ViT IDGI slice
-per step).
+per step, the LM engine both). The LM engine adds: raw scores exactly 0
+past each request's tokens, and no new miss on replayed traffic.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -113,7 +132,8 @@ PROFILE_GROUPS = {
                             "_accum_cot_kernel", "_dots_kernel", "_dots_sum_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "solve (the port's)": ("gauss_jordan",),
-    "GEMM (cuBLAS)": ("gemm", "Gemm"),
+    "GEMM (cuBLAS)": ("gemm", "Gemm", "nvjet"),
+    "casts and copies": ("copy_kernel",),
 }
 
 
@@ -632,7 +652,7 @@ def _profile(name: str, fn) -> None:
     print(f"  profile {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
           f"({busy / wall_us:.3f}), "
           + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / busy:.3f} of busy)" for g, v in groups.items())
-          + f", {len(kernels)} kernel names; top: "
+          + f", other {(busy - sum(groups.values())) / 1e3:.3f} ms, {len(kernels)} kernel names; top: "
           + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
 
@@ -1095,6 +1115,370 @@ def vit_fwd_phase() -> dict:
             "per_path": paths_launched}
 
 
+# ---------------------------------------------------------------- the LM engine
+
+LM_LAYERS = 4  # llama3-8b at full width, depth cut from 32 (PERF.md §4)
+LM_SHORT, LM_LONG = (16, 17, 128), (4, 300, 512)  # (requests, shortest, longest prompt)
+LM_CHUNK = 16
+LM_CPU = (2, 16, 8)  # card vs CPU: prompts, most tokens, m (f32, TF32 off)
+ENGINE_TOL = 2e-2  # bf16 rtol, and atol of the row maximum: repro's own fused-vs-unfused tolerance
+                   # (test_hotpath.py)
+LM_STAGE2 = (16, 16, 128 * 4096)  # the engine's stage-2 shape at S=128: B, chunk, S·d (bf16)
+LM_ATTN_SHAPE = (16 * 16, 128, 32, 8, 128)  # (B·chunk, S, NQ, NKV, D) of its attention
+BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
+
+
+def _lm_config():
+    from repro_torch.configs import ARCHS
+
+    return replace(ARCHS["llama3-8b"], num_layers=LM_LAYERS)
+
+
+def _lm_traffic(cfg, groups, seed):
+    """Seeded requests: ``groups`` of (count, shortest, longest) lengths."""
+    import numpy as np
+
+    from repro_torch.serve import ExplainRequest
+
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(lo, hi + 1)) for n, lo, hi in groups for _ in range(n)]
+    return [ExplainRequest(rng.integers(1, cfg.vocab_size, s).astype("int32"),
+                           int(rng.integers(0, cfg.vocab_size))) for s in lens]
+
+
+def _reset_peak() -> None:
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if DEV == "cuda" else float("nan")
+
+
+def _served_ok(name: str, out: list, reqs: list) -> None:
+    """Finite scores of each request's length, exactly 0 past it."""
+    import numpy as np
+
+    for i, (r, q) in enumerate(zip(out, reqs)):
+        raw, n = r["raw_token_scores"], len(q.tokens)
+        if not (np.isfinite(raw).all() and np.isfinite([r["delta"], r["f_x"], r["f_baseline"]]).all()):
+            raise AssertionError(f"engine {name}: request {i} has a non-finite result")
+        if r["token_scores"].shape != (n,) or np.any(raw[n:] != 0.0):
+            raise AssertionError(f"engine {name}: request {i} is not exactly 0 past its {n} tokens")
+
+
+def _scores_close(name: str, got: list, want: list, skip=()) -> None:
+    """Token scores within ENGINE_TOL · (|want| + the request's largest
+    |want|) elementwise (bf16): rtol ENGINE_TOL, atol ENGINE_TOL of the row
+    maximum, as ``_attr_close`` takes its atol."""
+    import numpy as np
+
+    worst, typical = 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i in skip:
+            continue
+        a, b = g["token_scores"], w["token_scores"]
+        allowed = ENGINE_TOL * np.abs(b) + ENGINE_TOL * np.abs(b).max()
+        worst = max(worst, float((np.abs(a - b) / allowed).max()))
+        typical.append(np.abs(b))
+    typical = np.concatenate(typical)
+    print(f"  {name}: worst err/allowed {worst:.3g} (rtol {ENGINE_TOL}, atol {ENGINE_TOL} of the row's "
+          f"largest |score|); |score| median {np.median(typical):.3g}, largest {typical.max():.3g}"
+          + (f", rows excluded {sorted(skip)}" if skip else ""))
+    if not worst <= 1:
+        raise AssertionError(f"{name}: token scores disagree beyond {ENGINE_TOL}")
+
+
+def engine_phase() -> dict:
+    """The port's ``ExplainEngine`` on llama3-8b at full width (4 layers,
+    flash attention, bf16 compute, weights drawn on the card) over 20
+    seeded requests: ig unfused (then replayed), ig fused, IDGI fused, the
+    adaptive ladder and the forward-only class, with gates."""
+    import numpy as np
+
+    from repro_torch.core import probes
+    from repro_torch.kernels import common
+    from repro_torch.kernels.interp_accum.kernel import interp_add_plan
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ExplainEngine
+    from repro_torch.serve.batching import plan_buckets
+
+    cfg = _lm_config()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    _sync()
+    print(f"LM engine: {cfg.name} at full width, {cfg.num_layers} layers (of 32), d={cfg.d_model}, "
+          f"{cfg.num_heads} heads on {cfg.num_kv_heads}, head dim {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocabulary {cfg.vocab_size}, {cfg.compute_dtype} compute; "
+          f"{cfg.param_count() / 1e9:.3f}B parameters drawn on the card in {time.perf_counter() - t0:.3f} s")
+    reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
+    kw = dict(schedule="paper", m=M, n_int=N_INT, chunk=LM_CHUNK, attn="flash", device=DEV)
+    engines = {
+        "ig unfused": ExplainEngine(cfg, params, method="ig", **kw),
+        "ig fused": ExplainEngine(cfg, params, method="ig", fused=True, **kw),
+        "idgi fused": ExplainEngine(cfg, params, method="idgi", fused=True, **kw),
+        "ig adaptive": ExplainEngine(cfg, params, method="ig", adaptive=True, tol=TOL,
+                                     m_max=VIT_M_MAX, **kw),
+        **{m: ExplainEngine(cfg, params, method=m, n_masks=N_MASKS, **kw)
+           for m in ("occlusion", "rise", "lime")},
+    }
+    kernels = {
+        "ig unfused": PATH_KERNELS["riemann"][0] + FLASH,
+        "ig fused": PATH_KERNELS["riemann"][1] + FLASH,
+        "idgi fused": PATH_KERNELS["idgi"][1] + FLASH,
+        "ig adaptive": PATH_KERNELS["riemann"][0] + FLASH,
+        "occlusion": ("flash_fwd",), "rise": ("flash_fwd",), "lime": ("flash_fwd", "wls_solve"),
+    }
+    plan = plan_buckets(reqs)
+    print(f"  traffic: {len(reqs)} requests of {min(len(r.tokens) for r in reqs)}–"
+          f"{max(len(r.tokens) for r in reqs)} tokens in buckets (B×S) "
+          f"{[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan]}; m={M}, n_int={N_INT}, chunk={LM_CHUNK}, "
+          f"{N_MASKS} masks")
+    sms = common.sm_count(torch.device(DEV)) if DEV == "cuda" else 132
+    for bb in plan:
+        Bb, F = bb.bucket[0], bb.bucket[1] * cfg.d_model
+        print(f"  plans at B={Bb} F={F} bf16: K-sums and interpolate (BLOCK_F, num_warps) "
+              f"{common.sweep_tile(Bb, F, torch.bfloat16, sms)}, interp_add "
+              f"{interp_add_plan(Bb, F, torch.bfloat16, False, sms)} broadcast, "
+              f"{interp_add_plan(Bb, F, torch.bfloat16, True, sms)} per step, idgi_dots "
+              f"{tuple(common.dots_plan(Bb, LM_CHUNK, F, torch.bfloat16, sms))}")
+
+    paths_launched, outs = {}, {}
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    for name, eng in engines.items():
+        # round 0 (callables built, Triton's bf16 variants compiled), then the
+        # same traffic again: no new miss, the same bits, the warm walls
+        out, ms0, launched = _timed(lambda: eng.explain(reqs, return_raw=True))
+        _need(paths_launched, f"engine {name}", launched, kernels[name])
+        _served_ok(name, out, reqs)
+        misses, before = eng.stats.misses, {b: (s.total_s, s.calls) for b, s in eng.stats.buckets.items()}
+        again, ms, launched = _timed(lambda: eng.explain(reqs, return_raw=True))
+        _need(paths_launched, f"engine {name} replay", launched, kernels[name])
+        if eng.stats.misses != misses:
+            raise AssertionError(f"engine {name} replay: {eng.stats.misses - misses} new misses")
+        for i, (a, b) in enumerate(zip(again, out)):
+            if not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"engine {name} replay: request {i} not bit-identical")
+        outs[name] = out
+        per_bucket = ", ".join(
+            f"{b[0]}x{b[1]} {(st.total_s - before[b][0]) * 1e3 / (st.calls - before[b][1]):.1f}"
+            for b, st in sorted(eng.stats.buckets.items(), key=lambda kv: kv[0][1]))
+        print(f"  {name}: {ms:.1f} ms for {len(reqs)} requests warm ({ms0:.1f} ms in round 0); replay "
+              f"bit-identical, no new miss (misses {misses}, hits {eng.stats.hits}); warm ms per "
+              f"bucket call (B×S): {per_bucket}; mean δ {np.mean([r['delta'] for r in out]):.4g}, mean "
+              f"|f(x) − f(x′)| {np.mean([abs(r['f_x'] - r['f_baseline']) for r in out]):.4g}")
+    ast = engines["ig adaptive"].stats.adaptive
+    print(f"  ig adaptive (tol={TOL}, m_max={VIT_M_MAX}), both rounds: mean m_used {ast.mean_m_used:.1f}, "
+          f"m_used {dict(sorted(ast.m_used.items()))}, converged {ast.converged} of {ast.requests}, "
+          f"hop calls {ast.hop_calls}, steps {ast.total_steps} (launched {ast.launched_steps})")
+    print(f"  peak device memory over the paths: {_peak_gb():.2f} GB")
+    eng = engines["ig unfused"]
+    _scores_close("ig fused vs unfused", outs["ig fused"], outs["ig unfused"])
+
+    # a mixed-length bucket against its requests served one by one; rows whose
+    # schedule differs (a bf16 probe value moved a step across an interval
+    # boundary) are excluded, as near-tie rows are below
+    bb = next(b for b in plan if len(b.indices) > 1)
+    single = [eng.explain([reqs[i]], return_raw=True)[0] for i in bb.indices]
+    args = eng._bucket_inputs(bb)
+    batched = eng._explainer.build_schedule(*args[:3], mask=args[3]).weights.expand(len(bb.lens), -1)
+    moved = set()
+    for j, i in enumerate(bb.indices):
+        one = plan_buckets([reqs[i]])[0]
+        a1 = eng._bucket_inputs(one)
+        w1 = eng._explainer.build_schedule(*a1[:3], mask=a1[3]).weights.expand(1, -1)
+        if not torch.equal(w1[0], batched[j]):
+            moved.add(j)
+    _scores_close(f"bucket {bb.bucket[0]}x{bb.bucket[1]} vs its {len(bb.indices)} requests one by one",
+                  single, [outs["ig unfused"][i] for i in bb.indices], skip=moved)
+    _profile("engine ig unfused (warm)", lambda: eng.explain(reqs))
+
+    # the card against the port on the CPU: f32 compute, 2 short prompts
+    n_cpu, most, m_cpu = LM_CPU
+    cfg32 = replace(cfg, compute_dtype="float32")
+    short = _lm_traffic(cfg, ((n_cpu, most // 2, most),), seed=1)
+    params_cpu = tree_map(lambda _, t: t.cpu(), params)
+    kw32 = dict(method="ig", schedule="paper", m=m_cpu, n_int=N_INT, attn="flash", seq_buckets=(most,))
+    eng_g = ExplainEngine(cfg32, params, device=DEV, **kw32)
+    eng_c = ExplainEngine(cfg32, params_cpu, device="cpu", **kw32)
+    res_g = eng_g.explain(short)
+    t0 = time.perf_counter()
+    res_c = eng_c.explain(short)
+    cpu_s = time.perf_counter() - t0
+    bb32 = plan_buckets(short, seq_buckets=(most,))[0]
+    vals = [probes.run_probe("boundary", e._explainer.f, *a[:3], n_int=N_INT, mask=a[3]).vals.cpu()
+            for e in (eng_g, eng_c) for a in (e._bucket_inputs(bb32),)]
+    tied = (_near_tie_rows(vals[0], m_cpu) | _near_tie_rows(vals[1], m_cpu))[: n_cpu]
+    print(f"  card vs CPU ({n_cpu} prompts of {[len(r.tokens) for r in short]} tokens, m={m_cpu}, f32, "
+          f"TF32 off; CPU run {cpu_s:.1f} s): near-tie rows {torch.nonzero(tied).flatten().tolist()}, "
+          f"f(x) gap {max(abs(g['f_x'] - c['f_x']) for g, c in zip(res_g, res_c)):.3g}")
+    got = torch.nn.utils.rnn.pad_sequence([torch.from_numpy(r["token_scores"]) for r in res_g], True)
+    want = torch.nn.utils.rnn.pad_sequence([torch.from_numpy(r["token_scores"]) for r in res_c], True)
+    _attr_close("card vs CPU token scores", got, want, ~tied)
+    print(f"  peak device memory over the LM engine phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
+def _causal_pairs(S: int, kvlen: torch.Tensor) -> int:
+    """(query, key) pairs a causal attention with per-row key lengths
+    computes over S queries: key k < min(q + 1, kvlen)."""
+    q = torch.arange(1, S + 1)
+    return int(torch.minimum(q[None, :], kvlen.cpu().long()[:, None]).sum())
+
+
+def lm_kernel_phase(records: list) -> None:
+    """Every stage-2 kernel (both classes, interp_add with both carry
+    ranks) and the flash trio at the engine's shapes on the LM (bf16),
+    against their plain versions, timed beside their bounds and (flash)
+    SDPA on the same bf16 tensors; each kernel's record gains
+    ``at_lm_shape``."""
+    import torch.nn.functional as tnf
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.interp_accum import kernel as k_ia, ref as r_ia
+    from repro_torch.kernels.ig_accum import kernel as k_acc, ref as r_acc
+    from repro_torch.kernels.interpolate import kernel as k_int, ref as r_int
+
+    g = torch.Generator(device=DEV).manual_seed(4)
+    Bs, Ks, Fs = LM_STAGE2
+    bf = torch.bfloat16
+    x, b = (torch.randn(Bs, Fs, generator=g, device=DEV).to(bf) for _ in range(2))
+    a = torch.rand(Bs, Ks, generator=g, device=DEV)
+    w = a / Ks
+    acc = torch.randn(Bs, Fs, generator=g, device=DEV)
+    carry = torch.randn(Bs, Fs, generator=g, device=DEV) * 0.01
+    grads = torch.randn(Bs, Ks, Fs, generator=g, device=DEV).to(bf)
+    steps = torch.randn(Bs, Ks, Fs, generator=g, device=DEV) * 0.01  # IDGI's per-step carry
+    diff = x - b
+    n, nk = Bs * Fs, Bs * Ks
+    specs = [
+        dict(name="interpolate", kernel=lambda: k_int.interpolate_triton(x, b, a),
+             plain=lambda: r_int.interpolate_ref(x, b, a),
+             library=lambda: torch.lerp(b[:, None, :], x[:, None, :], a[:, :, None].to(bf)),
+             tol=TOL_BF16 * 8, nbytes=2 * 2 * n + 4 * nk + 2 * n * Ks, flops=n + 2 * n * Ks),
+        dict(name="ig_accum", kernel=lambda: k_acc.ig_accum_triton(acc, grads, w),
+             plain=lambda: r_acc.ig_accum_ref(acc, grads, w), library=None,
+             tol=None, nbytes=2 * 4 * n + 4 * nk + 2 * n * Ks, flops=2 * n * Ks + n),
+        dict(name="interp_add", kernel=lambda: k_ia.interp_add_triton(x, b, a, carry),
+             plain=lambda: r_ia.interp_add_ref(x, b, a, carry), library=None,
+             tol=TOL_BF16 * 8, nbytes=2 * 2 * n + 4 * n + 4 * nk + 2 * n * Ks, flops=n + 3 * n * Ks),
+        dict(name="accum_cot", kernel=lambda: k_ia.accum_cot_triton(grads),
+             plain=lambda: r_ia.accum_cot_ref(grads), library=lambda: grads.sum(1, dtype=torch.float32),
+             tol=None, nbytes=2 * n * Ks + 4 * n, flops=n * Ks),
+        # IDGI's kernels: the library call computes ⟨g, diff⟩ only, reading the same bytes
+        dict(name="idgi_dots", kernel=lambda: k_acc.idgi_dots_triton(grads, diff),
+             plain=lambda: r_acc.idgi_dots_ref(grads, diff),
+             library=lambda: torch.bmm(grads, diff[:, :, None]),
+             tol=None, nbytes=2 * n * Ks + 2 * n + 2 * 4 * nk, flops=4 * n * Ks),
+        dict(name="ig_accum_sq", kernel=lambda: k_acc.ig_accum_sq_triton(acc, grads, w),
+             plain=lambda: r_acc.ig_accum_sq_ref(acc, grads, w), library=None,
+             tol=None, nbytes=2 * 4 * n + 4 * nk + 2 * n * Ks, flops=3 * n * Ks + n),
+        dict(name="interp_add", label="interp_add (per-step carry)",
+             kernel=lambda: k_ia.interp_add_triton(x, b, a, steps),
+             plain=lambda: r_ia.interp_add_ref(x, b, a, steps), library=None,
+             tol=TOL_BF16 * 8, nbytes=2 * 2 * n + 4 * nk + 4 * n * Ks + 2 * n * Ks, flops=n + 3 * n * Ks),
+    ]
+    keys = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    by_name = {r["name"]: r for r in records}
+    sms = common.sm_count(torch.device(DEV))
+    print(f"kernels at the LM engine's stage-2 shape B={Bs} K={Ks} F={Fs} (S=128 · d=4096) bf16; "
+          f"idgi_dots' plan {common.dots_plan(Bs, Ks, Fs, bf, sms)} (F split in "
+          f"{common.dots_plan(Bs, Ks, Fs, bf, sms).split}):")
+    for s in specs:
+        rec = _measure(dict(s, source="", replaces=""))
+        label = s.get("label", s["name"])
+        into = by_name[s["name"]]
+        if label != s["name"]:
+            into = into["per_step_carry"]
+        into["at_lm_shape"] = {k: rec[k] for k in keys}
+        print(f"  {label}: {rec['ms']:.5f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+              f"{rec['bound_ms'] / rec['ms']:.3f} of it; plain {rec['plain_ms']:.5f}"
+              + (f", library {rec['library_ms']:.5f}" if rec["library_ms"] is not None else ""))
+    del x, b, acc, carry, grads, steps, diff
+
+    Bq, S, NQ, NKV, D = LM_ATTN_SHAPE
+    q, k, v, do, _ = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
+    kvlen = torch.randint(S // 2 + 1, S + 1, (Bq,), generator=g, device=DEV, dtype=torch.int32)
+    tol = FLASH_TOL[bf]
+    o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, kvlen)
+    dk_ref, dv_ref = fr.flash_bwd_dkv_ref(*args, causal=True)
+    print(f"flash kernels at the LM engine's attention B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, "
+          "causal, ragged kvlen:")
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    dk, dv = fk.flash_bwd_dkv_cuda(*args, causal=True)
+    errs = {"flash_fwd": max(_flash_close("flash_fwd o", o, o_ref, tol)[0],
+                             _flash_close("flash_fwd lse", lse, lse_ref, tol)[0]),
+            "flash_bwd_dq": _flash_close("flash_bwd_dq", fk.flash_bwd_dq_cuda(*args, causal=True),
+                                         fr.flash_bwd_dq_ref(*args, causal=True), tol)[0],
+            "flash_bwd_dkv": max(_flash_close("flash_bwd_dkv dk", dk, dk_ref, tol)[0],
+                                 _flash_close("flash_bwd_dkv dv", dv, dv_ref, tol)[0])}
+    # SDPA on the same bf16 tensors, K/V expanded to the query heads and the
+    # causal ragged mask as a boolean mask (its memory-efficient backend)
+    ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
+    pos = torch.arange(S, device=DEV)
+    allowed = (pos[None, :, None] >= pos[None, None, :]) & (pos[None, None, :] < kvlen[:, None, None].long())
+    allowed = allowed[:, None]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, ke, ve)]
+    backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+    for backend in backends:  # the first that takes a boolean mask in bf16, forward and backward
+        try:
+            with sdpa_kernel(backend):
+                o_sdpa = tnf.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+            torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
+            break
+        except RuntimeError as e:
+            print(f"  SDPA backend {backend.name} refused: {str(e).splitlines()[0][:120]}")
+    else:
+        raise AssertionError(f"no SDPA backend of {[b.name for b in backends]} takes the LM's bf16 "
+                             "inputs with a boolean mask, forward and backward")
+
+    def sdpa_fwd():
+        with sdpa_kernel(backend):
+            return tnf.scaled_dot_product_attention(q, ke, ve, attn_mask=allowed)
+
+    sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
+    print(f"  SDPA yardstick: backend {backend.name}, backward node {type(o_sdpa.grad_fn).__name__}, "
+          f"max |o − plain| {_err(o_sdpa.detach(), o_ref):.3g}")
+    pairs = _causal_pairs(S, kvlen)
+    work = pairs * NQ * D
+    qb, kvb, rowb = 2 * Bq * NQ * S * D, 2 * Bq * NKV * S * D, 4 * Bq * NQ * S
+    flash = [
+        dict(name="flash_fwd", kernel=lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=True),
+             plain=lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=True), library=sdpa_fwd,
+             nbytes=2 * qb + 2 * kvb + rowb, flops=4 * work),
+        dict(name="flash_bwd_dq", kernel=lambda: fk.flash_bwd_dq_cuda(*args, causal=True),
+             plain=lambda: fr.flash_bwd_dq_ref(*args, causal=True), library=sdpa_bwd,
+             nbytes=3 * qb + 2 * kvb + 2 * rowb, flops=6 * work),
+        dict(name="flash_bwd_dkv", kernel=lambda: fk.flash_bwd_dkv_cuda(*args, causal=True),
+             plain=lambda: fr.flash_bwd_dkv_ref(*args, causal=True), library=sdpa_bwd,
+             nbytes=2 * qb + 4 * kvb + 2 * rowb, flops=8 * work),
+    ]
+    times = {}
+    for s in flash:
+        t_bytes, t_ops = s["nbytes"] / HBM_BYTES_PER_S, s["flops"] / BF16_FLOPS
+        rec = {"max_abs_err": errs[s["name"]], "tolerance": tol, "ms": _cold_ms(s["kernel"]),
+               "plain_ms": _cold_ms(s["plain"]), "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations (bf16)",
+               "library_ms": _cold_ms(s["library"])}
+        by_name[s["name"]]["at_lm_shape"] = rec
+        times[s["name"]] = rec
+        print(f"  {s['name']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
+              f"{rec['library_ms']:.4f} ms ({'forward' if s['name'] == 'flash_fwd' else 'backward'}), "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.3f} of it")
+    pair = times["flash_bwd_dq"]["ms"] + times["flash_bwd_dkv"]["ms"]
+    sdpa_b = times["flash_bwd_dq"]["library_ms"]
+    print(f"  backward pair {pair:.4f} ms against one SDPA backward {sdpa_b:.4f} ms (ratio "
+          f"{pair / sdpa_b:.3f}); forward + backward {pair + times['flash_fwd']['ms']:.4f} ms against "
+          f"SDPA's {sdpa_b + times['flash_fwd']['library_ms']:.4f} ms; {pairs} causal pairs a head")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1131,9 +1515,13 @@ def main() -> int:
     records += flash_kernel_phase()
     records.append(solve_kernel_phase())
     print(f"CUDA kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_kernel_phase(records)
+    print(f"LM-shape kernel phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
-                        ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase)):
+                        ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
+                        ("lm_engine", engine_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")

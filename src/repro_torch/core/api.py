@@ -37,7 +37,7 @@ the midpoint rule is exact and the completeness gap δ is ~0):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -46,7 +46,7 @@ from repro_torch.core import ig, methods as methods_mod, probes
 from repro_torch.core import schedule as schedules
 from repro_torch.core.ig import IGResult, IGState
 from repro_torch.core.methods import MethodSpec
-from repro_torch.core.probes import ScalarFn, repeat_tree
+from repro_torch.core.probes import ScalarFn, map_tree, repeat_tree
 from repro_torch.core.schedule import Schedule
 from repro_torch.kernels.ig_accum.ops import ig_accum, ig_accum_idgi
 from repro_torch.kernels.interp_accum.ops import interp_accum
@@ -127,7 +127,7 @@ class Explainer:
         return self.sigma if self.sigma else self.spec.sigma_default
 
     def _place(self, *ts):
-        return tuple(None if t is None else torch.as_tensor(t, device=self.device) for t in ts)
+        return tuple(map_tree(lambda a: torch.as_tensor(a, device=self.device), t) for t in ts)
 
     # -- path-ensemble expansion ------------------------------------------
 
@@ -135,7 +135,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         mask: Optional[torch.Tensor] = None,
         draw: Optional[torch.Tensor] = None,
     ):
@@ -174,7 +174,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         mask: Optional[torch.Tensor] = None,
         f_x: Optional[torch.Tensor] = None,
     ) -> Schedule:
@@ -196,7 +196,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         mask: Optional[torch.Tensor] = None,
         f_x: Optional[torch.Tensor] = None,
         draw: Optional[torch.Tensor] = None,
@@ -252,7 +252,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         mask: Optional[torch.Tensor] = None,
         f_x: Optional[torch.Tensor] = None,
     ) -> tuple[IGResult, IGState, Schedule]:
@@ -272,7 +272,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         new_nodes: Schedule,
         state: IGState,
         mask: Optional[torch.Tensor] = None,
@@ -291,7 +291,7 @@ class Explainer:
         self,
         x: torch.Tensor,
         baseline: torch.Tensor,
-        target: Optional[torch.Tensor],
+        target: Any,
         *,
         tol: float = 1e-2,
         m_max: int = 0,
@@ -347,7 +347,7 @@ class Explainer:
             refined = fam.refine(Schedule(a_act, w_act))
             new_nodes = Schedule(refined.alphas[:, n_new:], refined.weights[:, n_new:])
             res2, st2 = self.resume(
-                x[rows], baseline[rows], None if target is None else target[rows], new_nodes,
+                x[rows], baseline[rows], map_tree(lambda t: t[rows], target), new_nodes,
                 IGState(acc_act, res.f_x[rows], res.f_baseline[rows]),
                 None if mask is None else mask[rows],
             )

@@ -21,14 +21,14 @@ attribution (exact zeros at padded positions).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.core import methods as methods_mod
 from repro_torch.core.methods import MethodSpec, expand_mask
 from repro_torch.core.paths import interp_add, interpolate, mask_to_baseline
-from repro_torch.core.probes import ScalarFn, repeat_tree
+from repro_torch.core.probes import ScalarFn, cat_tree, repeat_tree
 from repro_torch.core.schedule import Schedule
 
 
@@ -59,7 +59,7 @@ def attribute(
     x: torch.Tensor,
     baseline: torch.Tensor,
     sched: Schedule,
-    target: Optional[torch.Tensor],
+    target: Any,
     *,
     method: Union[str, MethodSpec] = "ig",
     mask: Optional[torch.Tensor] = None,
@@ -76,7 +76,8 @@ def attribute(
     """Path attribution along the straight line with any schedule + method.
 
     f: (xs (N, *F), targets) -> (N,);  x/baseline: (B, *F); target: (B,)
-    ids or None. sched.alphas/weights: (m,) shared or (B, m) per-example.
+    ids, a dict of per-example tensors (bucketed serving's {"target",
+    "pos"}) or None. sched.alphas/weights: (m,) shared or (B, m) per-example.
     mask: optional (B, *L) real-position mask, L a prefix of the feature dims.
 
     Unfused (default): each chunk's interpolants are made by ``interp_fn``
@@ -161,9 +162,7 @@ def attribute(
             f_x = f_x.float()
             f_b = f(baseline, target)
         else:
-            both = torch.cat([xp, baseline], dim=0)
-            tt = None if target is None else torch.cat([target, target], dim=0)
-            fv = f(both, tt)
+            fv = f(torch.cat([xp, baseline], dim=0), cat_tree(target, target))
             f_x, f_b = fv[:B], fv[B:]
     # attr is exactly zero at masked positions, so the full sum IS the
     # real-position sum

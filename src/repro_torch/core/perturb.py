@@ -51,7 +51,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence, Union
 import torch
 
 from repro_torch.core.paths import mask_to_baseline
-from repro_torch.core.probes import ScalarFn, repeat_tree
+from repro_torch.core.probes import ScalarFn, cat_tree, map_tree, repeat_tree
 from repro_torch.kernels.lstsq.ops import wls_solve
 
 _MASK64 = (1 << 64) - 1
@@ -338,9 +338,7 @@ def attribute_from_masks(
         f_x = f_x.float()
         f_b = f(baseline, target).float()
     else:
-        both = torch.cat([xp, baseline], dim=0)
-        tt = None if target is None else torch.cat([target, target], dim=0)
-        fv = f(both, tt).float()
+        fv = f(torch.cat([xp, baseline], dim=0), cat_tree(target, target)).float()
         f_x, f_b = fv[:B], fv[B:]
 
     ctx = {
@@ -412,7 +410,7 @@ class PerturbExplainer:
         *,
         mask: Optional[torch.Tensor] = None,
     ) -> PerturbResult:
-        x, baseline, target, mask = (None if t is None else torch.as_tensor(t, device=self.device)
+        x, baseline, target, mask = (map_tree(lambda a: torch.as_tensor(a, device=self.device), t)
                                      for t in (x, baseline, target, mask))
         B, S = x.shape[:2]
         pm = self.masks_for(B, S)

@@ -6,27 +6,50 @@ are batched across (examples × boundaries) into one forward.
 
 ``run_probe`` is the registry-facing entry point: every schedule family in
 ``repro_torch.core.schedule.SCHEDULES`` names one of the probe kinds here.
-``mask`` pins padded positions to the baseline. Kinds: "none" (the
+``target`` may be a dict of per-example tensors (``map_tree``), repeated
+along axis 0 to match the folded (batch × probe) axis. ``mask`` pins
+padded positions to the baseline. Kinds: "none" (the
 uniform family), "boundary" (the ``n_int + 1`` uniform boundaries) and
 "refine" (``refined_boundaries``: the boundaries, then ``rounds`` secant
 bisections of the largest-|Δf| interval).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core.paths import interpolate, mask_to_baseline
 from repro_torch.core.schedule import Probe
 
-# f: (xs (N, *F), targets (N,)) -> (N,) scalar model output (prob / log-prob).
-ScalarFn = Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor]
+# f: (xs (N, *F), targets) -> (N,) scalar model output (prob / log-prob).
+# ``targets`` is None, an (N,) tensor of ids, or a dict of (N, ...) tensors
+# (bucketed serving's {"target": ids, "pos": positions}).
+ScalarFn = Callable[[torch.Tensor, Any], torch.Tensor]
 
 
-def repeat_tree(target: Optional[torch.Tensor], k: int) -> Optional[torch.Tensor]:
-    """Repeat each row k× along axis 0: (B, ...) -> (B*k, ...); None stays None."""
-    return None if target is None else target.repeat_interleave(k, dim=0)
+def map_tree(fn: Callable, target: Any, *rest: Any) -> Any:
+    """``fn`` leafwise over a target — None, a tensor, or a dict of tensors
+    (``repro``'s pytree targets); ``rest`` are targets of the same form.
+
+        >>> map_tree(lambda t: t + 1, {"pos": torch.tensor([1])})
+        {'pos': tensor([2])}
+    """
+    if target is None:
+        return None
+    if isinstance(target, dict):
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in target.items()}
+    return fn(target, *rest)
+
+
+def repeat_tree(target: Any, k: int) -> Any:
+    """Repeat each row k× along axis 0: (B, ...) -> (B*k, ...), leafwise."""
+    return map_tree(lambda t: t.repeat_interleave(k, dim=0), target)
+
+
+def cat_tree(a: Any, b: Any) -> Any:
+    """Concatenate two targets of one form along axis 0, leafwise."""
+    return map_tree(lambda x, y: torch.cat([x, y], dim=0), a, b)
 
 
 @torch.no_grad()
@@ -34,7 +57,7 @@ def boundary_values(
     f: ScalarFn,
     x: torch.Tensor,
     baseline: torch.Tensor,
-    target: Optional[torch.Tensor],
+    target: Any,
     n_int: int,
     *,
     mask: Optional[torch.Tensor] = None,
@@ -63,7 +86,7 @@ def refined_boundaries(
     f: ScalarFn,
     x: torch.Tensor,
     baseline: torch.Tensor,
-    target: Optional[torch.Tensor],
+    target: Any,
     n0: int,
     rounds: int,
     *,
@@ -123,7 +146,7 @@ def run_probe(
     f: ScalarFn,
     x: torch.Tensor,
     baseline: torch.Tensor,
-    target: Optional[torch.Tensor],
+    target: Any,
     *,
     n_int: int = 4,
     rounds: int = 4,

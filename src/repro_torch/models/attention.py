@@ -6,11 +6,13 @@ projection weights as in ``repro`` (``wq`` (d, NQ, D), ``wo`` (NQ, D, d)).
 ``dispatch_attention`` sends ``attn_impl="flash"`` to the port's flash op
 (the CUDA kernels on the card, their plain versions on the CPU) and every
 other full-attention call to ``full_attention``, which ``repro`` computes
-outside any Pallas kernel and so is plain PyTorch here. Not ported yet:
-``blocked_attention`` (the same function as ``full_attention`` without the
-(S, S) scores, which ``repro`` takes above 4096 tokens), ``local_attention``
-and ``decode_attention`` — the LMs' paths — and the costing-mode branch,
-which has no PyTorch meaning.
+outside any Pallas kernel and so is plain PyTorch here; ``kv_len`` reaches
+the flash op as its ``lengths``. Not ported yet: ``blocked_attention``
+(the same function as ``full_attention`` without the (S, S) scores, which
+``repro`` takes above 4096 tokens unmasked; the engine's buckets end at
+1024), ``local_attention`` and ``decode_attention`` (sliding windows and
+the decode cache), and the costing-mode branch, which has no PyTorch
+meaning.
 """
 from __future__ import annotations
 
@@ -19,18 +21,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import ParamDef
 
 NEG_INF = -1e30
 
 
-def attn_shapes(cfg) -> dict:
-    """Projection weight shapes, as ``repro``'s ``attn_def``."""
+def attn_def(cfg) -> dict:
+    """``repro``'s ``attn_def``: the projections at fan-in scale (``wq``'s
+    fan-in is d·H, ``repro``'s rule)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
-        "wq": (d, cfg.num_heads, hd),
-        "wk": (d, cfg.num_kv_heads, hd),
-        "wv": (d, cfg.num_kv_heads, hd),
-        "wo": (cfg.num_heads, hd, d),
+        "wq": ParamDef((d, cfg.num_heads, hd)),
+        "wk": ParamDef((d, cfg.num_kv_heads, hd)),
+        "wv": ParamDef((d, cfg.num_kv_heads, hd)),
+        "wo": ParamDef((cfg.num_heads, hd, d)),
     }
 
 

@@ -1,0 +1,75 @@
+"""Parameter definitions and their initialisation: ``repro.models.common``.
+
+A model is described as a tree (dicts and tuples) of ``ParamDef``s, from
+which ``init_params`` draws the tensors. The rule is ``repro``'s, quirks
+included: a normal tensor's std is its ``scale`` or 1/√fan_in, where the
+fan-in is the product of every axis but the last — so a stacked weight's
+leading ``layers`` axis counts, and ``wq`` (d, H, D) has fan-in d·H; an
+``embed`` tensor is a unit normal (times ``scale``); ``zeros``/``ones`` are
+constant. The logical sharding axes and the abstract (shape-only) trees of
+``repro`` have no meaning on one card and are not copied.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class ParamDef(NamedTuple):
+    """One parameter tensor: shape and init rule."""
+
+    shape: tuple
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: Optional[float] = None  # std override (normal, embed); None: the rule's
+
+
+def fan_in(shape: tuple) -> int:
+    """``repro.models.common._fan_in``: every axis but the last (the output
+    axis) of a ≥2-D weight."""
+    return math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
+
+
+def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """Map ``fn(path, leaf)`` over a tree of dicts and tuples, keeping its
+    structure; ``path`` is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, tuple) and not isinstance(tree, ParamDef):
+        return tuple(tree_map(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def stack_defs(defs: Any, n: int) -> Any:
+    """The tree with a leading axis of ``n`` on every tensor (the stacked
+    ``layers`` axis, which ``repro`` scans)."""
+    return tree_map(lambda _, d: d._replace(shape=(n,) + tuple(d.shape)), defs)
+
+
+def init_params(defs: Any, generator: torch.Generator, *, dtype: torch.dtype = torch.float32,
+                device="cuda") -> Any:
+    """Draw a ``ParamDef`` tree's tensors from ``generator`` in the tree's
+    order, on the generator's device, then place them on ``device`` (a no-op
+    when they are there already). The numbers differ from ``repro``'s; the
+    rule is the same. The tensors never require grad."""
+
+    def draw(_, d: ParamDef) -> torch.Tensor:
+        if d.init in ("zeros", "ones"):
+            fill = torch.zeros if d.init == "zeros" else torch.ones
+            return fill(d.shape, dtype=dtype, device=device)
+        if d.init == "embed":
+            std = d.scale or 1.0
+        else:
+            std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in(d.shape), 1))
+        w = torch.randn(d.shape, generator=generator, device=generator.device)
+        return w.mul_(std).to(device=device, dtype=dtype)
+
+    return tree_map(draw, defs)
+
+
+def params_from_numpy(tree: Any, device="cuda") -> Any:
+    """A ``repro`` parameter tree (dicts and tuples of arrays) -> the same
+    tree of tensors on ``device``; the layouts are shared, so nothing moves."""
+    return tree_map(lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)

@@ -1,14 +1,18 @@
-"""Core layers of ``repro.models.layers``: RMSNorm and the SwiGLU MLP.
+"""Core layers of ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP and
+the token embeddings.
 
 Parameters keep ``repro``'s layouts (``mlp`` weights (d, f) and (f, d) for
-``x @ w``). ``repro`` pins the MLP hidden to its tensor-parallel axis with
-``sharding.context.constrain``; on one card that has no meaning and is
-dropped. ``rope``, the embeddings and the chunked loss are not ported yet.
+``x @ w``, ``embedding`` (V, d), ``unembed`` (d, V)). ``repro`` pins the MLP
+hidden to its tensor-parallel axis with ``sharding.context.constrain``; on
+one card that has no meaning and is dropped. Not ported yet: the stub
+frontend projection and the chunked loss (training).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.common import ParamDef
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -18,8 +22,55 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def rmsnorm_def(d: int) -> dict:
+    return {"scale": ParamDef((d,), "ones")}
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, halves rotated (``repro``'s layout). x: (..., S, H,
+    D); positions: (..., S). Angles in f32; the rotation is taken in f32
+    and cast back to x.dtype, as ``repro``'s type promotion does."""
+    half = x.shape[-1] // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = (positions.float()[..., :, None] * freq)[..., :, None, :]  # over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mlp_def(d: int, f: int) -> dict:
+    return {"wi_gate": ParamDef((d, f)), "wi_up": ParamDef((d, f)), "wo": ParamDef((f, d))}
+
+
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) ∘ x W_up) W_o."""
     dt = x.dtype
     h = F.silu(x @ p["wi_gate"].to(dt)) * (x @ p["wi_up"].to(dt))
     return h @ p["wo"].to(dt)
+
+
+def embed_def(cfg) -> dict:
+    """The token embedding (V, d), unit normal, and unless tied the
+    unembedding (d, V) at fan-in scale."""
+    if cfg.frontend:
+        raise NotImplementedError("the stub frontend projection is not ported yet")
+    d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), "embed")}
+    if not cfg.tie_embeddings:
+        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+    return d
+
+
+def embed(p: dict, tokens: torch.Tensor, cfg, dtype: torch.dtype) -> torch.Tensor:
+    """Token ids (…) -> embeddings (…, d) in ``dtype``; gemma scales by √d."""
+    e = p["embedding"][tokens.long()].to(dtype)
+    if cfg.name.startswith("gemma"):
+        e = e * torch.tensor(cfg.d_model**0.5, dtype=dtype)
+    return e
+
+
+def unembed(p: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    """(…, d) -> (…, V) logits in h.dtype, through the tied embedding or
+    the unembedding."""
+    if cfg.tie_embeddings:
+        return h @ p["embedding"].to(h.dtype).T
+    return h @ p["unembed"].to(h.dtype)

@@ -12,88 +12,50 @@ d), ``layers`` with every per-layer tensor stacked on a leading axis of
 ``num_layers`` (``norm1``/``norm2`` ``scale``, ``mixer`` ``wq`` (L, d, H, hd)
 … ``wo`` (L, H, hd, d), ``ffn`` ``wi_gate``/``wi_up``/``wo``),
 ``final_norm`` and ``head`` (``w`` (d, classes), ``b``). ``params_from_numpy``
-converts ``repro``'s ``vit.init`` tree as it is; ``init_params`` draws fresh
-weights on the card's machine with ``repro``'s fan-in rule.
+(``models.common``) converts ``repro``'s ``vit.init`` tree as it is;
+``init_params`` draws fresh weights on the card's machine with ``repro``'s
+fan-in rule.
 
 IG path note: the patch projection is affine, so a straight line in pixel
 space maps to a straight line in embedding space.
 """
 from __future__ import annotations
 
-import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.configs.base import LayerSpec
 from repro_torch.configs.vit import VitConfig
-from repro_torch.models import attention as attn
-from repro_torch.models.layers import mlp, rmsnorm
-
-class ParamSpec(NamedTuple):
-    """One tensor of ``repro``'s ``ParamDef`` tree: shape and init rule."""
-
-    shape: tuple
-    init: str = "normal"  # normal | zeros | ones
-    scale: Optional[float] = None  # normal's std; None: 1/√fan_in
+from repro_torch.models import attention as attn, blocks
+# fan_in and params_from_numpy are re-exported: the shared init rule and weight bridge
+from repro_torch.models.common import ParamDef, fan_in, params_from_numpy, stack_defs  # noqa: F401
+from repro_torch.models.common import tree_map as _map
+from repro_torch.models.common import init_params as init_tree
+from repro_torch.models.layers import mlp, rmsnorm, rmsnorm_def
 
 
 def param_specs(cfg: VitConfig) -> dict:
-    """``repro.models.vit.param_defs``: shapes, stacked layers included."""
-    d, L = cfg.d_model, cfg.num_layers
-    stack = lambda spec: spec._replace(shape=(L,) + spec.shape)
-    layer = {
-        "norm1": {"scale": ParamSpec((d,), "ones")},
-        "mixer": {n: ParamSpec(s) for n, s in attn.attn_shapes(cfg).items()},
-        "norm2": {"scale": ParamSpec((d,), "ones")},
-        "ffn": {"wi_gate": ParamSpec((d, cfg.d_ff)), "wi_up": ParamSpec((d, cfg.d_ff)),
-                "wo": ParamSpec((cfg.d_ff, d))},
-    }
+    """``repro.models.vit.param_defs``: shapes, stacked layers included
+    (the LM's ``(attn, dense)`` layer)."""
+    d = cfg.d_model
     return {
-        "patch_proj": ParamSpec((cfg.patch_dim, d)),
-        "patch_bias": ParamSpec((d,), "zeros"),
-        "pos_embed": ParamSpec((cfg.num_patches, d), scale=0.02),
-        "layers": {g: {n: stack(s) for n, s in grp.items()} for g, grp in layer.items()},
-        "final_norm": {"scale": ParamSpec((d,), "ones")},
-        "head": {"w": ParamSpec((d, cfg.num_classes)), "b": ParamSpec((cfg.num_classes,), "zeros")},
+        "patch_proj": ParamDef((cfg.patch_dim, d)),
+        "patch_bias": ParamDef((d,), "zeros"),
+        "pos_embed": ParamDef((cfg.num_patches, d), scale=0.02),
+        "layers": stack_defs(blocks.layer_def(cfg, LayerSpec()), cfg.num_layers),
+        "final_norm": rmsnorm_def(d),
+        "head": {"w": ParamDef((d, cfg.num_classes)), "b": ParamDef((cfg.num_classes,), "zeros")},
     }
-
-
-def fan_in(shape: tuple) -> int:
-    """``repro.models.common._fan_in``: every axis but the last (the output
-    axis) of a ≥2-D weight — the stacked ``layers`` axis included."""
-    return math.prod(shape[:-1]) if len(shape) > 1 else shape[0]
-
-
-def _map(fn, tree, path=()):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
 
 
 def init_params(cfg: VitConfig, generator: torch.Generator, device="cuda") -> dict:
-    """Fresh weights with ``repro.models.common``'s rule: normal with std
-    ``scale`` or 1/√fan_in, zeros and ones as declared, drawn from
-    ``generator`` in the tree's order (so the numbers differ from
-    ``repro``'s)."""
-    dt = getattr(torch, cfg.param_dtype)
-
-    def draw(_, spec: ParamSpec) -> torch.Tensor:
-        if spec.init != "normal":
-            fill = torch.zeros if spec.init == "zeros" else torch.ones
-            return fill(spec.shape, dtype=dt, device=device)
-        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(max(fan_in(spec.shape), 1))
-        w = torch.randn(spec.shape, generator=generator, device=generator.device)
-        return (w * std).to(device=device, dtype=dt)
-
-    return _map(draw, param_specs(cfg))
-
-
-def params_from_numpy(tree: dict, device="cuda") -> dict:
-    """``repro.models.vit`` parameters (nested dict of arrays) -> the same
-    tree of tensors on ``device``; layouts are shared, so nothing moves."""
-    return _map(lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)
+    """Fresh weights with ``repro.models.common``'s rule
+    (``models.common.init_params``), drawn from ``generator`` in the tree's
+    order (so the numbers differ from ``repro``'s)."""
+    return init_tree(param_specs(cfg), generator, dtype=getattr(torch, cfg.param_dtype),
+                     device=device)
 
 
 # ---------------------------------------------------------------- embedding
@@ -164,6 +126,20 @@ def prob_fn(cfg: VitConfig, params: Any, images: torch.Tensor,
     return torch.gather(p, 1, target[:, None].long())[:, 0]
 
 
+def target_logprob_at_fn(cfg: VitConfig, params: Any):
+    """f(embeds, aux) -> (B,) target-class log-prob; aux["pos"] is the last
+    valid patch index, so lengths = pos + 1 masks bucket padding."""
+
+    def f(e: torch.Tensor, aux: dict) -> torch.Tensor:
+        lengths = aux["pos"] + 1
+        h = encode(cfg, params, e, lengths=lengths)
+        lg = pool_logits(cfg, params, h, lengths=lengths).float()
+        rows = torch.arange(e.shape[0], device=e.device)
+        return torch.log_softmax(lg, dim=-1)[rows, aux["target"].long()]
+
+    return f
+
+
 # ------------------------------------------------------------------- module
 
 
@@ -203,15 +179,5 @@ class VitModel(nn.Module):
         return embed_features(self.cfg, self.tree(), feats)
 
     def target_logprob_at_fn(self):
-        """f(embeds, aux) -> (B,) target-class log-prob; aux["pos"] is the
-        last valid patch index, so lengths = pos + 1 masks bucket padding."""
-        params = self.tree()
-
-        def f(e: torch.Tensor, aux: dict) -> torch.Tensor:
-            lengths = aux["pos"] + 1
-            h = encode(self.cfg, params, e, lengths=lengths)
-            lg = pool_logits(self.cfg, params, h, lengths=lengths).float()
-            rows = torch.arange(e.shape[0], device=e.device)
-            return torch.log_softmax(lg, dim=-1)[rows, aux["target"].long()]
-
-        return f
+        """``target_logprob_at_fn`` over this module's parameters."""
+        return target_logprob_at_fn(self.cfg, self.tree())

@@ -1,0 +1,807 @@
+"""ExplainEngine — shape-bucketed NUIG serving: ``repro.serve.explain_engine`` in PyTorch.
+
+Heterogeneous ``ExplainRequest``s are padded into shape buckets
+(``serve.batching``: powers-of-two S, plus a batch-axis ladder, so (B, S) is
+a small closed set). Padded positions are masked out of the stage-1 probe
+and the stage-2 attribution and δ: they score exactly zero, and δ is over
+real tokens only. Every schedule family and attribution method of
+``core`` rides the same per-bucket unit; callables are cached per key
+``(bucket, accumulator class, schedule, m, n_int, config, ...)``, so the
+methods sharing an accumulator class share them. Path-ensemble methods
+(noise_tunnel, expected_grad) are served by replicating each request
+``n_samples``× at plan time, perturbing rows in embedding space at batch
+construction and averaging each request's rows; the forward-only class
+(occlusion, RISE, LIME) draws its masks at batch construction and runs the
+chunked forward loop of ``core.perturb``.
+
+Where ``repro`` AOT-compiles one XLA executable per key, the port builds
+one Python callable per key over eager PyTorch: a miss is a build (counted
+as ``compiles``), a hit reuses it. On CUDA tensors every stage-2 op, the
+flash attention of an ``attn="flash"`` model and the LIME solve launch the
+port's kernels; on CPU tensors they take their plain versions. ``fused``
+selects the fused stage 2 (``ig.attribute``). The port's ``Explainer``
+always takes the kernel ops, which dispatch by the tensors' device, so
+``use_kernels`` (kept in the keys for parity with ``repro``) defaults to
+True and is refused as False on the card, where no plain stage 2 serves.
+
+**Adaptive iso-convergence** (``adaptive=True``): ``m`` becomes the base
+rung of a pow-2 m-ladder. Each bucket runs rung 0 (probe + base schedule +
+resumable accumulation); rows whose δ still exceeds ``tol · |f(x) − f(x′)|``
+are re-batched together and escalated one rung at a time through "hop"
+callables keyed on ``(bucket, n_new, chunk)`` — the new nodes of the
+refined schedule only (``AdaptiveBucketRun``).
+
+Not ported yet (ROADMAP.md queue 1): the device mesh, the autotuner and
+the result cache (item 5) are no constructor parameters here; the model
+fingerprint, request keys, warm state and ``precompile_hop_zero_starts``
+(item 5); ``AdaptiveBucketRun.degrade`` and the scheduler counters (item
+4, the scheduler is its only caller).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, replace
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import methods as methods_mod, perturb
+from repro_torch.core.api import Explainer
+from repro_torch.core.baselines import pad_embedding
+from repro_torch.core.ig import IGState
+from repro_torch.core.probes import map_tree, probe_cost
+from repro_torch.core.schedule import Schedule, family, m_ladder
+from repro_torch.kernels.ig_accum.ops import accum_fn_for
+from repro_torch.kernels.interp_accum.ops import interp_accum
+from repro_torch.kernels.interpolate.ops import interpolate
+from repro_torch.kernels.lstsq.ops import wls_solve
+from repro_torch.models.common import tree_map
+from repro_torch.models.registry import model_for
+from repro_torch.serve.autotune import HotpathConfig
+from repro_torch.serve.batching import (
+    DEFAULT_BATCH_BUCKETS,
+    DEFAULT_SEQ_BUCKETS,
+    BucketBatch,
+    pad_rows,
+    plan_buckets,
+)
+
+# draw(s_bucket, row indices, feature shape) -> (rows, *shape) standard normals
+NormalDraw = Callable[[int, Sequence[int], tuple], Any]
+# draw_masks(method, s_bucket, row indices, n_masks) -> perturb.PerturbMasks
+MaskDraw = Callable[[str, int, Sequence[int], int], perturb.PerturbMasks]
+
+
+@dataclass(frozen=True)
+class ExplainRequest:
+    tokens: np.ndarray  # (S,) int32 prompt — lengths may differ per request
+    target: int  # token id whose next-token log-prob is attributed
+    # feature-space request (patch models): (S, *F) float patch features;
+    # ``tokens`` then only sets the length/bucket and ``target`` is the class
+    features: Optional[np.ndarray] = None
+    # known endpoint value f(x) (probe reuse): the engine then skips the α=1
+    # probe forward and the endpoint forward; dropped for path ensembles and
+    # the forward-only class. None = the engine computes f(x) itself.
+    f_x: Optional[float] = None
+
+
+@dataclass
+class BucketStats:
+    compiles: int = 0  # callables built at this shape
+    calls: int = 0
+    requests: int = 0
+    compile_s: float = 0.0
+    total_s: float = 0.0  # wall time of cached calls (excludes builds)
+    # ``repro`` records XLA's cost_analysis bytes and peak bytes here; the
+    # port has no compiler to ask, so both stay 0 until the analytic byte
+    # models of ROADMAP.md queue 1, item 5 land
+    bytes_accessed: float = 0.0
+    peak_bytes: float = 0.0
+
+    @property
+    def mean_latency_s(self) -> float:
+        return self.total_s / self.calls if self.calls else 0.0
+
+
+@dataclass
+class AdaptiveStats:
+    """Aggregate δ-feedback serving counters (per-request values ride on the
+    result dicts: ``m_used``, ``delta``, ``hops``, ``converged``). For
+    path-ensemble methods every counter is per served ROW (sample)."""
+
+    requests: int = 0  # requests served adaptively
+    converged: int = 0  # requests that reached δ ≤ tol·|f_x − f_b|
+    early_exits: int = 0  # requests that converged below the ladder top
+    hop_calls: int = 0  # escalation batches launched
+    total_steps: int = 0  # Σ per-request m_used (iso-convergence metric)
+    launched_steps: int = 0  # actual grad steps incl. batch-pad rows
+    probe_forwards: int = 0  # stage-1 forwards (not gradient steps)
+    m_used: dict = field(default_factory=dict)  # final rung -> request count
+
+    @property
+    def mean_m_used(self) -> float:
+        return self.total_steps / self.requests if self.requests else 0.0
+
+
+@dataclass
+class EngineStats:
+    """Cache counters and per-bucket latency. ``repro``'s mesh, scheduler
+    and result-cache counters belong to modules not ported yet."""
+
+    hits: int = 0  # callable-cache hits
+    misses: int = 0  # callable-cache misses == builds
+    buckets: dict = field(default_factory=dict)  # (B, S) -> BucketStats
+    # hops do different work per call than plan buckets: their own table
+    hop_buckets: dict = field(default_factory=dict)  # (B, S) -> BucketStats
+    adaptive: AdaptiveStats = field(default_factory=AdaptiveStats)
+
+    @property
+    def hit_rate(self) -> float:
+        n = self.hits + self.misses
+        return self.hits / n if n else 0.0
+
+    def bucket(self, shape: tuple[int, int]) -> BucketStats:
+        return self.buckets.setdefault(shape, BucketStats())
+
+    def hop_bucket(self, shape: tuple[int, int]) -> BucketStats:
+        return self.hop_buckets.setdefault(shape, BucketStats())
+
+    @property
+    def compiles(self) -> int:
+        return sum(b.compiles for d in (self.buckets, self.hop_buckets) for b in d.values())
+
+
+class ExplainEngine:
+    """Bucketed NUIG serving over one model + parameter tree.
+
+    Args:
+        cfg / params: an ``ArchConfig`` (or ``VitConfig``) and its parameter
+            tree (``models.lm.init_params`` / ``params_from_numpy``), moved
+            to ``device``.
+        method / schedule: names in ``methods.METHODS`` / ``schedule.SCHEDULES``.
+        m, n_int, chunk: the stage-2 budget, stage-1 intervals, step chunk.
+        seq_buckets / batch_buckets: the (S, B) padding ladders.
+        adaptive / tol / m_max: δ-feedback serving up the pow-2 m-ladder;
+            ``hop_zero`` starts a bucket at its historical rung.
+        n_samples / sigma / sample_seed: path ensembles; ``n_masks`` the
+            forward-only mask budget.
+        fused: the fused stage 2. use_kernels: True launches the port's
+            kernels on the card; False is refused there (the plain versions
+            run on the CPU only, where the ops take them either way).
+        attn: "flash" serves the model with ``attn_impl="flash"``.
+        device: where the parameters live and the explanations run.
+        draw / draw_masks: the random draws (``NormalDraw``, ``MaskDraw``);
+            by default a row's draw comes from a CPU ``torch.Generator``
+            seeded with ``perturb.request_seed(sample_seed, S, row index)``,
+            so replay is bit-identical and card and CPU draw alike. Parity
+            tests hand ``repro``'s draws in here.
+
+    Example (the reduced LM on the CPU, one mixed-length round):
+
+        >>> import numpy as np, torch
+        >>> from repro_torch.configs import ARCHS, reduced
+        >>> from repro_torch.models.registry import Model
+        >>> cfg = reduced(ARCHS["llama3-8b"])
+        >>> params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+        >>> eng = ExplainEngine(cfg, params, m=4, n_int=2, seq_buckets=(8,), device="cpu")
+        >>> reqs = [ExplainRequest(np.arange(1, 6, dtype=np.int32), target=7)]
+        >>> out = eng.explain(reqs)
+        >>> out[0]["token_scores"].shape, eng.stats.misses
+        ((5,), 1)
+        >>> _ = eng.explain(reqs)  # same bucket -> a cache hit
+        >>> eng.stats.misses, eng.stats.hits
+        (1, 1)
+    """
+
+    def __init__(
+        self,
+        cfg: Any,
+        params: Any,
+        *,
+        method: str = "ig",
+        schedule: str = "paper",
+        m: int = 64,
+        n_int: int = 4,
+        chunk: int = 0,
+        refine_rounds: int = 4,
+        power: float = 0.5,
+        pad_id: int = 0,
+        seq_buckets: Sequence[int] = DEFAULT_SEQ_BUCKETS,
+        batch_buckets: Optional[Sequence[int]] = DEFAULT_BATCH_BUCKETS,
+        max_batch: int = 0,
+        adaptive: bool = False,
+        tol: float = 1e-2,
+        m_max: int = 0,
+        n_samples: int = 0,
+        sigma: float = 0.0,
+        n_masks: int = 0,
+        sample_seed: int = 0,
+        fused: bool = False,
+        use_kernels: bool = True,
+        attn: str = "auto",
+        hop_zero: bool = False,
+        hop_zero_q: float = 0.75,
+        hop_zero_min: int = 8,
+        draw: Optional[NormalDraw] = None,
+        draw_masks: Optional[MaskDraw] = None,
+        device="cuda",
+    ):
+        if attn not in ("auto", "flash"):
+            raise ValueError(f"attn must be 'auto' or 'flash', got {attn!r}")
+        if attn == "flash" or getattr(cfg, "attn_impl", "auto") == "flash":
+            self.attn = "flash"
+            cfg = replace(cfg, attn_impl="flash")
+        else:
+            self.attn = "auto"
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if not use_kernels and self.device.type == "cuda":
+            raise ValueError("use_kernels=False: the port serves no plain stage 2 on the card; "
+                             "its kernel ops take their plain versions on the CPU only")
+        self.params = tree_map(lambda _, t: t.to(self.device), params)
+        self.method = method
+        self.schedule = schedule
+        self._spec = methods_mod.get(method)
+        self.m = m
+        self.n_int = n_int
+        self.chunk = chunk
+        self.pad_id = pad_id
+        self.fused = fused
+        self.use_kernels = use_kernels
+        self.seq_buckets = tuple(seq_buckets)
+        self.batch_buckets = tuple(batch_buckets) if batch_buckets else None
+        self.max_batch = max_batch
+        # the forward-only class has no gradient, so δ carries no
+        # convergence meaning: the ladder is refused loudly
+        if self._spec.forward_only and adaptive:
+            raise ValueError(
+                f"method {self._spec.name!r} is forward-only; the δ-adaptive "
+                "m-ladder needs the gradient class (serve it fixed-budget)"
+            )
+        self.n_masks = n_masks if n_masks else (self._spec.n_masks or 64)
+        self.adaptive = adaptive
+        self.tol = tol
+        self.m_max = m_max if m_max else (8 * m if adaptive else m)
+        self.m_ladder = m_ladder(m, self.m_max)
+        self.n_samples = (
+            (n_samples if n_samples else self._spec.n_samples)
+            if self._spec.expand is not None
+            else 1
+        )
+        self.sigma = sigma if sigma else self._spec.sigma_default
+        self.sample_seed = sample_seed
+        self._draw = draw
+        self._draw_masks = draw_masks
+        self.model = model_for(cfg)
+        self.stats = EngineStats()
+        self._cache: dict[tuple, Callable] = {}  # key -> built callable
+        # hop-zero starting rung: the per-(S-bucket, method) m_used history
+        self.hop_zero = hop_zero and adaptive
+        self.hop_zero_q = hop_zero_q
+        self.hop_zero_min = hop_zero_min
+        self._delta_hist: dict[tuple[int, str], list[int]] = {}
+        self._explainers_m: dict[int, Explainer] = {}
+        # the per-row unit: expansion stripped (row_spec) — the engine
+        # samples the ensemble itself at batch construction
+        self._explainer = Explainer(
+            self.model.target_logprob_at_fn(self.params),
+            method=self._spec.row_spec(),
+            schedule=schedule,
+            m=m,
+            n_int=n_int,
+            chunk=chunk,
+            refine_rounds=refine_rounds,
+            power=power,
+            fused=fused,
+            device=self.device,
+            **self._kernel_kwargs(HotpathConfig(chunk)),
+        )
+
+    # -- the callable cache ------------------------------------------------
+
+    def _kernel_kwargs(self, cfg: HotpathConfig) -> dict:
+        """The stage-2 kernel ops for one config: the interpolate +
+        accumulate pair unfused, the interp-plus-carry op (whose backward is
+        ``accum_cot``) and the class accumulator fused. The ops dispatch by
+        the tensors' device; ``cfg``'s TPU
+        block sizes are not taken. Forward-only methods inject the solve in
+        ``_fwd_fn_at`` instead."""
+        if self._spec.forward_only:
+            return {}
+        kw = {"accum_fn": accum_fn_for(self._spec.accum)}
+        if self.fused:
+            kw["interp_add_fn"] = interp_accum
+        else:
+            kw["interp_fn"] = interpolate
+        return kw
+
+    def _cfg_for(self, bucket: tuple[int, int]) -> HotpathConfig:
+        """The bucket's stage-2 config: the engine-wide chunk (the tuner of
+        ``repro`` is not ported)."""
+        return HotpathConfig(self.chunk)
+
+    def _explainer_at(self, cfg: HotpathConfig) -> Explainer:
+        """The per-row unit at one config (the kernel ops are the
+        construction-time ones: they take no per-bucket tile sizes)."""
+        return replace(self._explainer, chunk=cfg.chunk)
+
+    def _attr_fn_at(self, cfg: HotpathConfig, *, with_fx: bool = False):
+        """The fixed-m bucket unit at one config. ``with_fx`` is the
+        probe-reuse variant whose trailing (B,) argument donates f(x)."""
+        exp = self._explainer_at(cfg)
+
+        if with_fx:
+
+            def attr_fx_fn(embeds, baseline, aux, mask, f_x):
+                return exp.attribute(embeds, baseline, aux, mask=mask, f_x=f_x)
+
+            return attr_fx_fn
+
+        def attr_fn(embeds, baseline, aux, mask):
+            return exp.attribute(embeds, baseline, aux, mask=mask)
+
+        return attr_fn
+
+    def _key(self, bucket: tuple[int, int], *, with_fx: bool = False) -> tuple:
+        """Keyed by accumulator CLASS, not method name: methods sharing an
+        accumulator share the callables."""
+        return (bucket, self._spec.accum, self.schedule, self.m, self.n_int,
+                self._cfg_for(bucket), self.fused, self.use_kernels, self.attn, with_fx)
+
+    def _executable(self, key: tuple, bs: BucketStats, build: Callable[[], Callable]) -> Callable:
+        """The cached callable for ``key``; a miss builds it with ``build()``
+        and charges the build to the stats row ``bs``."""
+        if key in self._cache:
+            self.stats.hits += 1
+            return self._cache[key]
+        self.stats.misses += 1
+        bs.compiles += 1
+        t0 = time.perf_counter()
+        self._cache[key] = build()
+        bs.compile_s += time.perf_counter() - t0
+        return self._cache[key]
+
+    def _timed_call(self, bs: BucketStats, fn: Callable, args: tuple) -> Any:
+        """Run one cached callable, synchronised, and charge its wall time."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        bs.total_s += time.perf_counter() - t0
+        bs.calls += 1
+        return out
+
+    # -- adaptive units ----------------------------------------------------
+
+    def _explainer_for_m(self, m0: int) -> Explainer:
+        """The per-row Explainer at ladder rung ``m0`` (hop-zero starts)."""
+        if m0 == self.m:
+            return self._explainer
+        if m0 not in self._explainers_m:
+            self._explainers_m[m0] = replace(self._explainer, m=m0)
+        return self._explainers_m[m0]
+
+    def _start_fn_for(self, m0: int):
+        """Adaptive rung 0 at rung ``m0`` (``repro``'s ``_start_fn`` at m0 =
+        m): probe + base schedule + resumable stage 2. The schedule comes
+        back per row (uniform's shared (m,) one broadcast), so survivor rows
+        can be gathered."""
+        exp = self._explainer_for_m(m0)
+
+        def start_fn(embeds, baseline, aux, mask, f_x=None):
+            res, state, sched = exp.start(embeds, baseline, aux, mask=mask, f_x=f_x)
+            B = embeds.shape[0]
+            sched = Schedule(sched.alphas.expand(B, -1), sched.weights.expand(B, -1))
+            return res, state, sched
+
+        return start_fn
+
+    def _hop_fn_for(self, m0: int):
+        """One ladder hop (``repro``'s ``_hop_fn`` at m0 = m): stage 2 over
+        the refined schedule's new nodes only."""
+        exp = self._explainer_for_m(m0)
+
+        def hop_fn(embeds, baseline, aux, mask, new_nodes, state):
+            return exp.resume(embeds, baseline, aux, new_nodes, state, mask=mask)
+
+        return hop_fn
+
+    def _hop_zero_m(self, bucket: tuple[int, int]) -> int:
+        """The ladder's starting rung for one bucket: with ``hop_zero_min``
+        base-rung observations for (S-bucket, method), the smallest rung
+        covering their ``hop_zero_q`` quantile of m_used; else ``m``."""
+        if not self.hop_zero:
+            return self.m
+        hist = self._delta_hist.get((bucket[1], self.method))
+        if not hist or len(hist) < self.hop_zero_min:
+            return self.m
+        q = float(np.quantile(np.asarray(hist, np.float64), self.hop_zero_q))
+        for rung in self.m_ladder:
+            if rung >= q:
+                return rung
+        return self.m_ladder[-1]
+
+    def _record_m_used(self, seq_bucket: int, values: Sequence[int]) -> None:
+        """Accumulate base-rung-start m_used outcomes (capped at 512)."""
+        hist = self._delta_hist.setdefault((seq_bucket, self.method), [])
+        hist.extend(int(v) for v in values)
+        if len(hist) > 512:
+            del hist[:-512]
+
+    # -- batch construction ------------------------------------------------
+
+    def _padded_indices(self, bb: BucketBatch) -> list[int]:
+        """The bucket's row indices, batch-pad rows repeating the last."""
+        padded = list(bb.indices)
+        return padded + [padded[-1]] * (bb.bucket[0] - len(padded))
+
+    def _normals(self, S: int, rows: Sequence[int], shape: tuple) -> torch.Tensor:
+        """(rows, *shape) standard normals, each row's pure in (sample_seed,
+        S, row index)."""
+        if self._draw is not None:
+            z = torch.as_tensor(np.asarray(self._draw(S, rows, shape)))
+        else:
+            z = torch.stack([
+                torch.randn(shape, generator=torch.Generator().manual_seed(
+                    perturb.request_seed(self.sample_seed, S, i)))
+                for i in rows
+            ])
+        return z.to(device=self.device, dtype=torch.float32)
+
+    def _bucket_inputs(self, bb: BucketBatch) -> tuple:
+        dev = self.device
+        aux = {
+            "target": torch.as_tensor(bb.targets, device=dev),
+            "pos": torch.as_tensor(bb.lens - 1, device=dev),
+        }
+        mask = torch.as_tensor(bb.mask, device=dev)
+        if bb.features is not None:
+            # feature-space requests (ViT patches): the path runs from the
+            # embedded black image to the embedded features
+            feats = torch.as_tensor(bb.features, device=dev)
+            embeds = self.model.embed_features(self.params, feats)
+            baseline = self.model.embed_features(self.params, torch.zeros_like(feats))
+        else:
+            embeds = self.model.embed_inputs(self.params, {"tokens": torch.as_tensor(bb.tokens, device=dev)})
+            # the PAD-token embedding, not zeros: RMSNorm is scale-invariant,
+            # so a ray through the origin has (near-)zero gradient
+            baseline = pad_embedding(self.params["embed"]["embedding"], embeds,
+                                     pad_id=self.pad_id).contiguous()
+        if self._spec.expand is not None:
+            # path-ensemble rows (already replicated requests, see
+            # _explain_uncached) each draw their own sample, pure in their
+            # own expanded request index: replay draws the same ensemble
+            noise = self._normals(bb.bucket[1], self._padded_indices(bb), tuple(embeds.shape[1:]))
+            embeds, baseline = self._spec.expand(embeds, baseline, noise, 1, self.sigma)
+        if bb.f_x is not None:
+            return embeds, baseline, aux, mask, torch.as_tensor(bb.f_x, device=dev)
+        return embeds, baseline, aux, mask
+
+    def _run_bucket(self, bb: BucketBatch) -> Any:
+        args = self._bucket_inputs(bb)
+        with_fx = bb.f_x is not None
+        bs = self.stats.bucket(bb.bucket)
+        fn = self._executable(self._key(bb.bucket, with_fx=with_fx), bs,
+                              lambda: self._attr_fn_at(self._cfg_for(bb.bucket), with_fx=with_fx))
+        res = self._timed_call(bs, fn, args)
+        bs.requests += len(bb.indices)
+        return res
+
+    # -- forward-only (perturbation) class ---------------------------------
+
+    def _fwd_chunk(self) -> int:
+        """Masks per model call: the engine chunk when it divides P, else
+        the whole mask batch."""
+        return self.chunk if self.chunk and self.n_masks % self.chunk == 0 else 0
+
+    def _fwd_fn_at(self, cfg: HotpathConfig):
+        """The forward-evaluator unit: embeds + masks -> scores. LIME's group
+        map and ragged-group validity are pure in (bucket shape, mask) and
+        recomputed inside; the solve is the kernel op ``wls_solve``."""
+        f = self._explainer.f
+        spec = self._spec
+        chunk = self._fwd_chunk()
+        if spec.accum == "lime":
+
+            def fwd_lime(embeds, baseline, aux, mask, z, zg):
+                G = zg.shape[-1]
+                gids = perturb.lime_group_ids(embeds.shape[1], G).to(embeds.device)
+                return perturb.attribute_from_masks(
+                    f, embeds, baseline, aux, perturb.PerturbMasks(z, zg, gids),
+                    method=spec, mask=mask, group_valid=perturb.group_real_mask(mask, gids, G),
+                    chunk=chunk, solve_fn=wls_solve,
+                )
+
+            return fwd_lime
+
+        def fwd(embeds, baseline, aux, mask, z):
+            return perturb.attribute_from_masks(
+                f, embeds, baseline, aux, perturb.PerturbMasks(z),
+                method=spec, mask=mask, chunk=chunk,
+            )
+
+        return fwd
+
+    def _fwd_bucket_inputs(self, bb: BucketBatch) -> tuple:
+        """Fixed-m inputs plus the plan-time mask draw: every row's masks
+        come from ``perturb.request_seed`` over its own request index, so
+        replay is bit-identical and pad rows repeat the last real row's."""
+        embeds, baseline, aux, mask = self._bucket_inputs(bb)[:4]
+        S, rows = bb.bucket[1], self._padded_indices(bb)
+        if self._draw_masks is not None:
+            pm = self._draw_masks(self._spec.name, S, rows, self.n_masks)
+        else:
+            seeds = [perturb.request_seed(self.sample_seed, S, i) for i in rows]
+            pm = perturb.draw_masks(self._spec.name, seeds, S, self.n_masks, device=self.device)
+        z = torch.as_tensor(pm.z, device=self.device, dtype=torch.float32)
+        if pm.groups is not None:
+            return embeds, baseline, aux, mask, z, torch.as_tensor(
+                pm.groups, device=self.device, dtype=torch.float32)
+        return embeds, baseline, aux, mask, z
+
+    def _run_bucket_fwd(self, bb: BucketBatch) -> Any:
+        """One forward-evaluator bucket call -> ``perturb.PerturbResult``
+        (scores per position (B, S), exactly zero at pads)."""
+        args = self._fwd_bucket_inputs(bb)
+        bs = self.stats.bucket(bb.bucket)
+        key = ("fwd", bb.bucket, self._spec.accum, self.n_masks, self._fwd_chunk(),
+               self.use_kernels, self.attn)
+        fn = self._executable(key, bs, lambda: self._fwd_fn_at(self._cfg_for(bb.bucket)))
+        res = self._timed_call(bs, fn, args)
+        bs.requests += len(bb.indices)
+        return res
+
+    # -- serving -----------------------------------------------------------
+
+    def _run_bucket_adaptive(self, bb: BucketBatch) -> list[dict]:
+        """δ-feedback serving for one bucket: rung 0, then escalate the
+        survivors (``AdaptiveBucketRun`` driven to completion)."""
+        run = AdaptiveBucketRun(self, bb)
+        run.start()
+        while run.hop():
+            pass
+        return run.results()
+
+    @staticmethod
+    def _reduce_samples(group: list[dict]) -> dict:
+        """Average one request's contiguous sample results (path ensembles).
+        δ is recomputed on the reduced quantities."""
+        if len(group) == 1:
+            return group[0]
+        r = dict(group[0])
+        mean = lambda k: np.mean([g[k] for g in group], axis=0)
+        r["token_scores"] = mean("token_scores")
+        if "raw_token_scores" in r:
+            r["raw_token_scores"] = mean("raw_token_scores")
+        r["f_x"] = float(mean("f_x"))
+        r["f_baseline"] = float(mean("f_baseline"))
+        r["delta"] = float(abs(float(np.sum(r["token_scores"])) - (r["f_x"] - r["f_baseline"])))
+        if "m_used" in r:  # adaptive: the request pays its worst sample
+            r["m_used"] = max(g["m_used"] for g in group)
+            r["hops"] = max(g["hops"] for g in group)
+            r["threshold"] = float(mean("threshold"))
+            r["converged"] = all(g["converged"] for g in group)
+        return r
+
+    def explain(self, requests: Sequence[ExplainRequest], *, return_raw: bool = False) -> list[dict]:
+        """Serve a heterogeneous batch; results align with ``requests``
+        (``_explain_uncached``: ``repro``'s result cache is not ported)."""
+        return self._explain_uncached(requests, return_raw=return_raw)
+
+    def _explain_uncached(self, requests: Sequence[ExplainRequest], *,
+                          return_raw: bool = False) -> list[dict]:
+        """The compute path.
+
+        Each result dict: token_scores (S_req,), delta, f_x, f_baseline,
+        bucket (B, S); with ``return_raw`` also raw_token_scores (S_bucket,),
+        exactly zero at padded positions. Adaptive results add ``m_used``,
+        ``hops``, ``threshold`` and ``converged``. Path-ensemble requests
+        are replicated ``n_samples``× at plan time and their sample results
+        averaged back into one dict.
+        """
+        n = self.n_samples
+        expanded = list(requests) if n == 1 else [r for r in requests for _ in range(n)]
+        if n > 1 or self._spec.forward_only:
+            # an ensemble row perturbs x, so a donated f(x) is for the wrong
+            # point; the forward-only class computes both endpoints itself
+            expanded = [replace(r, f_x=None) if r.f_x is not None else r for r in expanded]
+        plan = plan_buckets(
+            expanded,
+            seq_buckets=self.seq_buckets,
+            batch_buckets=self.batch_buckets,
+            max_batch=self.max_batch,
+            pad_id=self.pad_id,
+        )
+        out: list[Optional[dict]] = [None] * len(expanded)
+        for bb in plan:
+            if self.adaptive:
+                for r in self._run_bucket_adaptive(bb):
+                    ri = r.pop("request")
+                    if not return_raw:
+                        r.pop("raw_token_scores")
+                    out[ri] = r
+                continue
+            if self._spec.forward_only:
+                res = self._run_bucket_fwd(bb)
+                per_token = res.attributions  # already per position (B, S)
+            else:
+                res = self._run_bucket(bb)
+                per_token = res.attributions.sum(-1)  # (B, S)
+            per_token = per_token.cpu().numpy()
+            delta, f_x, f_b = (t.cpu().numpy() for t in (res.delta, res.f_x, res.f_baseline))
+            for row, ri in enumerate(bb.indices):
+                r = {
+                    "token_scores": per_token[row, : bb.lens[row]],
+                    "delta": float(delta[row]),
+                    "f_x": float(f_x[row]),
+                    "f_baseline": float(f_b[row]),
+                    "bucket": bb.bucket,
+                }
+                if return_raw:
+                    r["raw_token_scores"] = per_token[row]
+                out[ri] = r
+        if n == 1:
+            return out
+        return [self._reduce_samples(out[i * n : (i + 1) * n]) for i in range(len(requests))]
+
+
+class AdaptiveBucketRun:
+    """One bucket's δ-adaptive ladder as explicit work items.
+
+      * ``start()`` — rung 0: probe + base schedule + resumable stage 2;
+      * while ``active``: ``hop()`` escalates the survivors one rung;
+      * ``results()`` — finalize the adaptive stats (once) and return one
+        dict per real request in ``bb.indices`` order.
+
+    The bucket's inputs and the survivors' schedules and accumulators stay
+    on the engine's device; δ, the thresholds and the traces live on the
+    host, where the escalation is decided.
+    """
+
+    def __init__(self, engine: ExplainEngine, bb: BucketBatch):
+        self.eng = engine
+        self.bb = bb
+        self._started = False
+        self._results: Optional[list[dict]] = None
+        self._rung_i = 1  # next ladder index to run (0 is start())
+        self.act: list[int] = []
+
+    @property
+    def active(self) -> bool:
+        """More ladder hops pending (unconverged survivors + rungs left)."""
+        return bool(self.act) and self._rung_i < len(self.eng.m_ladder)
+
+    def _rows(self, rows: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(list(rows), dtype=torch.long, device=self.eng.device)
+
+    def start(self) -> None:
+        eng, bb = self.eng, self.bb
+        assert not self._started
+        self._started = True
+        self.m0 = eng._hop_zero_m(bb.bucket)
+        self._rung_i = eng.m_ladder.index(self.m0) + 1
+        self.chunk = eng._explainer_for_m(self.m0).adaptive_chunk
+        with_fx = bb.f_x is not None
+        args = eng._bucket_inputs(bb)
+        key = ("start", bb.bucket, eng._spec.accum, eng.schedule, self.m0, eng.n_int,
+               self.chunk, eng.fused, eng.use_kernels, eng.attn, with_fx)
+        bs = eng.stats.bucket(bb.bucket)
+        fn = eng._executable(key, bs, lambda: eng._start_fn_for(self.m0))
+        res, state, sched = eng._timed_call(bs, fn, args)
+        bs.requests += len(bb.indices)
+
+        n_real = len(bb.indices)
+        ast = eng.stats.adaptive
+        ast.requests += n_real
+        ast.total_steps += n_real * self.m0
+        ast.launched_steps += bb.bucket[0] * self.m0
+        ast.probe_forwards += n_real * probe_cost(
+            family(eng.schedule).probe, n_int=eng.n_int,
+            rounds=eng._explainer.refine_rounds, known_fx=with_fx,
+        )
+
+        self.embeds, self.baseline, self.aux, self.mask = args[:4]
+        self.f_x_t, self.f_b_t = res.f_x, res.f_baseline
+        self.delta = res.delta.cpu().numpy().copy()
+        self.f_x = res.f_x.cpu().numpy()
+        self.f_b = res.f_baseline.cpu().numpy()
+        self.threshold = eng.tol * np.abs(self.f_x - self.f_b)
+        self.per_token = res.attributions.sum(-1).cpu().numpy().copy()  # (B, S)
+        self.m_used = np.full((bb.bucket[0],), self.m0, np.int64)
+        self.hops = np.zeros((bb.bucket[0],), np.int64)
+
+        # survivors: real rows whose δ still exceeds tol·|f_x − f_b|
+        self.act = [r for r in range(n_real) if self.delta[r] > self.threshold[r]]
+        sel = self._rows(self.act)
+        self.a_act, self.w_act = sched.alphas[sel], sched.weights[sel]
+        self.acc_act = state.acc[sel]
+
+    def hop(self) -> bool:
+        """Run ONE escalation rung over the survivors; returns ``active``.
+
+        The survivors are re-batched (the batch axis padded up the ladder by
+        repeating the last survivor) and only the refined schedule's new
+        nodes run, through hop callables keyed ``("hop", (B', S), n_new,
+        chunk)`` — a closed shape set."""
+        if not self.active:
+            return False
+        eng, act = self.eng, self.act
+        S = self.bb.bucket[1]
+        rung = eng.m_ladder[self._rung_i]
+        self._rung_i += 1
+        n_new = rung // 2
+        refined = family(eng.schedule).refine(Schedule(self.a_act, self.w_act))
+        rows, B2 = pad_rows(act, eng.batch_buckets)
+        # schedule/state slot per padded row: act is a prefix of rows and
+        # the pad slots repeat the last survivor
+        r_t = self._rows(rows)
+        s_t = self._rows(list(range(len(act))) + [len(act) - 1] * (B2 - len(act)))
+        hop_bucket = (B2, S)
+        hop_args = (
+            self.embeds[r_t],
+            self.baseline[r_t],
+            map_tree(lambda t: t[r_t], self.aux),
+            self.mask[r_t],
+            Schedule(refined.alphas[s_t, n_new:], refined.weights[s_t, n_new:]),
+            IGState(self.acc_act[s_t], self.f_x_t[r_t], self.f_b_t[r_t]),
+        )
+        hop_key = ("hop", hop_bucket, eng._spec.accum, n_new, self.chunk,
+                   eng.fused, eng.use_kernels, eng.attn)
+        hbs = eng.stats.hop_bucket(hop_bucket)
+        fn = eng._executable(hop_key, hbs, lambda: eng._hop_fn_for(self.m0))
+        res2, st2 = eng._timed_call(hbs, fn, hop_args)
+        ast = eng.stats.adaptive
+        ast.hop_calls += 1
+        ast.launched_steps += B2 * n_new
+        ast.total_steps += len(act) * n_new
+
+        d2 = res2.delta.cpu().numpy()
+        pt2 = res2.attributions.sum(-1).cpu().numpy()
+        keep = []
+        for slot, r in enumerate(act):  # real survivors occupy slots [0, len(act))
+            self.delta[r] = d2[slot]
+            self.per_token[r] = pt2[slot]
+            self.m_used[r] = rung
+            self.hops[r] += 1
+            if d2[slot] > self.threshold[r]:
+                keep.append(slot)
+        self.act = [act[s] for s in keep]
+        k_t = self._rows(keep)
+        self.a_act, self.w_act = refined.alphas[k_t], refined.weights[k_t]
+        self.acc_act = st2.acc[k_t]
+        return self.active
+
+    def results(self) -> list[dict]:
+        """One result dict per real request (``bb.indices`` order); finalizes
+        the aggregate adaptive counters exactly once."""
+        if self._results is not None:
+            return self._results
+        eng, bb = self.eng, self.bb
+        ast = eng.stats.adaptive
+        out = []
+        for row, ri in enumerate(bb.indices):
+            converged = bool(self.delta[row] <= self.threshold[row])
+            ast.converged += converged
+            ast.early_exits += converged and int(self.m_used[row]) < eng.m_ladder[-1]
+            mu = int(self.m_used[row])
+            ast.m_used[mu] = ast.m_used.get(mu, 0) + 1
+            out.append({
+                "request": ri,
+                "token_scores": self.per_token[row, : bb.lens[row]],
+                "raw_token_scores": self.per_token[row],
+                "delta": float(self.delta[row]),
+                "threshold": float(self.threshold[row]),
+                "f_x": float(self.f_x[row]),
+                "f_baseline": float(self.f_b[row]),
+                "bucket": bb.bucket,
+                "m_used": mu,
+                "hops": int(self.hops[row]),
+                "converged": converged,
+            })
+        # hop-zero evidence: only base-rung starts (an elevated start's
+        # m_used is floored at m0, which would ratchet the quantile up)
+        if self.m0 == eng.m:
+            eng._record_m_used(bb.bucket[1], [r["m_used"] for r in out])
+        self._results = out
+        return out

@@ -11,7 +11,9 @@ round like the plain version); bf16 one ulp at the values' magnitude
 (2**-7 for values below 2); K-sums 1e-5 relative (another summation order);
 IDGI's dot products over F 1e-5 relative to the sum of |terms| (another
 summation order over up to 150,528 terms), its accumulation 1e-5 relative
-to the largest |value|;
+to the largest |value|; the reduced LM on the card against the CPU (f32,
+TF32 off): log-probs and f(x) 1e-5, engine token scores 1e-4 of a
+request's largest |score| (f32 products summed in another order);
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
 order, and one bf16 rounding of each output); the Gauss–Jordan solve 1e-6
@@ -61,7 +63,8 @@ TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
 RAGGED_SWEEPS = [(16, 1, 3072), (16, 37, 3073), (16, 63, 2049), (16, 9, 2048 * 37 + 1),
                  (16, 7, 4096 * 19 + 1)]
 SHAPES = [(1, 1, 3), (3, 5, 77), (2, 9, 130), (4, 37, 3000), (5, 19, 4099), (3, 13, 100_003),
-          *RAGGED_SWEEPS, (16, 64, 3072), (16, 16, 224 * 224 * 3)]
+          *RAGGED_SWEEPS, (16, 64, 3072), (16, 16, 224 * 224 * 3),
+          (16, 16, 128 * 4096)]  # the LM engine's at S=128, d=4096
 
 
 @pytest.fixture
@@ -138,10 +141,10 @@ def test_k_sweeps_same_bits_on_every_call(card, kernel, dtype, B, K, F):
 # (B, K, F): odd shapes, the K-sweeps' tile edges, the dots plan's edges on
 # 132 SMs (K not a multiple of its 4 steps a program; F one past a
 # 1024-column tile with one chunk, and one past four chunks of 5120 with
-# five), the CNN path's stage-2 shape (one chunk) and the ViT path's (F
-# split in 5)
+# five), the CNN path's stage-2 shape (one chunk), the ViT path's (F
+# split in 5) and the LM engine's at S=128, d=4096
 IDGI_SHAPES = [(1, 1, 3), (3, 5, 77), (5, 37, 3 * 31 * 29), *RAGGED_SWEEPS, (4, 7, 2049),
-               (2, 13, 4 * 5120 + 1), (16, 64, 3072), (16, 16, 224 * 224 * 3)]
+               (2, 13, 4 * 5120 + 1), (16, 64, 3072), (16, 16, 224 * 224 * 3), (16, 16, 128 * 4096)]
 
 
 @pytest.mark.cuda
@@ -204,6 +207,7 @@ FLASH_SHAPES = [
     (3, 17, 2, 1, 64, False, False),
     (2, 50, 4, 2, 20, True, True),
     (2, 70, 6, 3, 72, False, True),
+    (16, 128, 32, 8, 128, True, True),  # the LM engine's attention (llama3-8b heads)
 ]
 
 
@@ -422,6 +426,96 @@ def test_lime_through_the_kernel_matches_the_plain_hook(nvcc_card):
                                atol=1e-6 * float(want.attributions.abs().max()), rtol=0)
     assert not bool(got.attributions[~mask].any())
     assert common.LAUNCHES["wls_solve"] == 1  # the plain hook launched nothing
+
+
+# ------------------------------------------------------------ the LM engine
+
+
+def _lm_cpu_and_card(attn):
+    """The reduced llama3-8b at f32 compute, seeded weights on the CPU and a
+    copy on the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+
+    cfg = replace(reduced(ARCHS["llama3-8b"]), compute_dtype="float32", attn_impl=attn)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    return cfg, params, tree_map(lambda _, t: t.cuda(), params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["auto", "flash"])
+def test_lm_logprob_on_the_card_matches_the_cpu(nvcc_card, attn):
+    """Ragged rows' target log-probs (f32, TF32 off) within 1e-5; the
+    flash path launches the forward kernel."""
+    from repro_torch.models.registry import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p_cpu, p_card = _lm_cpu_and_card(attn)
+    model = Model(cfg)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(1))
+    aux = {"pos": torch.tensor([31, 8, 16, 0]), "target": torch.tensor([5, 7, 9, 11])}
+    want = model.target_logprob_at_fn(p_cpu)(model.embed_inputs(p_cpu, {"tokens": tokens}), aux)
+    common.reset_launches()
+    e = model.embed_inputs(p_card, {"tokens": tokens.cuda()})
+    got = model.target_logprob_at_fn(p_card)(e, {k: v.cuda() for k, v in aux.items()})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    assert (common.LAUNCHES["flash_fwd"] > 0) == (attn == "flash")
+
+
+@pytest.mark.cuda
+def test_lm_init_draws_on_the_card(nvcc_card):
+    """A CUDA generator draws every tensor on the card, with the rule's std."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import lm
+
+    cfg = replace(reduced(ARCHS["llama3-8b"]), d_model=256, d_ff=512)
+    params = lm.init_params(cfg, nvcc_card, device="cuda")
+    wq = params["layers"][0]["mixer"]["wq"]
+    assert wq.is_cuda and not wq.requires_grad
+    assert abs(float(wq.std()) * (2 * 256 * 4) ** 0.5 - 1) < 0.05  # fan-in L·d·H
+    assert abs(float(params["embed"]["embedding"].std()) - 1) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,kernels", [
+    (dict(method="ig"), ("interpolate", "ig_accum")),
+    (dict(method="ig", fused=True), ("interp_add", "accum_cot")),
+    (dict(method="idgi", fused=True), ("interp_add", "idgi_dots", "ig_accum_sq")),
+    (dict(method="ig", adaptive=True, tol=1e-3, m_max=32), ("interpolate", "ig_accum")),
+    (dict(method="lime", n_masks=16), ("wls_solve",)),
+])
+def test_engine_on_the_card_matches_the_cpu(nvcc_card, kw, kernels):
+    """The reduced LM served on mixed lengths through the flash kernels and
+    the path's kernels: token scores within 1e-4 of each request's largest
+    |score| of the port on the CPU, f(x) within 1e-5, exactly 0 at padding,
+    adaptive traces equal."""
+    import numpy as np
+
+    from repro_torch.serve import ExplainEngine, ExplainRequest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p_cpu, p_card = _lm_cpu_and_card("flash")
+    rng = np.random.default_rng(0)
+    reqs = [ExplainRequest(rng.integers(1, 512, s).astype(np.int32), int(rng.integers(0, 512)))
+            for s in (9, 17, 24, 30)]
+    args = dict(m=8, n_int=4, seq_buckets=(8, 16, 32), **kw)
+    common.reset_launches()
+    got = ExplainEngine(cfg, p_card, device="cuda", **args).explain(reqs, return_raw=True)
+    assert all(common.LAUNCHES[k] for k in kernels + ("flash_fwd",))
+    want = ExplainEngine(cfg, p_cpu, device="cpu", **args).explain(reqs, return_raw=True)
+    for g, w, r in zip(got, want, reqs):
+        assert np.all(g["raw_token_scores"][len(r.tokens):] == 0.0)
+        assert abs(g["f_x"] - w["f_x"]) <= 1e-5 and abs(g["f_baseline"] - w["f_baseline"]) <= 1e-5
+        if "m_used" in w:
+            assert (g["m_used"], g["hops"]) == (w["m_used"], w["hops"])
+        np.testing.assert_allclose(g["token_scores"], w["token_scores"], rtol=0,
+                                   atol=1e-4 * np.abs(w["token_scores"]).max())
 
 
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
