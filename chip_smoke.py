@@ -72,13 +72,34 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      requests served one by one within rtol = atol = 2e-2 (bf16), the
      card against the port on the CPU (2 prompts of ≤ 16 tokens, m=8, f32);
      the stage-2 plans at the LM's F, walls per path and bucket, misses and
-     hits, mean δ and m_used, peak memory and one profiled warm round.
+     hits, mean δ and m_used, peak memory and one profiled warm round;
+ 10. generation serving — ``ServeEngine`` on llama3-8b at full width and 32
+     layers (bf16, flash prefill, weights drawn on the card): 16 prompts of
+     128 tokens with 64 new, greedy, then sampled at T=0.8 with seeds 1234,
+     1234 and 1235; 2 prompts of 999 tokens with 32 new (flash's ragged
+     last tile); an 8-step ``make_decode_chunk`` at B=16, profiled. Prefill
+     ms, decode ms a token, tokens/s, peak memory. Gates: the same seed
+     gives the same tokens and another seed others, every id in [0, V);
+     the chunk at T=0 gives generate's greedy tokens; f32 at full depth,
+     decode logits teacher-forced against a fresh forward within 1e-4 of
+     the row's largest |logit| (the bf16 ratio at full depth is printed,
+     not gated); bf16 at 4 layers within 2e-2; the card against the CPU
+     (f32, 2 layers, 2 prompts of 16, 8 new) within 1e-4 and equal tokens
+     (a row may part only at a near tie); one 8192-token prompt through
+     the blocked branch (``attn_impl="auto"``) against flash within 2e-2;
+     then internlm2-20b and yi-9b at full width, 2 layers, one greedy
+     generate each held against a fresh forward within 2e-2.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
 flash trio at 256 sequences of 128 (32 query heads on 8, head dim 128,
 causal, ragged lengths) beside SDPA on the same tensors and their bounds
 at the bf16 rate (``at_lm_shape`` in each kernel's record).
+Then the flash forward at the serve phase's prefill shapes (16 × 128 and
+2 × 999, 32 on 8, D=128, bf16, causal, every key) against its plain
+version, timed beside SDPA's forward and its bound
+(``at_prefill_shapes``), and at the GQA groups of internlm2-20b (48 on 8)
+and yi-9b (32 on 4) with ragged lengths (``at_gqa_groups``).
 
 Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
@@ -87,7 +108,9 @@ on CPU copies (the CNN's first batch; two ViT images at m=16 or P=16). The
 launch counts are reset before each slice and read after it; ``interp_add``'s
 are split by carry rank (the ``ig`` slices broadcast, the ViT IDGI slice
 per step, the LM engine both). The LM engine adds: raw scores exactly 0
-past each request's tokens, and no new miss on replayed traffic.
+past each request's tokens, and no new miss on replayed traffic. Every
+generate path of the serve slice launches the flash forward and no other
+kernel; its decode chunk launches none.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -132,7 +155,7 @@ PROFILE_GROUPS = {
                             "_accum_cot_kernel", "_dots_kernel", "_dots_sum_kernel"),
     "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "solve (the port's)": ("gauss_jordan",),
-    "GEMM (cuBLAS)": ("gemm", "Gemm", "nvjet"),
+    "GEMM (cuBLAS)": ("gemm", "Gemm", "gemv", "nvjet"),
     "casts and copies": ("copy_kernel",),
 }
 
@@ -1479,6 +1502,309 @@ def lm_kernel_phase(records: list) -> None:
           f"SDPA's {sdpa_b + times['flash_fwd']['library_ms']:.4f} ms; {pairs} causal pairs a head")
 
 
+# ------------------------------------------------------------ generation serving
+
+SERVE_TRAFFIC = (16, 128, 64)  # prompts, tokens, new (greedy, then sampled)
+SERVE_LONG = (2, 999, 32)  # prompts, tokens, new: flash's ragged last tile
+SERVE_TEMP, SERVE_SEEDS = 0.8, (1234, 1234, 1235)
+SERVE_CHUNK = 8  # make_decode_chunk steps at the traffic's batch
+SERVE_F32 = (2, 16, 8)  # full depth, f32: prompts, tokens, new
+SERVE_BF16_LAYERS = 4  # the engine phase's depth: bf16 decode against a fresh forward
+SERVE_CPU = (2, 2, 16, 8)  # card vs CPU, f32: layers, prompts, tokens, new
+SERVE_BLOCKED = (2, 8192)  # layers, tokens of one prompt over 4096 (the blocked branch)
+SERVE_3B = (2, 2, 64, 16)  # internlm2-20b and yi-9b: layers, prompts, tokens, new
+LOGIT_TOL_F32 = 1e-4  # of a row's largest |logit|: f32 products summed in another order
+# the flash forward at the prefills' attention shapes (B, S, NQ, NKV, D), every key, and at
+# the GQA groups of internlm2-20b (48 on 8) and yi-9b (32 on 4), ragged
+PREFILL_ATTN = ((16, 128, 32, 8, 128), (2, 999, 32, 8, 128))
+GQA_ATTN = ((4, 256, 48, 8, 128), (4, 256, 32, 4, 128))
+
+
+def _serve_configs():
+    """llama3-8b, internlm2-20b and yi-9b at full width, flash attention."""
+    from repro_torch.configs import ARCHS
+
+    return tuple(replace(ARCHS[n], attn_impl="flash") for n in ("llama3-8b", "internlm2-20b", "yi-9b"))
+
+
+def serve_kernel_phase(records: list) -> None:
+    """The flash forward at the serve phase's prefill shapes (causal, every
+    key, bf16) against its plain version, timed beside its bound at the
+    bf16 rate and one SDPA forward on the same tensors; then at the GQA
+    groups of internlm2-20b and yi-9b with ragged lengths. The flash
+    forward's record gains ``at_prefill_shapes`` and ``at_gqa_groups``."""
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    g = torch.Generator(device=DEV).manual_seed(6)
+    bf, tol = torch.bfloat16, FLASH_TOL[torch.bfloat16]
+    rec = next(r for r in records if r["name"] == "flash_fwd")
+    for shapes, ragged, into in ((PREFILL_ATTN, False, "at_prefill_shapes"),
+                                 (GQA_ATTN, True, "at_gqa_groups")):
+        rec[into] = {}
+        for Bq, S, NQ, NKV, D in shapes:
+            q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, ragged)
+            print(f"flash forward at B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, "
+                  + (f"ragged kvlen {kvlen.tolist()}:" if ragged else "every key:"))
+            o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+            o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
+            _sync()
+            err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
+            err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
+            out = {"max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol}
+            if not ragged:  # timed at the prefills' own shapes
+                ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
+                work = _causal_pairs(S, kvlen) * NQ * D
+                nbytes = 2 * (2 * Bq * NQ * S * D) + 2 * (2 * Bq * NKV * S * D) + 4 * Bq * NQ * S
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * work / BF16_FLOPS
+                out.update(
+                    ms=_cold_ms(lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)),
+                    plain_ms=_cold_ms(lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=True)),
+                    bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations (bf16)",
+                    library_ms=_cold_ms(lambda: tnf.scaled_dot_product_attention(q, ke, ve, is_causal=True)))
+                print(f"  flash_fwd: {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA forward "
+                      f"{out['library_ms']:.4f} ms (its own backend choice, causal, K/V repeated), bound "
+                      f"{out['bound_ms']:.4f} ms ({out['bound_by']}), {out['bound_ms'] / out['ms']:.3f} of it")
+            rec[into][f"B={Bq} S={S} NQ={NQ} NKV={NKV} D={D}"] = out
+
+
+def _row_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float, gate: bool = True) -> float:
+    """Logits (…, V) within ``tol`` of each row's largest |want|; returns the
+    worst ratio of error to that limit."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    ratio = float((d / (tol * want.float().abs().amax(-1))).max())
+    print(f"  {name}: worst |logit err| / ({tol:g} · the row's largest |logit|) = {ratio:.3g}"
+          + ("" if gate else " (printed, not gated)"))
+    if gate and not ratio <= 1:
+        raise AssertionError(f"{name}: logits disagree beyond {tol} of the row maximum")
+    return ratio
+
+
+def _tokens_agree(name: str, got: torch.Tensor, want: torch.Tensor, ref_logits: torch.Tensor,
+                  tol: float) -> None:
+    """Generated ids equal, except where a row first parts at a near tie of
+    the reference logits (top two within 2·tol of the row maximum, which
+    two summation orders may break apart); the row is not compared past
+    that step."""
+    top2 = ref_logits.float().topk(2, dim=-1).values
+    tie = ((top2[..., 0] - top2[..., 1]) <= 2 * tol * ref_logits.float().abs().amax(-1)).cpu()
+    differ = got.cpu().long() != want.cpu().long()
+    first = [int(torch.nonzero(row)[0]) for row in differ if row.any()]
+    rows = [b for b in range(differ.shape[0]) if differ[b].any()]
+    bad = [(b, t) for b, t in zip(rows, first) if not tie[b, t]]
+    print(f"  {name}: {got.numel()} tokens; rows that part at a near tie: {len(rows) - len(bad)}")
+    if bad:
+        raise AssertionError(f"{name}: tokens differ at (row, step) {bad} with no near tie")
+
+
+def _teacher_forced(model, params, prompts: torch.Tensor, toks: torch.Tensor, max_len: int):
+    """Decode logits (B, n, V): the prefill's, then ``decode_step`` fed
+    ``toks[:, :-1]``."""
+    lg, cache = model.prefill(params, {"tokens": prompts}, max_len)
+    out = [lg[:, -1]]
+    for j in range(toks.shape[1] - 1):
+        lg, cache = model.decode_step(params, cache, toks[:, j:j + 1])
+        out.append(lg[:, -1])
+    return torch.stack(out, 1)
+
+
+@torch.no_grad()
+def _fresh(model, params, prompts: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """Logits (B, n, V) of one causal forward over prompt + toks[:, :-1] at
+    the positions that predict each of ``toks``: a fresh forward over each
+    prefix, all at once."""
+    full = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], 1)
+    h = model.hidden_from_embeds(params, model.embed_inputs(params, {"tokens": full}))
+    return model.logits(params, h[:, prompts.shape[1] - 1:])
+
+
+def _layers_of(params: dict, n: int) -> dict:
+    """The first ``n`` layers of a stacked parameter tree, as views."""
+    from repro_torch.models.common import tree_map
+
+    return {**params, "layers": tree_map(lambda _, t: t[:n], params["layers"])}
+
+
+def _prompts(g, cfg, B: int, S: int) -> torch.Tensor:
+    return torch.randint(1, cfg.vocab_size, (B, S), generator=g, device=DEV, dtype=torch.int32)
+
+
+def serve_phase() -> dict:
+    """The port's ``ServeEngine`` on llama3-8b at full width and 32 layers
+    (bf16, flash prefill, weights drawn on the card): greedy, sampled
+    (seeds 1234, 1234, 1235) and long-prompt generation and a decode
+    chunk, with the serve gates, then one greedy generate each on
+    internlm2-20b and yi-9b."""
+    from repro_torch.kernels import common
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import ServeEngine, make_decode_chunk
+
+    cfg, internlm2, yi = _serve_configs()
+    model = Model(cfg)
+    paths_launched = {}
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    _sync()
+    print(f"serve: {cfg.name} at full width and depth, {cfg.num_layers} layers, d={cfg.d_model}, "
+          f"{cfg.num_heads} heads on {cfg.num_kv_heads}, {cfg.compute_dtype} compute, attn_impl "
+          f"{cfg.attn_impl}; {cfg.param_count() / 1e9:.3f}B parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def gen(path, fn, vocab=cfg.vocab_size, kernels=("flash_fwd",)):
+        """Run one generate, check its ids, record its launches."""
+        out, ms, launched = _timed(fn)
+        _need(paths_launched, path, launched, kernels)
+        if out.dtype != torch.int32 or int(out.min()) < 0 or int(out.max()) >= vocab:
+            raise AssertionError(f"{path}: ids not int32 in [0, {vocab})")
+        return out, ms
+
+    g = torch.Generator(device=DEV).manual_seed(5)
+    Bs, S, n_new = SERVE_TRAFFIC
+    prompts = _prompts(g, cfg, Bs, S)
+    batch = {"tokens": prompts}
+    eng = ServeEngine(cfg, params, max_len=S + n_new, device=DEV)
+    eng.generate(batch, 2)  # warm: cuBLAS handles and plans
+    _, prefill_ms = gen("serve prefill (1 token)", lambda: eng.generate(batch, 1))
+    greedy, ms = gen(f"serve greedy {Bs}x{S}+{n_new}", lambda: eng.generate(batch, n_new))
+    print(f"  greedy, {Bs} prompts of {S}, {n_new} new: {ms:.1f} ms; prefill {prefill_ms:.1f} ms, decode "
+          f"{(ms - prefill_ms) / (n_new - 1):.2f} ms a token (B={Bs}), {Bs * n_new / ms * 1e3:.0f} tokens/s")
+    # gate 1: sampling follows the generator's seed
+    sampled = []
+    for seed in SERVE_SEEDS:
+        gs = torch.Generator(device=DEV).manual_seed(seed)
+        out, ms = gen(f"serve sampled T={SERVE_TEMP} seed {seed}",
+                      lambda: eng.generate(batch, n_new, generator=gs, temperature=SERVE_TEMP))
+        sampled.append(out)
+        print(f"  sampled T={SERVE_TEMP}, seed {seed}: {ms:.1f} ms")
+    if not torch.equal(sampled[0], sampled[1]) or torch.equal(sampled[0], sampled[2]):
+        raise AssertionError("gate 1: the same seed must give the same tokens, another seed others")
+    if torch.equal(sampled[0], greedy):
+        raise AssertionError(f"gate 1: sampling at T={SERVE_TEMP} gave the greedy tokens")
+    print(f"  gate 1: seed {SERVE_SEEDS[0]} twice identical, seed {SERVE_SEEDS[2]} differs in "
+          f"{int((sampled[0] != sampled[2]).sum())} of {sampled[0].numel()} tokens; every id in [0, V)")
+    Bl, Sl, nl = SERVE_LONG
+    long_batch = {"tokens": _prompts(g, cfg, Bl, Sl)}
+    eng_long = ServeEngine(cfg, params, max_len=Sl + nl, device=DEV)
+    _, long_prefill_ms = gen("serve prefill long (1 token)", lambda: eng_long.generate(long_batch, 1))
+    _, ms = gen(f"serve greedy {Bl}x{Sl}+{nl}", lambda: eng_long.generate(long_batch, nl))
+    print(f"  greedy, {Bl} prompts of {Sl}, {nl} new: {ms:.1f} ms; prefill {long_prefill_ms:.1f} ms, "
+          f"decode {(ms - long_prefill_ms) / (nl - 1):.2f} ms a token (B={Bl})")
+
+    # the scheduler's decode unit at the traffic's batch launches no kernel of the port
+    chunk = make_decode_chunk(cfg)
+    (_, cache), _, launched = _timed(lambda: model.prefill(params, batch, S + n_new))
+    _need(paths_launched, "serve chunk prefill", launched, ("flash_fwd",))
+    gc = torch.Generator(device=DEV).manual_seed(7)
+    (toks, lps, cache), ms, launched = _timed(lambda: chunk(params, cache, greedy[:, :1], gc, 0.0,
+                                                            SERVE_CHUNK))
+    _need(paths_launched, "serve decode chunk", launched, ())
+    if not torch.equal(toks, greedy[:, 1:1 + SERVE_CHUNK]):
+        raise AssertionError("decode chunk at temperature 0 did not give generate's greedy tokens")
+    if not (bool(torch.isfinite(lps).all()) and bool((lps <= 0).all())):
+        raise AssertionError("decode chunk: log-probabilities not finite or above 0")
+    print(f"  decode chunk of {SERVE_CHUNK} at B={Bs}, T=0: {ms:.1f} ms ({ms / SERVE_CHUNK:.2f} a token), "
+          f"generate's greedy tokens; mean log-prob {float(lps.mean()):.3f}")
+    _profile(f"serve decode chunk ({SERVE_CHUNK} tokens, B={Bs}, T={SERVE_TEMP})",
+             lambda: chunk(params, cache, toks[:, -1:], gc, SERVE_TEMP, SERVE_CHUNK))
+    del cache
+
+    # bf16 at full depth: decode against a fresh forward, printed only
+    _row_close(f"bf16 decode vs fresh forward, {cfg.num_layers} layers, steps 0..{n_new - 1}",
+               _teacher_forced(model, params, prompts, greedy, S + n_new),
+               _fresh(model, params, prompts, greedy), ENGINE_TOL, gate=False)
+
+    # gate 2: f32 at full depth
+    n2, s2, k2 = SERVE_F32
+    cfg32 = replace(cfg, compute_dtype="float32")
+    m32, p2 = Model(cfg32), _prompts(g, cfg, n2, s2)
+    out, _ = gen("serve greedy f32 full depth",
+                 lambda: ServeEngine(cfg32, params, s2 + k2, device=DEV).generate({"tokens": p2}, k2))
+    tf = _teacher_forced(m32, params, p2, out, s2 + k2)
+    fresh = _fresh(m32, params, p2, out)
+    _row_close(f"gate 2: f32 decode vs fresh forward, {cfg.num_layers} layers", tf, fresh, LOGIT_TOL_F32)
+    if not torch.equal(tf.argmax(-1).to(torch.int32), out):
+        raise AssertionError("gate 2: generate's tokens are not the argmax of its decode logits")
+    _tokens_agree("gate 2: tokens vs the fresh forward's argmax", out, fresh.argmax(-1), fresh, LOGIT_TOL_F32)
+
+    # gate 3: bf16 at 4 layers, every step of the traffic
+    cfg4 = replace(cfg, num_layers=SERVE_BF16_LAYERS)
+    m4, params4 = Model(cfg4), _layers_of(params, SERVE_BF16_LAYERS)
+    out, _ = gen(f"serve greedy bf16 {SERVE_BF16_LAYERS} layers",
+                 lambda: ServeEngine(cfg4, params4, S + n_new, device=DEV).generate(batch, n_new))
+    _row_close(f"gate 3: bf16 decode vs fresh forward, {SERVE_BF16_LAYERS} layers, steps 0..{n_new - 1}",
+               _teacher_forced(m4, params4, prompts, out, S + n_new), _fresh(m4, params4, prompts, out),
+               ENGINE_TOL)
+
+    # gate 4: the card against the CPU (f32, TF32 off)
+    nl4, n4, s4, k4 = SERVE_CPU
+    cfg_c = replace(cfg, num_layers=nl4, compute_dtype="float32")
+    m_c, params_c = Model(cfg_c), _layers_of(params, nl4)
+    params_cpu = tree_map(lambda _, t: t.cpu(), params_c)
+    p4 = _prompts(g, cfg, n4, s4)
+    out_g, _ = gen("serve greedy card vs CPU",
+                   lambda: ServeEngine(cfg_c, params_c, s4 + k4, device=DEV).generate({"tokens": p4}, k4))
+    t0 = time.perf_counter()
+    out_c = ServeEngine(cfg_c, params_cpu, s4 + k4, device="cpu").generate({"tokens": p4.cpu()}, k4)
+    tf_c = _teacher_forced(m_c, params_cpu, p4.cpu(), out_c, s4 + k4)
+    print(f"  gate 4: {n4} prompts of {s4}, {k4} new, {nl4} layers at full width, f32; CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    _tokens_agree("gate 4: card vs CPU tokens", out_g, out_c, tf_c, LOGIT_TOL_F32)
+    _row_close("gate 4: card vs CPU decode logits, teacher-forced on the CPU's tokens",
+               _teacher_forced(m_c, params_c, p4, out_c.to(DEV), s4 + k4).cpu(), tf_c, LOGIT_TOL_F32)
+    del params_cpu, tf_c
+
+    # gate 5: the blocked branch (attn_impl "auto", one prompt over 4096 tokens) against flash
+    nl5, s5 = SERVE_BLOCKED
+    params5, p5 = _layers_of(params, nl5), {"tokens": _prompts(g, cfg, 1, s5)}
+    blocked, calls = attention.blocked_attention, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return blocked(*a, **kw)
+
+    attention.blocked_attention = counted
+    try:
+        lg_auto, ms_a, launched = _timed(
+            lambda: Model(replace(cfg, num_layers=nl5, attn_impl="auto")).prefill(params5, p5, s5)[0])
+    finally:
+        attention.blocked_attention = blocked
+    _need(paths_launched, f"serve prefill {s5} auto (blocked)", launched, ())
+    lg_flash, ms_f, launched = _timed(lambda: Model(replace(cfg, num_layers=nl5)).prefill(params5, p5, s5)[0])
+    _need(paths_launched, f"serve prefill {s5} flash", launched, ("flash_fwd",))
+    if len(calls) != nl5:
+        raise AssertionError(f"gate 5: blocked_attention ran {len(calls)} times, not once a layer")
+    print(f"  gate 5: one prompt of {s5} tokens, {nl5} layers: prefill blocked {ms_a:.1f} ms "
+          f"({len(calls)} calls), flash {ms_f:.1f} ms")
+    _row_close("gate 5: blocked vs flash prefill logits (bf16)", lg_auto, lg_flash, ENGINE_TOL)
+    print(f"  peak device memory over the llama3-8b runs: {_peak_gb():.2f} GB")
+    del params, params4, params5, params_c, eng, eng_long
+
+    # item 3b: internlm2-20b and yi-9b at full width, 2 layers
+    nl3, n3, s3, k3 = SERVE_3B
+    for c in (internlm2, yi):
+        c = replace(c, num_layers=nl3)
+        m3 = Model(c)
+        p = lm.init_params(c, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        pr = _prompts(g, c, n3, s3)
+        out, ms = gen(f"serve greedy {c.name}",
+                      lambda: ServeEngine(c, p, s3 + k3, device=DEV).generate({"tokens": pr}, k3),
+                      vocab=c.vocab_size)
+        print(f"  {c.name} ({c.num_heads} heads on {c.num_kv_heads}, d={c.d_model}, {nl3} layers): "
+              f"{n3} prompts of {s3}, {k3} new in {ms:.1f} ms")
+        _row_close(f"{c.name}: bf16 decode vs fresh forward", _teacher_forced(m3, p, pr, out, s3 + k3),
+                   _fresh(m3, p, pr, out), ENGINE_TOL)
+        del p
+    print(f"  peak device memory over the serve phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1518,10 +1844,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_kernel_phase(records)
     print(f"LM-shape kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_kernel_phase(records)
+    print(f"prefill-shape flash phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
-                        ("lm_engine", engine_phase)):
+                        ("lm_engine", engine_phase), ("serve", serve_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -1551,6 +1880,8 @@ def main() -> int:
             raise AssertionError(f"slice {name}: kernels not launched {missing}")
     if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
         raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
+    if slices["serve"]["launches"]["flash_bwd_dq"] or slices["serve"]["launches"]["flash_bwd_dkv"]:
+        raise AssertionError(f"the serve slice launched a backward kernel: {slices['serve']['launches']}")
     fwd_only = {k: n for k, n in slices["vit_fwd"]["launches"].items() if n}
     if set(fwd_only) != {"flash_fwd", "wls_solve"}:
         raise AssertionError(f"the forward-only slice launched {fwd_only}, not only flash_fwd and wls_solve")

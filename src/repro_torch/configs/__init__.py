@@ -1,13 +1,23 @@
 """Config registry of the port.
 
 ``ARCHS`` holds the architectures the port's LM can build: full attention,
-dense SwiGLU FFN, no frontend, not encoder-decoder. Today that is
-llama3-8b; ``repro``'s other nine wait on the modules ``ROADMAP.md`` queues
-(local attention, MoE, SSM, frontends, the encoder).
+dense SwiGLU FFN, no frontend, not encoder-decoder. Those are llama3-8b,
+internlm2-20b and yi-9b, copies of ``repro``'s; ``get_config`` resolves a
+name among them.
 """
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import internlm2_20b, llama3_8b, yi_9b
 from repro_torch.configs.base import ArchConfig, LayerSpec, reduced
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (llama3_8b.CONFIG,)}
+ARCHS: dict[str, ArchConfig] = {
+    c.name: c for c in (internlm2_20b.CONFIG, llama3_8b.CONFIG, yi_9b.CONFIG)
+}
 
-__all__ = ["ARCHS", "ArchConfig", "LayerSpec", "reduced"]
+
+def get_config(name: str) -> ArchConfig:
+    """``repro.configs.get_config`` over the port's ``ARCHS``."""
+    if name in ARCHS:
+        return ARCHS[name]
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+
+
+__all__ = ["ARCHS", "ArchConfig", "LayerSpec", "get_config", "reduced"]

@@ -1,18 +1,18 @@
-"""GQA attention of ``repro.models.attention``: projections, full, dispatch.
+"""GQA attention of ``repro.models.attention``: projections, full, blocked,
+decode, dispatch.
 
 Layouts: q (B, S, NQ, D), k/v (B, S, NKV, D), grouped as NQ = NKV · G;
 projection weights as in ``repro`` (``wq`` (d, NQ, D), ``wo`` (NQ, D, d)).
 
 ``dispatch_attention`` sends ``attn_impl="flash"`` to the port's flash op
-(the CUDA kernels on the card, their plain versions on the CPU) and every
-other full-attention call to ``full_attention``, which ``repro`` computes
-outside any Pallas kernel and so is plain PyTorch here; ``kv_len`` reaches
-the flash op as its ``lengths``. Not ported yet: ``blocked_attention``
-(the same function as ``full_attention`` without the (S, S) scores, which
-``repro`` takes above 4096 tokens unmasked; the engine's buckets end at
-1024), ``local_attention`` and ``decode_attention`` (sliding windows and
-the decode cache), and the costing-mode branch, which has no PyTorch
-meaning.
+(the CUDA kernels on the card, their plain versions on the CPU), an
+unmasked sequence longer than ``BLOCK_THRESHOLD`` to ``blocked_attention``
+(the online-softmax Q-block × K-block loop, never the (S, S) scores) and
+every other call to ``full_attention``. ``decode_attention`` takes one
+query token against the static decode cache. ``repro`` computes all but
+the flash op outside any Pallas kernel, so they are plain PyTorch here.
+``local_attention`` (sliding windows) and the ring cache raise
+``NotImplementedError``; the costing-mode branch has no PyTorch meaning.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import ParamDef
 
 NEG_INF = -1e30
+BLOCK_THRESHOLD = 4096  # longer unmasked sequences take blocked_attention, as in repro
 
 
 def attn_def(cfg) -> dict:
@@ -90,6 +91,81 @@ def full_attention(
     return torch.einsum("bhqk,bkhd->bqhd", a, ve)
 
 
+def blocked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    block_q: int = 1024,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: a loop over Q blocks and, in
+    each, over K blocks with a running (max, sum, acc) in f32; peak memory
+    O(block_q · block_k) a head. Causal K blocks wholly past a Q block are
+    skipped: ``repro``'s scan adds exactly 0 for them (p = 0, correction
+    1), so the values are the same."""
+    B, Sq, NQ, D = q.shape
+    Sk = k.shape[1]
+    bq, bk = min(block_q, Sq), min(block_k, Sk)
+    if Sq % bq or Sk % bk:
+        raise ValueError(f"blocked_attention needs whole blocks: Sq={Sq} by {bq}, Sk={Sk} by {bk}")
+    ke, ve = expand_kv(k, NQ), expand_kv(v, NQ)
+    out = torch.empty_like(q)
+    for q0 in range(0, Sq, bq):
+        qs = q[:, q0:q0 + bq] * (D**-0.5)
+        m = torch.full((B, NQ, bq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, NQ, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, NQ, bq, D), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Sk, bk):
+            if causal and k0 > q0 + bq - 1:
+                break
+            s = torch.einsum("bqhd,bkhd->bhqk", qs, ke[:, k0:k0 + bk]).float()
+            if causal:
+                qpos = q0 + torch.arange(bq, device=q.device)
+                kpos = k0 + torch.arange(bk, device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), ve[:, k0:k0 + bk]).float()
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, q0:q0 + bq] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, NQ, D)
+    k_cache: torch.Tensor,  # (B, Smax, NKV, D)
+    v_cache: torch.Tensor,
+    cache_len,  # int or () tensor: the valid length (the new token's position + 1)
+    *,
+    window: int = 0,
+    ring: bool = False,
+) -> torch.Tensor:
+    """One query token against the static cache: keys at ``idx >=
+    cache_len`` (and, with ``window``, at ``idx < cache_len − window``) are
+    masked. The query heads are grouped over the cache's KV heads, so the
+    cache is read as it lies, never repeated to NQ heads; each score is the
+    same dot product as ``repro``'s expanded einsum. ``ring`` (the local
+    layers' ring buffer) raises ``NotImplementedError``."""
+    if ring:
+        raise NotImplementedError("the ring cache of local layers is not ported yet")
+    B, Smax, NKV, D = k_cache.shape
+    NQ = q.shape[2]
+    qg = (q * (D**-0.5)).reshape(B, NKV, NQ // NKV, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
+    idx = torch.arange(Smax, device=q.device)
+    valid = idx < cache_len
+    if window:
+        valid &= idx >= cache_len - window
+    a = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(q.dtype)
+    return torch.einsum("bhgk,bkhd->bhgd", a, v_cache).reshape(B, 1, NQ, D)
+
+
 def dispatch_attention(
     cfg,
     q: torch.Tensor,
@@ -101,10 +177,13 @@ def dispatch_attention(
     kv_len: Optional[torch.Tensor] = None,  # (B,) ragged valid K lengths
 ) -> torch.Tensor:
     """The attention algorithm for a layer: the flash op when
-    ``cfg.attn_impl == "flash"``, else ``full_attention``."""
+    ``cfg.attn_impl == "flash"``, ``blocked_attention`` above
+    ``BLOCK_THRESHOLD`` tokens with no ``kv_len``, else ``full_attention``."""
     if mixer == "local" and getattr(cfg, "sliding_window", 0):
         raise NotImplementedError("local (sliding-window) attention is not ported yet")
     if getattr(cfg, "attn_impl", "auto") == "flash":
         return flash_attention(q, k, v, causal=causal, lengths=kv_len,
                                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    if q.shape[1] > BLOCK_THRESHOLD and kv_len is None:
+        return blocked_attention(q, k, v, causal=causal)
     return full_attention(q, k, v, causal=causal, kv_len=kv_len)

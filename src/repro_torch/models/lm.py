@@ -9,9 +9,18 @@ maps ``repro``'s tree as it is.
 
 Entry points: ``param_defs`` / ``init_params`` (parameters),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
-differentiates through) and ``logits``. ``repro``'s MoE auxiliary loss is 0
-for these layers and is not returned. Not ported yet: the encoder, the stub
-frontends, the training loss and prefill/decode with their cache.
+differentiates through), ``logits``, and serving: ``init_cache``,
+``prefill`` and ``decode_step``. ``repro``'s MoE auxiliary loss is 0 for
+these layers and is not returned. Not ported yet: the encoder, the stub
+frontends and the training loss.
+
+The decode cache is ``repro``'s tree: ``layers`` (per pattern entry, k and
+v stacked over the periods, (P, B, max_len, NKV, D)), ``rem`` and ``len``,
+the one valid length of the batch. Its tensors are written in place, the
+port's counterpart of ``repro``'s donated cache: no step copies the cache,
+and a cache passed to ``decode_step`` is the one it returns. ``len`` is a
+() int32 tensor on the CPU: the host drives the loop and indexes the cache
+with it, so reading it waits for no device work.
 """
 from __future__ import annotations
 
@@ -28,13 +37,13 @@ from repro_torch.models.layers import embed, embed_def, rmsnorm, rmsnorm_def, un
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this LM cannot build."""
+    """Raise ``NotImplementedError`` for a config this LM cannot build: any
+    layer but (attn, dense), a sliding window, a frontend or an encoder."""
     layers = {(s.mixer, s.ffn) for s in cfg.pattern}
     if layers != {("attn", "dense")} or cfg.frontend or cfg.is_encdec or cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: the port's LM builds full-attention dense layers without frontend "
-            "or encoder only; the other architectures wait on ROADMAP.md queue 1, items 4 "
-            "and 7 (local attention, MoE, SSM, frontends, the encoder)")
+            "or encoder only")
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -83,3 +92,65 @@ def hidden_from_embeds(
 
 def logits(cfg: ArchConfig, params: Any, h: torch.Tensor) -> torch.Tensor:
     return unembed(params["embed"], h, cfg)
+
+
+# ----------------------------------------------------------------- serving
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
+    """The empty decode cache, in the compute dtype, on ``device``."""
+    dt = getattr(torch, cfg.compute_dtype)
+    one = lambda spec: blocks.layer_cache(cfg, spec, batch, max_len, dt, device)
+    stack = lambda _, t: t.new_zeros((cfg.num_periods,) + tuple(t.shape))
+    return {
+        "layers": tuple(tree_map(stack, one(spec)) for spec in cfg.pattern),
+        "rem": tuple(one(spec) for spec in cfg.remainder_specs),
+        "len": torch.zeros((), dtype=torch.int32),
+    }
+
+
+def _layers(cfg: ArchConfig, params: Any, cache: dict):
+    """(spec, layer params, layer cache) in the order the layers run; the
+    cache entries are views into the stacked tensors."""
+    for i in range(cfg.num_periods):
+        for spec, lp, lc in zip(cfg.pattern, params["layers"], cache["layers"]):
+            yield spec, tree_map(lambda _, t: t[i], lp), tree_map(lambda _, t: t[i], lc)
+    yield from zip(cfg.remainder_specs, params["rem"], cache["rem"])
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
+    """Run the prompt, fill a new cache, return the last position's logits
+    (B, 1, V). Raises ``ValueError`` when the prompt is longer than the
+    cache (``repro`` asserts it)."""
+    e = embed_inputs(cfg, params, batch)
+    B, S, _ = e.shape
+    if S > max_len:
+        raise ValueError(f"prefill length {S} exceeds cache max_len {max_len}")
+    pos = torch.arange(S, device=e.device).expand(B, S)
+    cache = init_cache(cfg, B, max_len, device=e.device)
+    x = e
+    for spec, lp, lc in _layers(cfg, params, cache):
+        x, _ = blocks.apply_layer_prefill(cfg, spec, lp, x, lc, positions=pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    cache["len"] = torch.tensor(S, dtype=torch.int32)
+    return logits(cfg, params, x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+    """token (B, 1) -> (logits (B, 1, V), the cache one longer). Raises
+    ``ValueError`` when the cache is full, where ``repro``'s clamped write
+    would overwrite its last slot."""
+    pos = int(cache["len"])
+    max_len = (cache["layers"] or cache["rem"])[0]["k"].shape[-3]
+    if pos >= max_len:
+        raise ValueError(f"decode at position {pos}: the cache holds {max_len} tokens")
+    x = embed(params["embed"], token, cfg, getattr(torch, cfg.compute_dtype))
+    for spec, lp, lc in _layers(cfg, params, cache):
+        x, _ = blocks.apply_layer_decode(cfg, spec, lp, x, lc, pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    new_cache = {"layers": cache["layers"], "rem": cache["rem"],
+                 "len": torch.tensor(pos + 1, dtype=torch.int32)}
+    return logits(cfg, params, x), new_cache

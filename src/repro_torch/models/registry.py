@@ -4,8 +4,9 @@ explain engine serves through.
 ``Model`` binds an ``ArchConfig`` to ``models.lm``; ``VitFacade`` binds a
 ``VitConfig`` to ``models.vit``. Both expose ``target_logprob_at_fn``, the
 bucketed serving output, and an embedding hook (``embed_inputs`` for token
-models, ``embed_features`` for patch models). ``repro``'s dry-run input
-specs, training loss and prefill/decode are not ported here.
+models, ``embed_features`` for patch models); ``Model`` also binds the
+decode cache's ``init_cache``, ``prefill`` and ``decode_step``. ``repro``'s
+dry-run input specs and training loss are not ported here.
 """
 from __future__ import annotations
 
@@ -38,6 +39,15 @@ class Model:
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         return lm.logits(self.cfg, params, h)
+
+    def prefill(self, params, batch: dict, max_len: int):
+        return lm.prefill(self.cfg, params, batch, max_len)
+
+    def decode_step(self, params, cache: dict, token: torch.Tensor):
+        return lm.decode_step(self.cfg, params, cache, token)
+
+    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
+        return lm.init_cache(self.cfg, batch, max_len, device=device)
 
     def target_logprob_fn(self, params, *, target_pos: int = -1):
         """f(embeds, target ids) -> (B,) next-token log-prob at ``target_pos``."""

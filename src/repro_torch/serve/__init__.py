@@ -1,9 +1,16 @@
-"""Explanation serving of the port: ``repro.serve``'s explain engine, its
-bucketing and its compatibility shim. The decode engine, the scheduler,
-the tuner, the result cache and warm state are not ported yet (ROADMAP.md
-queue 1, items 4–5)."""
+"""Serving of the port: ``repro.serve``'s generation engine and its steps,
+the explain engine, its bucketing and its compatibility shim. The
+scheduler, the tuner, the result cache and warm state are not ported yet."""
 from repro_torch.serve.autotune import HotpathConfig, bucket_key
 from repro_torch.serve.batching import BucketBatch, bucket_for, plan_buckets, pow2_ladder
+from repro_torch.serve.engine import (
+    ServeEngine,
+    make_decode_chunk,
+    make_decode_loop,
+    make_prefill_step,
+    make_serve_step,
+    sample_token,
+)
 from repro_torch.serve.explain_engine import (
     AdaptiveBucketRun,
     EngineStats,
@@ -13,6 +20,12 @@ from repro_torch.serve.explain_engine import (
 from repro_torch.serve.explain_service import ExplainService
 
 __all__ = [
+    "ServeEngine",
+    "make_serve_step",
+    "make_prefill_step",
+    "make_decode_loop",
+    "make_decode_chunk",
+    "sample_token",
     "AdaptiveBucketRun",
     "BucketBatch",
     "EngineStats",

@@ -12,8 +12,9 @@ round like the plain version); bf16 one ulp at the values' magnitude
 IDGI's dot products over F 1e-5 relative to the sum of |terms| (another
 summation order over up to 150,528 terms), its accumulation 1e-5 relative
 to the largest |value|; the reduced LM on the card against the CPU (f32,
-TF32 off): log-probs and f(x) 1e-5, engine token scores 1e-4 of a
-request's largest |score| (f32 products summed in another order);
+TF32 off): log-probs, f(x) and decode logits 1e-5, engine token scores
+1e-4 of a request's largest |score| (f32 products summed in another
+order), generated tokens exactly;
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
 order, and one bf16 rounding of each output); the Gauss–Jordan solve 1e-6
@@ -184,7 +185,8 @@ def test_idgi_kernels_match_plain(card, dtype, B, K, F):
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- and 16-row edges
 # (B, S, NQ, NKV, D, causal, ragged): the ViT's attention at a smaller batch,
-# the LMs' causal GQA ragged shape, a long causal GQA key sweep (1024 keys,
+# the LMs' causal GQA ragged shape (and at the end the GQA groups of llama3-8b,
+# internlm2-20b and yi-9b at D = 128), a long causal GQA key sweep (1024 keys,
 # the engine's largest bucket) at D = 128 and the reduced LM's D = 16, one
 # row full and one ragged, and the JAX tests' odd head dims and
 # sequence lengths, one per head-dim bucket of the kernels; then the
@@ -208,6 +210,8 @@ FLASH_SHAPES = [
     (2, 50, 4, 2, 20, True, True),
     (2, 70, 6, 3, 72, False, True),
     (16, 128, 32, 8, 128, True, True),  # the LM engine's attention (llama3-8b heads)
+    (2, 256, 48, 8, 128, True, True),  # internlm2-20b's GQA group (6 query heads a KV head)
+    (2, 256, 32, 4, 128, True, True),  # yi-9b's (8 a KV head)
 ]
 
 
@@ -516,6 +520,36 @@ def test_engine_on_the_card_matches_the_cpu(nvcc_card, kw, kernels):
             assert (g["m_used"], g["hops"]) == (w["m_used"], w["hops"])
         np.testing.assert_allclose(g["token_scores"], w["token_scores"], rtol=0,
                                    atol=1e-4 * np.abs(w["token_scores"]).max())
+
+
+@pytest.mark.cuda
+def test_serve_on_the_card_matches_the_cpu(nvcc_card):
+    """Greedy generation on the reduced LM (f32, TF32 off, flash prefill):
+    the card's tokens are the CPU's, its decode logits teacher-forced on
+    them within 1e-5, and the prefill launches the flash forward only."""
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p_cpu, p_card = _lm_cpu_and_card("flash")
+    tokens = torch.randint(1, cfg.vocab_size, (3, 20), generator=torch.Generator().manual_seed(2))
+    want = ServeEngine(cfg, p_cpu, 28, device="cpu").generate({"tokens": tokens}, 9)
+    common.reset_launches()
+    got = ServeEngine(cfg, p_card, 28, device="cuda").generate({"tokens": tokens}, 9)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    assert common.LAUNCHES["flash_fwd"] == cfg.num_layers
+    assert sum(common.LAUNCHES.values()) == cfg.num_layers
+    model = Model(cfg)
+
+    def forced(params, dev):
+        lg, cache = model.prefill(params, {"tokens": tokens.to(dev)}, 28)
+        steps = [lg]
+        for j in range(8):
+            lg, cache = model.decode_step(params, cache, want[:, j:j + 1].to(dev))
+            steps.append(lg)
+        return torch.cat(steps, 1).cpu()
+
+    torch.testing.assert_close(forced(p_card, "cuda"), forced(p_cpu, "cpu"), atol=1e-5, rtol=0)
 
 
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
