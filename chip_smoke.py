@@ -88,7 +88,29 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      (a row may part only at a near tie); one 8192-token prompt through
      the blocked branch (``attn_impl="auto"``) against flash within 2e-2;
      then internlm2-20b and yi-9b at full width, 2 layers, one greedy
-     generate each held against a fresh forward within 2e-2.
+     generate each held against a fresh forward within 2e-2;
+ 11. mixed serving — ``MixedScheduler(max_len=256, decode_chunk=8)`` over
+     one adaptive ``ig`` ``ExplainEngine`` on phase 9's model (m=64,
+     n_int=4, chunk 16, tol 1e-2, m_max 256, S buckets 32, 64, 128, 512):
+     one round of 8 greedy INTERACTIVE generates of 128 + 32 tokens (4
+     with the donated endpoint), 1 streamed of 64 + 4, 2 BATCH sampled at
+     T=0.8 with seed 1234 and 8 explain-only requests of 17–128 tokens,
+     served cold, warm (no miss, the same bits and tokens) and profiled;
+     per-class p50/p99, walls, decode ms a token beside the same greedy
+     generates alone, the deepest queue and peak memory. Gates: every
+     ticket done, every id in [0, V), scores finite and exactly 0 past each
+     request; the greedy tokens equal ``ServeEngine.generate``'s on the
+     same batch; each donated f(x) within rtol = atol = 2e-2 of the
+     engine's own, and every scheduled attribution ``engine.explain``'s on
+     the same request list bit for bit; hops queued by the requests that
+     climbed are preempted by later generates; one fault round (a
+     transient fault at the first hop, an exhausted one at the first
+     ``exp_start`` bucket, one raised inside a sampled decode chunk's
+     second ``decode_step``) gives the clean bits and tokens but for
+     exactly that bucket's requests, which degrade; then a LIME scheduler
+     (64 masks) whose mask batches decode preempts, its attributions
+     ``lime.explain``'s bit for bit. Prefill items launch the flash
+     forward only, decode items nothing.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -110,7 +132,8 @@ are split by carry rank (the ``ig`` slices broadcast, the ViT IDGI slice
 per step, the LM engine both). The LM engine adds: raw scores exactly 0
 past each request's tokens, and no new miss on replayed traffic. Every
 generate path of the serve slice launches the flash forward and no other
-kernel; its decode chunk launches none.
+kernel; its decode chunk launches none. The mixed slice counts its launches
+by work-item kind as well (prefill, decode, ``exp_start``, hop, ``exp_fwd``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
 kernel: launches on the slices, errors, ms, plain_ms, bound_ms, library_ms);
@@ -1805,6 +1828,358 @@ def serve_phase() -> dict:
             "per_path": paths_launched}
 
 
+# ---------------------------------------------------------------- mixed serving
+
+MIXED_BUCKETS = (32, 64, 128, 512)
+MIXED_MAX_LEN, MIXED_CHUNK = 256, 8  # the scheduler's KV cache and decode chunk
+MIXED_GEN = (8, 128, 32, 4)  # INTERACTIVE greedy: requests, tokens, new; the first 4 explain=True
+MIXED_STREAM = (64, 4)  # one streamed request: tokens, new (attributions over 64–67 tokens)
+MIXED_SAMPLED = (2, 128, 32, 0.8, 1234)  # BATCH sampled: requests, tokens, new, temperature, seed
+MIXED_EXPLAIN = (8, 17, 128)  # explain-only: requests, shortest, longest
+MIXED_LIME = (4, 2, 8)  # the LIME scheduler: explain requests, greedy generates, their new tokens
+
+
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _mixed_traffic(cfg) -> list:
+    """The mixed round: greedy INTERACTIVE generates (some with the donated
+    endpoint), one streamed request, sampled BATCH generates and
+    explain-only requests, in submission order."""
+    import numpy as np
+
+    from repro_torch.serve import BATCH, INTERACTIVE, GenerateRequest
+
+    rng = np.random.default_rng(21)
+    p = lambda n: rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+    n, S, new, n_exp = MIXED_GEN
+    gens = [GenerateRequest(p(S), new, slo=INTERACTIVE, explain=i < n_exp) for i in range(n)]
+    gens.append(GenerateRequest(p(MIXED_STREAM[0]), MIXED_STREAM[1], slo=INTERACTIVE, explain=True,
+                                explain_stream=True))
+    nb, Sb, newb, temp, seed = MIXED_SAMPLED
+    gens += [GenerateRequest(p(Sb), newb, slo=BATCH, temperature=temp, seed=seed) for _ in range(nb)]
+    return gens + _lm_traffic(cfg, (MIXED_EXPLAIN,), seed=3)
+
+
+def _instrument(sched) -> dict:
+    """Record around one scheduler's work items: each item kind's launches,
+    the prefill and decode items' walls and tokens, every explain flush's
+    entries (ticket, pos, request), each delivered result's raw scores and
+    the deepest queue. ``_clear`` empties the record between rounds."""
+    from repro_torch.kernels import common
+
+    rec = {}
+    run_item, flush, deliver, step = sched._run_item, sched._do_exp_flush, sched._deliver, sched.step
+
+    def run_item_(kind, payload, fn):
+        before, t0 = dict(common.LAUNCHES), time.perf_counter()
+        n_tok = min(sched.decode_chunk, payload.remaining) if kind == "decode" else 1
+        out = run_item(kind, payload, fn)
+        wall = time.perf_counter() - t0
+        got = rec["launches"].setdefault(kind, dict.fromkeys(before, 0))
+        for k, n in _launched(before, common.LAUNCHES).items():
+            got[k] += n
+        if kind in ("prefill", "decode"):
+            grp = payload if kind == "prefill" else payload.group
+            rec["walls"].append((kind, grp.prompts.shape[0], wall, n_tok))
+        return out
+
+    def flush_(payload):
+        rec["flushes"].append([(t, pos, r) for t, pos, _, r in sched._pending_exp])
+        flush(payload)
+
+    def deliver_(t, pos, token, r):
+        if "raw_token_scores" in r:
+            rec["raw"][(t.id, pos)] = r["raw_token_scores"]
+        deliver(t, pos, token, r)
+
+    def step_():
+        rec["depth"] = max(rec["depth"], sched.queue_depth)
+        return step()
+
+    sched._run_item, sched._do_exp_flush, sched._deliver, sched.step = run_item_, flush_, deliver_, step_
+    _clear(rec)
+    return rec
+
+
+def _clear(rec: dict) -> None:
+    rec.update(launches={}, walls=[], flushes=[], raw={}, depth=0)
+
+
+def _results_of(t) -> list:
+    """A ticket's explain results as (pos, result): -1 for explain-only."""
+    return [(-1, t.result)] if t.kind == "explain" else [(a["pos"], a) for a in t.attributions]
+
+
+def _mixed_ok(name: str, tickets: list, traffic: list, rec: dict, vocab: int) -> None:
+    """Every ticket done and not degraded; ids in [0, V), as many as asked;
+    one attribution per explained position; finite scores of the request's
+    length, exactly 0 past it."""
+    import numpy as np
+
+    for t, r in zip(tickets, traffic):
+        if t.status != "done" or t.degraded:
+            raise AssertionError(f"{name}: ticket {t.id} ({t.kind}) is {t.status}")
+        if t.kind == "generate":
+            if t.tokens.shape != (r.num_tokens,) or t.tokens.min() < 0 or t.tokens.max() >= vocab:
+                raise AssertionError(f"{name}: ticket {t.id}: tokens {t.tokens} not {r.num_tokens} ids in "
+                                     f"[0, {vocab})")
+            want = list(range(r.num_tokens)) if r.explain_stream else [0] if r.explain else []
+            if [a["pos"] for a in t.attributions] != want:
+                raise AssertionError(f"{name}: ticket {t.id}: attributions at {[a['pos'] for a in t.attributions]}")
+        for pos, res in _results_of(t):
+            n, raw = len(r.tokens) + max(pos, 0), rec["raw"][(t.id, pos)]
+            if not (np.isfinite(raw).all() and np.isfinite([res["delta"], res["f_x"], res["f_baseline"]]).all()):
+                raise AssertionError(f"{name}: ticket {t.id} position {pos}: a non-finite result")
+            if res["token_scores"].shape != (n,) or np.any(raw[n:] != 0.0):
+                raise AssertionError(f"{name}: ticket {t.id} position {pos}: not exactly 0 past its {n} tokens")
+
+
+def _same_bits(name: str, got: list, want: list, skip=frozenset()) -> None:
+    """Tokens and every explain result equal bit for bit, but the (ticket
+    index, pos) entries in ``skip``."""
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.kind == "generate" and not np.array_equal(g.tokens, w.tokens):
+            raise AssertionError(f"{name}: request {i}: tokens {g.tokens} differ from {w.tokens}")
+        for (pos, a), (_, b) in zip(_results_of(g), _results_of(w)):
+            if (i, pos) not in skip and not all(np.array_equal(a[k], b[k]) for k in b):
+                raise AssertionError(f"{name}: request {i} position {pos}: results differ")
+
+
+def _latencies(sched) -> str:
+    return ", ".join(f"{c} p50 {v['p50_s'] * 1e3:.1f} ms p99 {v['p99_s'] * 1e3:.1f} ms (n={v['n']})"
+                     for c, v in sorted(sched.latency_summary().items()))
+
+
+def _decode_ms(rec: dict, B: int) -> float:
+    """Decode wall ms a token of the B-row groups' decode items."""
+    walls = [(w, n) for kind, b, w, n in rec["walls"] if kind == "decode" and b == B]
+    return sum(w for w, _ in walls) * 1e3 / sum(n for _, n in walls)
+
+
+def mixed_phase() -> dict:
+    """The port's ``MixedScheduler`` on llama3-8b at full width (4 layers,
+    flash attention, bf16, weights drawn on the card) over one adaptive
+    ``ig`` engine: a mixed round served cold and warm, against
+    ``ServeEngine.generate`` and ``ExplainEngine.explain``, preemption,
+    injected faults, and a forward-only (LIME) scheduler, with gates."""
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.serve import (
+        INTERACTIVE,
+        ExplainEngine,
+        ExplainRequest,
+        GenerateRequest,
+        MixedScheduler,
+        ServeEngine,
+    )
+
+    cfg = _lm_config()
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    engine = ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=LM_CHUNK,
+                           adaptive=True, tol=TOL, m_max=VIT_M_MAX, seq_buckets=MIXED_BUCKETS,
+                           attn="flash", device=DEV)
+    sched = MixedScheduler(engine, max_len=MIXED_MAX_LEN, decode_chunk=MIXED_CHUNK)
+    rec = _instrument(sched)
+    traffic = _mixed_traffic(cfg)
+    V, riemann = cfg.vocab_size, PATH_KERNELS["riemann"][0] + FLASH
+    print(f"mixed ({_card() if DEV == 'cuda' else DEV}): MixedScheduler(max_len={MIXED_MAX_LEN}, decode_chunk="
+          f"{MIXED_CHUNK}) over ExplainEngine(ig, adaptive, tol={TOL}, m={M}..{VIT_M_MAX}, n_int={N_INT}, chunk="
+          f"{LM_CHUNK}, seq_buckets={MIXED_BUCKETS}) on {cfg.name}, {cfg.num_layers} layers, {cfg.compute_dtype}, "
+          f"flash; a round of {MIXED_GEN[0]} greedy generates of {MIXED_GEN[1]}+{MIXED_GEN[2]} ({MIXED_GEN[3]} "
+          f"explained), 1 streamed of {MIXED_STREAM[0]}+{MIXED_STREAM[1]}, {MIXED_SAMPLED[0]} sampled "
+          f"(T={MIXED_SAMPLED[3]}, seed {MIXED_SAMPLED[4]}) of {MIXED_SAMPLED[1]}+{MIXED_SAMPLED[2]}, "
+          f"{MIXED_EXPLAIN[0]} explain-only of {MIXED_EXPLAIN[1]}–{MIXED_EXPLAIN[2]} tokens")
+    paths_launched = {}
+
+    def serve(s, reqs):
+        tickets = [s.submit(r) for r in reqs]
+        s.run_until_idle()
+        return tickets
+
+    # round 0 builds the callables; the warm replay adds no miss and gives the same bits
+    clean, walls = {}, {}
+    for rnd in ("round 0", "warm"):
+        _clear(rec)
+        sched.latencies = {}
+        misses = engine.stats.misses
+        clean[rnd], walls[rnd], launched = _timed(lambda: serve(sched, traffic))
+        _need(paths_launched, f"mixed {rnd}", launched, riemann)
+        _mixed_ok(f"mixed {rnd}", clean[rnd], traffic, rec, V)
+        print(f"  {rnd}: {walls[rnd]:.1f} ms; misses {engine.stats.misses - misses}, hits {engine.stats.hits}; "
+              f"deepest queue {rec['depth']}, preempted {engine.stats.preempted}, degraded "
+              f"{engine.stats.degraded}; latency {_latencies(sched)}")
+    if engine.stats.misses != misses:
+        raise AssertionError(f"mixed warm: {engine.stats.misses - misses} new misses")
+    _same_bits("mixed warm vs round 0", clean["warm"], clean["round 0"])
+    for kind, names in (("prefill", ("flash_fwd",)), ("decode", ()), ("exp_start", riemann), ("hop", riemann)):
+        _need(paths_launched, f"mixed {kind} items", rec["launches"][kind], names)
+    warm, flushes = clean["warm"], rec["flushes"]
+    decode_mix = _decode_ms(rec, MIXED_GEN[0])
+    ast = engine.stats.adaptive
+    print(f"  warm round: decode {decode_mix:.2f} ms a token at B={MIXED_GEN[0]} (items' walls); adaptive "
+          f"over both rounds: m_used {dict(sorted(ast.m_used.items()))}, hop calls {ast.hop_calls}; "
+          f"decode callables {sorted(k for k in sched.decode_stats)}")
+
+    # gate: the greedy tokens are ServeEngine.generate's on the same batch
+    n_gen, _, new, n_exp = MIXED_GEN
+    prompts = torch.as_tensor(np.stack([r.tokens for r in traffic[:n_gen]]), device=DEV)
+    gen_toks, ms, launched = _timed(lambda: ServeEngine(engine.cfg, engine.params, MIXED_MAX_LEN, device=DEV)
+                                    .generate({"tokens": prompts}, new))
+    _need(paths_launched, "mixed ServeEngine.generate", launched, ("flash_fwd",))
+    if not np.array_equal(gen_toks.cpu().numpy(), np.stack([t.tokens for t in warm[:n_gen]])):
+        raise AssertionError("mixed: the scheduler's greedy tokens are not ServeEngine.generate's")
+    print(f"  gate: the {n_gen} greedy generates' {n_gen * new} tokens equal ServeEngine.generate's "
+          f"({ms:.1f} ms there); the sampled ones equal across rounds")
+
+    # gate: each donated f(x) against the engine's own, and the scheduler's
+    # attributions are engine.explain's on the same request lists, bit for bit
+    donated = [(t, r) for t, r in zip(warm, traffic) if t.kind == "generate" and r.explain]
+    own, _, launched = _timed(lambda: engine.explain([ExplainRequest(r.tokens, int(t.tokens[0]))
+                                                      for t, r in donated]))
+    _need(paths_launched, "mixed engine.explain (own f(x))", launched, riemann)
+    gaps = [abs(t.attributions[0]["f_x"] - o["f_x"]) for (t, _), o in zip(donated, own)]
+    ratio = max(g / (ENGINE_TOL + ENGINE_TOL * abs(o["f_x"])) for g, o in zip(gaps, own))
+    print(f"  donated f(x) vs the engine's own (padded bucket): |gap| {[f'{g:.3g}' for g in gaps]}, worst "
+          f"{ratio:.3g} of rtol = atol = {ENGINE_TOL} (bf16)")
+    if not ratio <= 1:
+        raise AssertionError("mixed: a donated f(x) is beyond 2e-2 of the engine's own")
+    climbed = []
+    for flush in flushes:
+        want, ms, launched = _timed(lambda: engine.explain([r for _, _, r in flush]))
+        _need(paths_launched, "mixed engine.explain (the flush)", launched, riemann)
+        for (t, pos, r), w in zip(flush, want):
+            got = dict(_results_of(t))[pos]
+            if not all(np.array_equal(got[k], w[k]) for k in w):
+                raise AssertionError(f"mixed: ticket {t.id} position {pos} differs from engine.explain")
+            climbed += [r] if w["hops"] else []
+        print(f"  gate: {len(flush)} scheduled attributions equal engine.explain's bit for bit ({ms:.1f} ms "
+              f"there); {len(climbed)} of them climbed the ladder")
+
+    _profile("mixed warm round", lambda: serve(sched, traffic))
+
+    # decode alone: the same greedy generates, nothing else queued
+    _clear(rec)
+    alone = serve(sched, [GenerateRequest(r.tokens, r.num_tokens) for r in traffic[:n_gen]])
+    _same_bits("mixed alone vs mixed", alone, warm[:n_gen])
+    decode_alone = _decode_ms(rec, n_gen)
+    print(f"  decode ms a token at B={n_gen}: {decode_mix:.2f} in the mixed round, {decode_alone:.2f} alone "
+          f"(ratio {decode_mix / decode_alone:.3f})")
+
+    # preemption: the requests that climbed queue their hops, then generates arrive
+    if not climbed:
+        raise AssertionError("mixed: no request climbed the ladder, so no hop can be preempted")
+    pre = MixedScheduler(engine, max_len=MIXED_MAX_LEN, decode_chunk=MIXED_CHUNK)
+    p0 = engine.stats.preempted
+    exp_t = [pre.submit(r) for r in climbed]
+    while not any(k == "hop" for _, _, k, _ in pre._heap):
+        if not pre.step():
+            raise AssertionError("mixed preemption: the ladder converged before a hop was queued")
+    gen_t = [pre.submit(GenerateRequest(r.tokens, MIXED_LIME[2])) for r in traffic[:2]]
+    pre.run_until_idle()
+    if any(t.status != "done" for t in exp_t + gen_t) or engine.stats.preempted == p0:
+        raise AssertionError(f"mixed preemption: statuses {[t.status for t in exp_t + gen_t]}, preempted "
+                             f"{engine.stats.preempted - p0}")
+    print(f"  preemption: {len(gen_t)} generates behind {len(exp_t)} climbing requests' hops: preempted "
+          f"{engine.stats.preempted - p0} items")
+
+    # faults: a transient one at the first hop, an exhausted one at the first
+    # exp_start bucket, one raised inside a sampled decode chunk's second decode_step
+    fired, failed, armed, real_step = [], [], [], lm.decode_step
+
+    def faulty_step(*a, **kw):
+        if armed:
+            armed[0] += 1
+            if armed[0] == 2:
+                armed.clear()
+                fired.append("inside decode")
+                raise RuntimeError("injected fault inside a decode chunk")
+        return real_step(*a, **kw)
+
+    def hook(kind, payload):
+        if kind == "decode" and payload.group.seed is not None and "decode" not in fired:
+            fired.append("decode")
+            armed.append(0)
+        if kind == "hop" and "hop" not in fired:
+            fired.append("hop")
+            raise RuntimeError("injected transient hop fault")
+        if kind == "exp_start":
+            failed.append(payload) if not failed else None
+            if payload is failed[0]:
+                raise RuntimeError("injected exhausted exp_start fault")
+
+    _clear(rec)
+    d0 = engine.stats.degraded
+    sched.fault_hook, lm.decode_step = hook, faulty_step
+    try:
+        faulted, ms, launched = _timed(lambda: serve(sched, traffic))
+    finally:
+        sched.fault_hook, lm.decode_step = None, real_step
+    _need(paths_launched, "mixed faults", launched, riemann)
+    (flush,) = rec["flushes"]  # one flush a round: every decode item outranks it
+    index = {t.id: i for i, t in enumerate(faulted)}
+    lost = {(index[flush[j][0].id], flush[j][1]) for j in failed[0].bb.indices}
+    bad = [i for i, t in enumerate(faulted)
+           if (t.status == "degraded") != any(j == i for j, _ in lost)]
+    if sorted(fired) != ["decode", "hop", "inside decode"] or bad or engine.stats.degraded - d0 != len(lost):
+        raise AssertionError(f"mixed faults: fired {fired}, wrong statuses at {bad}, degraded "
+                             f"{engine.stats.degraded - d0} for {len(lost)} lost")
+    for i, pos in lost:
+        res = dict(_results_of(faulted[i]))[pos]
+        if not res["degraded"] or np.any(res["token_scores"] != 0):
+            raise AssertionError(f"mixed faults: request {i} position {pos} is no zero fallback")
+    _same_bits("mixed faults vs the clean round", faulted, warm, skip=lost)
+    print(f"  faults ({ms:.1f} ms): the transient hop fault retried and the decode chunk's inner fault "
+          f"retried to the clean bits and tokens; the exhausted exp_start bucket {failed[0].bb.bucket} "
+          f"degraded exactly its {len(lost)} requests (degraded counter {engine.stats.degraded - d0})")
+    print(f"  peak device memory over the gradient scheduler: {_peak_gb():.2f} GB")
+    del engine, sched, pre
+
+    # the forward-only scheduler: LIME mask batches wait at the hop rung, decode preempts them
+    n_l, n_gen_l, new_l = MIXED_LIME
+    lime = ExplainEngine(cfg, params, method="lime", n_masks=N_MASKS, chunk=LM_CHUNK,
+                         seq_buckets=MIXED_BUCKETS, attn="flash", device=DEV)
+    sl = MixedScheduler(lime, max_len=MIXED_MAX_LEN, decode_chunk=MIXED_CHUNK)
+    rec_l = _instrument(sl)
+    lime_traffic = _lm_traffic(cfg, ((n_l, MIXED_EXPLAIN[1], MIXED_EXPLAIN[2]),), seed=4) + [
+        GenerateRequest(r.tokens, new_l, slo=INTERACTIVE, explain=i == 0) for i, r in enumerate(traffic[:n_gen_l])]
+
+    def lime_round():
+        ts = [sl.submit(r) for r in lime_traffic[:n_l]]
+        sl.step()  # the explain flush: the mask batches now wait
+        ts += [sl.submit(r) for r in lime_traffic[n_l:]]
+        sl.run_until_idle()
+        return ts
+
+    lt, ms, launched = _timed(lime_round)
+    _need(paths_launched, "mixed lime", launched, ("flash_fwd", "wls_solve"))
+    for kind, names in (("exp_fwd", ("flash_fwd", "wls_solve")), ("prefill", ("flash_fwd",)), ("decode", ())):
+        _need(paths_launched, f"mixed lime {kind} items", rec_l["launches"][kind], names)
+    _mixed_ok("mixed lime", lt, lime_traffic, rec_l, V)
+    if not lime.stats.preempted:
+        raise AssertionError("mixed lime: no decode item preempted a waiting mask batch")
+    for flush in rec_l["flushes"]:  # the donated request's f(x) is dropped: the masks probe both ends
+        for (t, pos, _), w in zip(flush, lime.explain([r for _, _, r in flush])):
+            if not all(np.array_equal(dict(_results_of(t))[pos][k], w[k]) for k in w):
+                raise AssertionError(f"mixed lime: ticket {t.id} position {pos} differs from lime.explain")
+    print(f"  lime scheduler ({N_MASKS} masks, f32 forward): {n_l} explain + {n_gen_l} generate requests in "
+          f"{ms:.1f} ms, every attribution lime.explain's bit for bit; preempted {lime.stats.preempted}, degraded {lime.stats.degraded}; latency "
+          f"{_latencies(sl)}")
+    print(f"  peak device memory over the mixed phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1820,9 +2195,7 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(_card())
     triton, _ = common.import_triton()  # sets the compile cache first
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}")
 
@@ -1850,7 +2223,7 @@ def main() -> int:
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
-                        ("lm_engine", engine_phase), ("serve", serve_phase)):
+                        ("lm_engine", engine_phase), ("serve", serve_phase), ("mixed", mixed_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")

@@ -1,6 +1,8 @@
-"""Serving of the port: ``repro.serve``'s generation engine and its steps,
-the explain engine, its bucketing and its compatibility shim. The
-scheduler, the tuner, the result cache and warm state are not ported yet."""
+"""Serving of the port, as ``repro.serve``: the generation engine and its
+steps, the explain engine, its bucketing and its compatibility shim, and
+``MixedScheduler``, which serves generate and explain traffic from one
+admission-controlled queue. The tuner, the result cache and warm state are
+not ported yet."""
 from repro_torch.serve.autotune import HotpathConfig, bucket_key
 from repro_torch.serve.batching import BucketBatch, bucket_for, plan_buckets, pow2_ladder
 from repro_torch.serve.engine import (
@@ -18,6 +20,16 @@ from repro_torch.serve.explain_engine import (
     ExplainRequest,
 )
 from repro_torch.serve.explain_service import ExplainService
+from repro_torch.serve.scheduler import (
+    BATCH,
+    EXPLAIN,
+    INTERACTIVE,
+    GenerateRequest,
+    MixedScheduler,
+    SLOClass,
+    TenantPolicy,
+    Ticket,
+)
 
 __all__ = [
     "ServeEngine",
@@ -37,4 +49,12 @@ __all__ = [
     "bucket_key",
     "plan_buckets",
     "pow2_ladder",
+    "MixedScheduler",
+    "GenerateRequest",
+    "Ticket",
+    "SLOClass",
+    "TenantPolicy",
+    "INTERACTIVE",
+    "BATCH",
+    "EXPLAIN",
 ]

@@ -31,11 +31,15 @@ are re-batched together and escalated one rung at a time through "hop"
 callables keyed on ``(bucket, n_new, chunk)`` — the new nodes of the
 refined schedule only (``AdaptiveBucketRun``).
 
-Not ported yet (ROADMAP.md queue 1): the device mesh, the autotuner and
-the result cache (item 5) are no constructor parameters here; the model
-fingerprint, request keys, warm state and ``precompile_hop_zero_starts``
-(item 5); ``AdaptiveBucketRun.degrade`` and the scheduler counters (item
-4, the scheduler is its only caller).
+``serve.scheduler.MixedScheduler`` drives the same units as work items:
+``_run_bucket``, ``_run_bucket_fwd`` and ``AdaptiveBucketRun`` (whose
+``degrade`` abandons the ladder after a fault), counted on ``EngineStats``'
+``degraded``, ``preempted`` and ``queue_depth``.
+
+Not ported yet (ROADMAP.md queue 1): the device mesh (item 7), the
+autotuner and the result cache (item 5) are no constructor parameters
+here; the model fingerprint, request keys, warm state and
+``precompile_hop_zero_starts`` wait on item 5.
 """
 from __future__ import annotations
 
@@ -126,8 +130,9 @@ class AdaptiveStats:
 
 @dataclass
 class EngineStats:
-    """Cache counters and per-bucket latency. ``repro``'s mesh, scheduler
-    and result-cache counters belong to modules not ported yet."""
+    """Cache counters, per-bucket latency and the scheduler's counters.
+    ``repro``'s mesh and result-cache counters belong to modules not ported
+    yet."""
 
     hits: int = 0  # callable-cache hits
     misses: int = 0  # callable-cache misses == builds
@@ -135,6 +140,13 @@ class EngineStats:
     # hops do different work per call than plan buckets: their own table
     hop_buckets: dict = field(default_factory=dict)  # (B, S) -> BucketStats
     adaptive: AdaptiveStats = field(default_factory=AdaptiveStats)
+    # serve.scheduler: requests served a fallback result after the fault
+    # policy gave up; prefill or decode items dispatched while a hop or a
+    # forward-only batch waited (preemption); the queue depth at the most
+    # recent dispatch
+    degraded: int = 0
+    preempted: int = 0
+    queue_depth: int = 0
 
     @property
     def hit_rate(self) -> float:
@@ -651,12 +663,17 @@ class AdaptiveBucketRun:
 
       * ``start()`` — rung 0: probe + base schedule + resumable stage 2;
       * while ``active``: ``hop()`` escalates the survivors one rung;
+      * ``degrade()`` — abandon the remaining ladder after a fault: the
+        current rung's results stand, the affected rows are marked
+        ``degraded`` and counted on ``EngineStats.degraded``;
       * ``results()`` — finalize the adaptive stats (once) and return one
         dict per real request in ``bb.indices`` order.
 
     The bucket's inputs and the survivors' schedules and accumulators stay
     on the engine's device; δ, the thresholds and the traces live on the
-    host, where the escalation is decided.
+    host, where the escalation is decided. A unit that raises inside its
+    call leaves the run as it found it (``start`` and ``hop`` advance their
+    state after the call returns), so the scheduler can retry it.
     """
 
     def __init__(self, engine: ExplainEngine, bb: BucketBatch):
@@ -664,6 +681,7 @@ class AdaptiveBucketRun:
         self.bb = bb
         self._started = False
         self._results: Optional[list[dict]] = None
+        self._degraded: set[int] = set()
         self._rung_i = 1  # next ladder index to run (0 is start())
         self.act: list[int] = []
 
@@ -678,7 +696,6 @@ class AdaptiveBucketRun:
     def start(self) -> None:
         eng, bb = self.eng, self.bb
         assert not self._started
-        self._started = True
         self.m0 = eng._hop_zero_m(bb.bucket)
         self._rung_i = eng.m_ladder.index(self.m0) + 1
         self.chunk = eng._explainer_for_m(self.m0).adaptive_chunk
@@ -689,6 +706,7 @@ class AdaptiveBucketRun:
         bs = eng.stats.bucket(bb.bucket)
         fn = eng._executable(key, bs, lambda: eng._start_fn_for(self.m0))
         res, state, sched = eng._timed_call(bs, fn, args)
+        self._started = True
         bs.requests += len(bb.indices)
 
         n_real = len(bb.indices)
@@ -729,7 +747,6 @@ class AdaptiveBucketRun:
         eng, act = self.eng, self.act
         S = self.bb.bucket[1]
         rung = eng.m_ladder[self._rung_i]
-        self._rung_i += 1
         n_new = rung // 2
         refined = family(eng.schedule).refine(Schedule(self.a_act, self.w_act))
         rows, B2 = pad_rows(act, eng.batch_buckets)
@@ -751,6 +768,7 @@ class AdaptiveBucketRun:
         hbs = eng.stats.hop_bucket(hop_bucket)
         fn = eng._executable(hop_key, hbs, lambda: eng._hop_fn_for(self.m0))
         res2, st2 = eng._timed_call(hbs, fn, hop_args)
+        self._rung_i += 1  # only now: a hop that raised is retried at the same rung
         ast = eng.stats.adaptive
         ast.hop_calls += 1
         ast.launched_steps += B2 * n_new
@@ -771,6 +789,17 @@ class AdaptiveBucketRun:
         self.a_act, self.w_act = refined.alphas[k_t], refined.weights[k_t]
         self.acc_act = st2.acc[k_t]
         return self.active
+
+    def degrade(self) -> int:
+        """Abandon the remaining ladder; the current rung's results become
+        the fallback. Returns how many real rows were degraded (each counted
+        on ``EngineStats.degraded``); a second call degrades none."""
+        n = len(self.act)
+        if n:
+            self._degraded.update(self.act)
+            self.eng.stats.degraded += n
+            self.act = []
+        return n
 
     def results(self) -> list[dict]:
         """One result dict per real request (``bb.indices`` order); finalizes
@@ -798,10 +827,12 @@ class AdaptiveBucketRun:
                 "m_used": mu,
                 "hops": int(self.hops[row]),
                 "converged": converged,
+                "degraded": row in self._degraded,
             })
         # hop-zero evidence: only base-rung starts (an elevated start's
-        # m_used is floored at m0, which would ratchet the quantile up)
+        # m_used is floored at m0, which would ratchet the quantile up), and
+        # no degraded row (its ladder stopped by fault, not by δ)
         if self.m0 == eng.m:
-            eng._record_m_used(bb.bucket[1], [r["m_used"] for r in out])
+            eng._record_m_used(bb.bucket[1], [r["m_used"] for r in out if not r["degraded"]])
         self._results = out
         return out

@@ -552,6 +552,48 @@ def test_serve_on_the_card_matches_the_cpu(nvcc_card):
     torch.testing.assert_close(forced(p_card, "cuda"), forced(p_cpu, "cpu"), atol=1e-5, rtol=0)
 
 
+@pytest.mark.cuda
+def test_mixed_scheduler_on_the_card(nvcc_card):
+    """One mixed round on the reduced LM (f32, TF32 off, flash, adaptive):
+    the scheduler's greedy tokens are ``ServeEngine.generate``'s on the
+    same batch, and every attribution (donated, streamed, explain-only) is
+    finite and exactly 0 past its request's tokens."""
+    import numpy as np
+
+    from repro_torch.serve import ExplainEngine, ExplainRequest, GenerateRequest, MixedScheduler, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, p_card = _lm_cpu_and_card("flash")
+    eng = ExplainEngine(cfg, p_card, m=8, n_int=4, seq_buckets=(8, 16, 32), adaptive=True, tol=1e-3,
+                        m_max=32, device="cuda")
+    sched = MixedScheduler(eng, max_len=32, decode_chunk=4)
+    raw, deliver = {}, sched._deliver
+
+    def capture(t, pos, token, r):  # the padded row of each result, before delivery drops it
+        raw[(t.id, pos)] = r.get("raw_token_scores")
+        deliver(t, pos, token, r)
+
+    sched._deliver = capture
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab_size, (4, 12)).astype(np.int32)
+    reqs = [GenerateRequest(p, 9, explain=i < 2, explain_stream=i == 0) for i, p in enumerate(prompts)]
+    reqs += [ExplainRequest(rng.integers(1, cfg.vocab_size, s).astype(np.int32), 5) for s in (9, 20)]
+    common.reset_launches()
+    tickets = [sched.submit(r) for r in reqs]
+    sched.run_until_idle()
+    assert [t.status for t in tickets] == ["done"] * len(reqs)
+    assert all(common.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq", "interpolate", "ig_accum"))
+    want = ServeEngine(eng.cfg, p_card, 32, device="cuda").generate({"tokens": torch.from_numpy(prompts)}, 9)
+    np.testing.assert_array_equal(np.stack([t.tokens for t in tickets[:4]]), want.cpu().numpy())
+    assert [len(t.attributions) for t in tickets[:4]] == [9, 1, 0, 0]
+    for t, r in zip(tickets, reqs):
+        results = [(-1, t.result)] if t.kind == "explain" else [(a["pos"], a) for a in t.attributions]
+        for pos, res in results:
+            n, row = len(r.tokens) + max(pos, 0), raw[(t.id, pos)]
+            assert res["token_scores"].shape == (n,) and np.isfinite(row).all()
+            assert np.all(row[n:] == 0.0) and np.array_equal(row[:n], res["token_scores"])
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
     the flash op and the solve op run on CPU tensors, no library is loaded,
