@@ -110,7 +110,36 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      exactly that bucket's requests, which degrade; then a LIME scheduler
      (64 masks) whose mask batches decode preempts, its attributions
      ``lime.explain``'s bit for bit. Prefill items launch the flash
-     forward only, decode items nothing.
+     forward only, decode items nothing;
+ 12. gemma3-27b generation — ``ServeEngine`` at full width and window
+     (d=5376, 32 heads on 16, SwiGLU 21504, vocabulary 262,144 tied, w=1024),
+     cut to 32 of 62 layers (5 periods of 5 local + 1 global, then the (L, L)
+     remainder; bf16, flash for the global layers, weights drawn on the
+     card): greedy groups A (2 × 1000 + 48: prefill below w, the rings wrap
+     in decode), B (2 × 2000 + 48: the rolled prefill) and C (2 × 4096 + 32:
+     the blocked local path); A's and B's decode logits teacher-forced
+     against a fresh forward within 2e-2 of the row's largest |logit|, their
+     tokens that forward's argmax but at near ties; C's prefill and decode
+     timed and a decode chunk after it profiled; the card against the CPU on
+     a narrow gemma3 (reduced widths, 8 layers, w=64, 2 prompts of 256 + 80
+     new, f32) within 1e-4, tokens equal;
+ 13. gemma3-27b explanations — ``ExplainEngine`` at full width, 8 layers
+     (one period and the (L, L) remainder), chunk 4, S buckets the defaults
+     and 2048, over 7 seeded requests (4 of 17–128 tokens, 2 of 300–512, 1
+     of 1100–2000), ``ig`` unfused and fused at m=64, each served twice (no
+     miss on the replay, the same bits); fused against unfused within
+     rtol = atol = 2e-2; one warm round profiled; the card against the CPU
+     on a narrow gemma3 (w=8, buckets 16 and 32 > 2w, m=8, f32);
+ 14. gemma3-27b mixed serving — ``MixedScheduler(max_len=1048,
+     decode_chunk=8)`` over an ``ig`` engine on phase 13's model: 2 greedy
+     generates of 1000 + 48 and 2 explain-only requests, the tokens
+     ``ServeEngine.generate``'s and the attributions ``engine.explain``'s
+     bit for bit; then the round again with a fault raised inside
+     ``decode_step`` at the third step of the chunk from position 1024 (its
+     first two steps overwrote ring slots the retried steps attend to): the
+     retry gives the clean tokens and bits, every decode step's logits
+     and the final cache bit for bit, and nothing degrades; a control
+     round with the rings' snapshot saving nothing must not match.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -121,7 +150,14 @@ Then the flash forward at the serve phase's prefill shapes (16 × 128 and
 2 × 999, 32 on 8, D=128, bf16, causal, every key) against its plain
 version, timed beside SDPA's forward and its bound
 (``at_prefill_shapes``), and at the GQA groups of internlm2-20b (48 on 8)
-and yi-9b (32 on 4) with ragged lengths (``at_gqa_groups``).
+and yi-9b (32 on 4) with ragged lengths (``at_gqa_groups``). Then at gemma3-27b's shapes: the flash forward at group
+C's prefill attention (2 × 4096, 32 on 16, D=128, bf16, causal) against its
+plain version, timed beside SDPA's forward and its bound
+(``at_gemma_prefill``); the trio at the engine's 2048 bucket (4 rows, ragged)
+beside SDPA (``at_gemma_explain``); ``local_attention``'s blocked path at
+2 × 4096 against the masked ``full_attention(window=1024)``, both timed; and
+the four stage-2 kernels of ``ig`` at that bucket's (1, 4, 2048·5376) in
+bf16 against their plain versions beside their bounds (``at_gemma_explain``).
 
 Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
@@ -131,8 +167,9 @@ launch counts are reset before each slice and read after it; ``interp_add``'s
 are split by carry rank (the ``ig`` slices broadcast, the ViT IDGI slice
 per step, the LM engine both). The LM engine adds: raw scores exactly 0
 past each request's tokens, and no new miss on replayed traffic. Every
-generate path of the serve slice launches the flash forward and no other
-kernel; its decode chunk launches none. The mixed slice counts its launches
+generate path of the serve slices launches the flash forward and no other
+kernel; their decode chunks launch none; the gemma3 engine slice launches
+the flash trio and the four kernels of ``ig`` unfused and fused. The mixed slice counts its launches
 by work-item kind as well (prefill, decode, ``exp_start``, hop, ``exp_fwd``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
@@ -681,6 +718,7 @@ def _profile(name: str, fn) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     _sync()
+    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -695,7 +733,8 @@ def _profile(name: str, fn) -> None:
     groups = {g: sum(v for k, v in kernels.items() if any(n in k for n in names))
               for g, names in PROFILE_GROUPS.items()}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    print(f"  profile {name}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+    print(f"  profile {name}: wall {wall_us / 1e3:.2f} ms (the trace taken and read in "
+          f"{time.perf_counter() - t_all:.1f} s), device busy {busy / 1e3:.2f} ms "
           f"({busy / wall_us:.3f}), "
           + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / busy:.3f} of busy)" for g, v in groups.items())
           + f", other {(busy - sum(groups.values())) / 1e3:.3f} ms, {len(kernels)} kernel names; top: "
@@ -1381,17 +1420,23 @@ def lm_kernel_phase(records: list) -> None:
     against their plain versions, timed beside their bounds and (flash)
     SDPA on the same bf16 tensors; each kernel's record gains
     ``at_lm_shape``."""
-    import torch.nn.functional as tnf
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = torch.Generator(device=DEV).manual_seed(4)
+    by_name = {r["name"]: r for r in records}
+    _stage2_timed(g, LM_STAGE2, by_name, "at_lm_shape", "the LM engine's stage-2 shape (S=128 · d=4096)")
+    _flash_trio_timed(g, LM_ATTN_SHAPE, by_name, "at_lm_shape", "the LM engine's attention")
 
+
+def _stage2_timed(g, shape, by_name: dict, into: str, what: str, labels=None) -> None:
+    """The stage-2 kernels (both classes, interp_add with both carry ranks;
+    only those in ``labels`` if given) at ``shape`` (B, K, F) in bf16 against
+    their plain versions on the same tensors, timed beside their bounds and
+    library calls; each kernel's record in ``by_name`` gains ``into``."""
     from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
     from repro_torch.kernels.interp_accum import kernel as k_ia, ref as r_ia
     from repro_torch.kernels.ig_accum import kernel as k_acc, ref as r_acc
     from repro_torch.kernels.interpolate import kernel as k_int, ref as r_int
 
-    g = torch.Generator(device=DEV).manual_seed(4)
-    Bs, Ks, Fs = LM_STAGE2
+    Bs, Ks, Fs = shape
     bf = torch.bfloat16
     x, b = (torch.randn(Bs, Fs, generator=g, device=DEV).to(bf) for _ in range(2))
     a = torch.rand(Bs, Ks, generator=g, device=DEV)
@@ -1430,24 +1475,39 @@ def lm_kernel_phase(records: list) -> None:
              tol=TOL_BF16 * 8, nbytes=2 * 2 * n + 4 * nk + 4 * n * Ks + 2 * n * Ks, flops=n + 3 * n * Ks),
     ]
     keys = ("max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    by_name = {r["name"]: r for r in records}
     sms = common.sm_count(torch.device(DEV))
-    print(f"kernels at the LM engine's stage-2 shape B={Bs} K={Ks} F={Fs} (S=128 · d=4096) bf16; "
-          f"idgi_dots' plan {common.dots_plan(Bs, Ks, Fs, bf, sms)} (F split in "
-          f"{common.dots_plan(Bs, Ks, Fs, bf, sms).split}):")
+    plan = common.dots_plan(Bs, Ks, Fs, bf, sms)
+    print(f"kernels at {what} B={Bs} K={Ks} F={Fs} bf16"
+          + (f"; idgi_dots' plan {plan} (F split in {plan.split})" if labels is None or "idgi_dots" in labels
+             else "") + ":")
     for s in specs:
-        rec = _measure(dict(s, source="", replaces=""))
         label = s.get("label", s["name"])
-        into = by_name[s["name"]]
+        if labels is not None and label not in labels:
+            continue
+        rec = _measure(dict(s, source="", replaces=""))
+        rec_of = by_name[s["name"]]
         if label != s["name"]:
-            into = into["per_step_carry"]
-        into["at_lm_shape"] = {k: rec[k] for k in keys}
+            rec_of = rec_of["per_step_carry"]
+        rec_of[into] = {k: rec[k] for k in keys}
         print(f"  {label}: {rec['ms']:.5f} ms, bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
               f"{rec['bound_ms'] / rec['ms']:.3f} of it; plain {rec['plain_ms']:.5f}"
               + (f", library {rec['library_ms']:.5f}" if rec["library_ms"] is not None else ""))
     del x, b, acc, carry, grads, steps, diff
 
-    Bq, S, NQ, NKV, D = LM_ATTN_SHAPE
+
+def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str) -> None:
+    """The flash trio at ``shape`` (B, S, NQ, NKV, D) in bf16, causal, with
+    ragged lengths in (S/2, S], against their plain versions at 3e-2, timed
+    beside their bounds at the bf16 rate and SDPA on the same tensors (K/V
+    repeated to the query heads, the causal ragged mask as a boolean mask);
+    each kernel's record in ``by_name`` gains ``into``."""
+    import torch.nn.functional as tnf
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    bf = torch.bfloat16
+    Bq, S, NQ, NKV, D = shape
     q, k, v, do, _ = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
     kvlen = torch.randint(S // 2 + 1, S + 1, (Bq,), generator=g, device=DEV, dtype=torch.int32)
     tol = FLASH_TOL[bf]
@@ -1455,8 +1515,8 @@ def lm_kernel_phase(records: list) -> None:
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, do, lse_ref, delta, kvlen)
     dk_ref, dv_ref = fr.flash_bwd_dkv_ref(*args, causal=True)
-    print(f"flash kernels at the LM engine's attention B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, "
-          "causal, ragged kvlen:")
+    print(f"flash kernels at {what} B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, ragged "
+          f"kvlen in [{int(kvlen.min())}, {int(kvlen.max())}]:")
     o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
     dk, dv = fk.flash_bwd_dkv_cuda(*args, causal=True)
     errs = {"flash_fwd": max(_flash_close("flash_fwd o", o, o_ref, tol)[0],
@@ -1482,7 +1542,7 @@ def lm_kernel_phase(records: list) -> None:
         except RuntimeError as e:
             print(f"  SDPA backend {backend.name} refused: {str(e).splitlines()[0][:120]}")
     else:
-        raise AssertionError(f"no SDPA backend of {[b.name for b in backends]} takes the LM's bf16 "
+        raise AssertionError(f"no SDPA backend of {[b.name for b in backends]} takes {what}'s bf16 "
                              "inputs with a boolean mask, forward and backward")
 
     def sdpa_fwd():
@@ -1513,7 +1573,7 @@ def lm_kernel_phase(records: list) -> None:
                "plain_ms": _cold_ms(s["plain"]), "bound_ms": max(t_bytes, t_ops) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations (bf16)",
                "library_ms": _cold_ms(s["library"])}
-        by_name[s["name"]]["at_lm_shape"] = rec
+        by_name[s["name"]][into] = rec
         times[s["name"]] = rec
         print(f"  {s['name']}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA "
               f"{rec['library_ms']:.4f} ms ({'forward' if s['name'] == 'flash_fwd' else 'backward'}), "
@@ -1952,6 +2012,12 @@ def _same_bits(name: str, got: list, want: list, skip=frozenset()) -> None:
                 raise AssertionError(f"{name}: request {i} position {pos}: results differ")
 
 
+def _same_decode(got: tuple, want: tuple) -> bool:
+    """Two rounds' (decode logits by position, final cache leaves) equal bit
+    for bit."""
+    return all(len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w)) for g, w in zip(got, want))
+
+
 def _latencies(sched) -> str:
     return ", ".join(f"{c} p50 {v['p50_s'] * 1e3:.1f} ms p99 {v['p99_s'] * 1e3:.1f} ms (n={v['n']})"
                      for c, v in sorted(sched.latency_summary().items()))
@@ -2180,6 +2246,448 @@ def mixed_phase() -> dict:
             "per_path": paths_launched}
 
 
+# ------------------------------------------------------------------ gemma3-27b
+
+# depth cuts keep the 6k + 2 form: k periods of 5 local + 1 global, then the (L, L) remainder
+GEMMA_SERVE_LAYERS = 32  # 5 periods + (L, L): 14.6B parameters, 58.5 GB of f32 weights
+GEMMA_ENGINE_LAYERS = 8  # 1 period + (L, L): 18.9 GB
+# greedy groups (name, prompts, tokens, new): A prefills below w and wraps in decode, B rolls
+# its prefill (shift 2000 mod 1024 = 976), C takes the blocked local path (4 blocks of w)
+GEMMA_GROUPS = (("A", 2, 1000, 48), ("B", 2, 2000, 48), ("C", 2, 4096, 32))
+GEMMA_GATED = 2048  # groups whose prompt + new fit here are gated against a fresh forward
+GEMMA_CPU = (8, 128, 2, 256, 80)  # card vs CPU, f32, reduced widths: layers, seq (w = seq/2), prompts, tokens, new
+GEMMA_PREFILL_ATTN = (2, 4096, 32, 16, 128)  # group C's global attention (B, S, NQ, NKV, D)
+# (requests, shortest, longest); one request in the 2048 bucket, where 8 rows (2 requests at
+# chunk 4) pass 80 GB and 4 rows peak at 65 GB
+GEMMA_TRAFFIC = ((4, 17, 128), (2, 300, 512), (1, 1100, 2000))
+GEMMA_CHUNK = 4  # engine steps a forward: rows = B · chunk
+GEMMA_EXPLAIN_ATTN = (GEMMA_CHUNK, 2048, 32, 16, 128)  # the 2048 bucket's attention (B=1)
+GEMMA_STAGE2 = (1, GEMMA_CHUNK, 2048 * 5376)  # the 2048 bucket's stage-2 shape: B, chunk, S·d (bf16)
+GEMMA_STAGE2_KERNELS = ("interpolate", "ig_accum", "interp_add", "accum_cot")  # ig unfused and fused
+GEMMA_ENGINE_CPU = (8, 16, (11, 30), 8)  # card vs CPU: layers, seq (w=8), prompt lengths, m
+GEMMA_MIXED = (2, 1000, 48, 8, 2)  # generates: requests, tokens, new; decode chunk; explain-only requests
+GEMMA_FAULT_STEP = 3  # the fault rises at this decode_step of the first chunk from position ≥ w
+
+
+def _free_card() -> None:
+    """Free what earlier phases left in reference cycles (an instrumented
+    scheduler's closures hold it, its engine and that engine's weights),
+    then the allocator's cached blocks."""
+    import gc
+
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _gemma_config(layers: int):
+    """gemma3-27b at full width and window, ``layers`` deep, flash attention
+    for its global layers."""
+    from repro_torch.configs import ARCHS
+
+    return replace(ARCHS["gemma3-27b"], num_layers=layers, attn_impl="flash")
+
+
+def _gemma_narrow(layers: int, seq: int):
+    """gemma3-27b at ``reduced`` widths (window seq/2), ``layers`` deep, f32."""
+    from repro_torch.configs import ARCHS, reduced
+
+    return replace(reduced(ARCHS["gemma3-27b"], seq=seq), num_layers=layers, compute_dtype="float32",
+                   attn_impl="flash")
+
+
+def gemma_kernel_phase(records: list) -> None:
+    """The flash forward at group C's prefill attention (2 × 4096, 32 query
+    heads on 16, D=128, bf16, causal, every key) against its plain version,
+    timed beside its bound and SDPA's forward; the trio at the engine's 2048
+    bucket (B·chunk rows, ragged); and ``local_attention``'s blocked path
+    at 2 × 4096 against the masked ``full_attention(window=1024)`` on the
+    same bf16 tensors; then the stage-2 kernels of ``ig`` (unfused and
+    fused, ``interp_add`` with its broadcast carry) at the 2048 bucket's
+    shape against their plain versions. The flash records gain
+    ``at_gemma_prefill`` and ``at_gemma_explain``, the stage-2 ones
+    ``at_gemma_explain``."""
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.models.attention import full_attention, local_attention
+
+    g = torch.Generator(device=DEV).manual_seed(9)
+    bf, tol = torch.bfloat16, FLASH_TOL[torch.bfloat16]
+    by_name = {r["name"]: r for r in records}
+    Bq, S, NQ, NKV, D = GEMMA_PREFILL_ATTN
+    q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
+    print(f"flash forward at gemma3-27b's prefill attention B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, "
+          "causal, every key:")
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
+    _sync()
+    err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
+    err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
+    del o, lse, o_ref, lse_ref
+    ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
+    work = _causal_pairs(S, kvlen) * NQ * D
+    nbytes = 2 * (2 * Bq * NQ * S * D) + 2 * (2 * Bq * NKV * S * D) + 4 * Bq * NQ * S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * work / BF16_FLOPS
+    rec = {"max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol,
+           "ms": _cold_ms(lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)),
+           "plain_ms": _cold_ms(lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=True)),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations (bf16)",
+           "library_ms": _cold_ms(lambda: tnf.scaled_dot_product_attention(q, ke, ve, is_causal=True))}
+    by_name["flash_fwd"]["at_gemma_prefill"] = rec
+    print(f"  flash_fwd: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA forward "
+          f"{rec['library_ms']:.4f} ms (its own backend choice, causal, K/V repeated), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.3f} of it")
+    del ke, ve
+
+    # the local layers' attention (plain PyTorch on the card, as in repro): blocked vs masked
+    w = _gemma_config(GEMMA_ENGINE_LAYERS).sliding_window
+    ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))  # the model's (B, S, H, D) layout
+    got = local_attention(ql, kl, vl, window=w)
+    want = full_attention(ql, kl, vl, causal=True, window=w)
+    _sync()
+    _flash_close(f"local_attention blocked (S={S} > 2w, w={w}) vs full_attention(window={w}), bf16",
+                 got, want, tol)
+    print(f"  local_attention: blocked {_cold_ms(lambda: local_attention(ql, kl, vl, window=w)):.4f} ms, "
+          f"masked full {_cold_ms(lambda: full_attention(ql, kl, vl, causal=True, window=w)):.4f} ms "
+          "(plain PyTorch, no kernel of the port)")
+    del q, k, v, ql, kl, vl, got, want
+    _flash_trio_timed(g, GEMMA_EXPLAIN_ATTN, by_name, "at_gemma_explain",
+                      "gemma3-27b's 2048-token explain bucket")
+    _stage2_timed(g, GEMMA_STAGE2, by_name, "at_gemma_explain",
+                  "gemma3-27b's 2048-token explain bucket (S=2048 · d=5376)", labels=GEMMA_STAGE2_KERNELS)
+
+
+def gemma_serve_phase() -> dict:
+    """``ServeEngine`` on gemma3-27b at full width and window, 32 layers
+    (bf16, flash prefill for the global layers, weights drawn on the card):
+    greedy groups A, B, C, gates against a fresh forward, a profiled decode
+    chunk after C, then the card against the CPU on a narrow gemma3."""
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import ServeEngine, make_decode_chunk
+
+    _free_card()
+    cfg = _gemma_config(GEMMA_SERVE_LAYERS)
+    model = Model(cfg)
+    paths_launched = {}
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    _sync()
+    print(f"gemma serve ({_card() if DEV == 'cuda' else DEV}): {cfg.name} at full width, {cfg.num_layers} "
+          f"layers of 62 ({cfg.num_periods} periods of {''.join(s.mixer[0].upper() for s in cfg.pattern)} + "
+          f"{''.join(s.mixer[0].upper() for s in cfg.remainder_specs)}), d={cfg.d_model}, {cfg.num_heads} heads "
+          f"on {cfg.num_kv_heads}, window {cfg.sliding_window}, vocabulary {cfg.vocab_size} tied, "
+          f"{cfg.compute_dtype} compute, attn_impl {cfg.attn_impl} (global layers); "
+          f"{cfg.param_count() / 1e9:.3f}B parameters drawn on the card in {time.perf_counter() - t0:.3f} s")
+
+    def gen(path, fn, vocab=cfg.vocab_size, kernels=("flash_fwd",)):
+        out, ms, launched = _timed(fn)
+        _need(paths_launched, path, launched, kernels)
+        if out.dtype != torch.int32 or int(out.min()) < 0 or int(out.max()) >= vocab:
+            raise AssertionError(f"{path}: ids not int32 in [0, {vocab})")
+        return out, ms
+
+    g = torch.Generator(device=DEV).manual_seed(8)
+    for name, Bg, S, new in GEMMA_GROUPS:
+        prompts = _prompts(g, cfg, Bg, S)
+        batch = {"tokens": prompts}
+        eng = ServeEngine(cfg, params, max_len=S + new, device=DEV)
+        gen(f"gemma serve warm {name}", lambda: eng.generate(batch, 1))  # cuBLAS plans at these shapes
+        _, prefill_ms = gen(f"gemma serve prefill {name} (1 token)", lambda: eng.generate(batch, 1))
+        out, ms = gen(f"gemma serve greedy {name} {Bg}x{S}+{new}", lambda: eng.generate(batch, new))
+        print(f"  group {name}: {Bg} prompts of {S}, {new} new: {ms:.1f} ms; prefill {prefill_ms:.1f} ms, "
+              f"decode {(ms - prefill_ms) / (new - 1):.2f} ms a token (B={Bg}), "
+              f"{Bg * new / ms * 1e3:.1f} tokens/s; the last position {S + new - 2} is "
+              f"{(S + new - 2) // cfg.sliding_window} windows in")
+        if S + new <= GEMMA_GATED:
+            tf = _teacher_forced(model, params, prompts, out, S + new)
+            fresh = _fresh(model, params, prompts, out)
+            _row_close(f"group {name}: bf16 decode vs fresh forward, steps 0..{new - 1}", tf, fresh, ENGINE_TOL)
+            if not torch.equal(tf.argmax(-1).to(torch.int32), out):
+                raise AssertionError(f"group {name}: generate's tokens are not the argmax of its decode logits")
+            _tokens_agree(f"group {name}: tokens vs the fresh forward's argmax", out, fresh.argmax(-1), fresh,
+                          ENGINE_TOL)
+            del tf, fresh
+        else:  # timed: a decode chunk after the prefill, then one profiled
+            chunk = make_decode_chunk(cfg)
+            (_, cache), _, launched = _timed(lambda: model.prefill(params, batch, S + new))
+            _need(paths_launched, f"gemma serve chunk prefill {name}", launched, ("flash_fwd",))
+            gc = torch.Generator(device=DEV).manual_seed(7)
+            (toks, _, cache), cms, launched = _timed(lambda: chunk(params, cache, out[:, :1], gc, 0.0, SERVE_CHUNK))
+            _need(paths_launched, f"gemma serve decode chunk {name}", launched, ())
+            if not torch.equal(toks, out[:, 1:1 + SERVE_CHUNK]):
+                raise AssertionError(f"group {name}: the decode chunk at T=0 did not give generate's tokens")
+            print(f"  group {name}: decode chunk of {SERVE_CHUNK} at B={Bg}: {cms:.1f} ms "
+                  f"({cms / SERVE_CHUNK:.2f} a token), generate's greedy tokens")
+            _profile(f"gemma decode chunk ({SERVE_CHUNK} tokens after {S}, B={Bg})",
+                     lambda: chunk(params, cache, toks[:, -1:], gc, 0.0, SERVE_CHUNK))
+            del cache
+        del eng
+    print(f"  peak device memory over the {cfg.num_layers}-layer runs: {_peak_gb():.2f} GB")
+    del params
+
+    # the card against the CPU on a narrow gemma3: f32, TF32 off, a prompt past 2w, decode wrapping
+    nl, seq, n_p, S, new = GEMMA_CPU
+    cfg_n = _gemma_narrow(nl, seq)
+    m_n = Model(cfg_n)
+    p_card = lm.init_params(cfg_n, torch.Generator(device=DEV).manual_seed(1), device=DEV)
+    p_cpu = tree_map(lambda _, t: t.cpu(), p_card)
+    prompts = _prompts(g, cfg_n, n_p, S)
+    out_g, _ = gen("gemma serve card vs CPU",
+                   lambda: ServeEngine(cfg_n, p_card, S + new, device=DEV).generate({"tokens": prompts}, new),
+                   vocab=cfg_n.vocab_size)
+    t0 = time.perf_counter()
+    out_c = ServeEngine(cfg_n, p_cpu, S + new, device="cpu").generate({"tokens": prompts.cpu()}, new)
+    tf_c = _teacher_forced(m_n, p_cpu, prompts.cpu(), out_c, S + new)
+    print(f"  card vs CPU: narrow gemma3 (d={cfg_n.d_model}, {cfg_n.num_heads} heads on {cfg_n.num_kv_heads}, "
+          f"window {cfg_n.sliding_window}, {nl} layers), {n_p} prompts of {S}, {new} new, f32; CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    _tokens_agree("gemma card vs CPU tokens", out_g, out_c, tf_c, LOGIT_TOL_F32)
+    _row_close("gemma card vs CPU decode logits, teacher-forced on the CPU's tokens",
+               _teacher_forced(m_n, p_card, prompts, out_c.to(DEV), S + new).cpu(), tf_c, LOGIT_TOL_F32)
+    print(f"  peak device memory over the gemma serve phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
+def gemma_engine_phase() -> dict:
+    """``ExplainEngine`` on gemma3-27b at full width, 8 layers (bf16, flash
+    for the global layer, weights drawn on the card) over 7 seeded requests
+    up to the 2048 bucket, where the window masks inside the gradient path:
+    ``ig`` unfused and fused, each served twice, with gates."""
+    import numpy as np
+
+    from repro_torch.core import probes
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ExplainEngine, ExplainRequest
+    from repro_torch.serve.batching import DEFAULT_SEQ_BUCKETS, plan_buckets
+
+    _free_card()
+    cfg = _gemma_config(GEMMA_ENGINE_LAYERS)
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    buckets = DEFAULT_SEQ_BUCKETS + (2048,)
+    reqs = _lm_traffic(cfg, GEMMA_TRAFFIC, seed=5)
+    kw = dict(method="ig", schedule="paper", m=M, n_int=N_INT, chunk=GEMMA_CHUNK, attn="flash",
+              seq_buckets=buckets, device=DEV)
+    engines = {"ig unfused": ExplainEngine(cfg, params, **kw),
+               "ig fused": ExplainEngine(cfg, params, fused=True, **kw)}
+    kernels = {"ig unfused": PATH_KERNELS["riemann"][0] + FLASH, "ig fused": PATH_KERNELS["riemann"][1] + FLASH}
+    plan = plan_buckets(reqs, seq_buckets=buckets)
+    print(f"gemma engine: {cfg.name} at full width, {cfg.num_layers} layers (1 period + "
+          f"{''.join(s.mixer[0].upper() for s in cfg.remainder_specs)}), window {cfg.sliding_window}, "
+          f"{cfg.compute_dtype}; {cfg.param_count() / 1e9:.3f}B parameters; {len(reqs)} requests of "
+          f"{sorted(len(r.tokens) for r in reqs)} tokens in buckets (B×S) "
+          f"{[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan]}; m={M}, n_int={N_INT}, chunk={GEMMA_CHUNK}")
+    paths_launched, outs = {}, {}
+    for name, eng in engines.items():
+        out, ms0, launched = _timed(lambda: eng.explain(reqs, return_raw=True))
+        _need(paths_launched, f"gemma engine {name}", launched, kernels[name])
+        _served_ok(f"gemma {name}", out, reqs)
+        misses, before = eng.stats.misses, {b: (s.total_s, s.calls) for b, s in eng.stats.buckets.items()}
+        again, ms, launched = _timed(lambda: eng.explain(reqs, return_raw=True))
+        _need(paths_launched, f"gemma engine {name} replay", launched, kernels[name])
+        if eng.stats.misses != misses:
+            raise AssertionError(f"gemma engine {name} replay: {eng.stats.misses - misses} new misses")
+        for i, (a, b) in enumerate(zip(again, out)):
+            if not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"gemma engine {name} replay: request {i} not bit-identical")
+        outs[name] = out
+        per_bucket = ", ".join(
+            f"{b[0]}x{b[1]} {(st.total_s - before[b][0]) * 1e3 / (st.calls - before[b][1]):.1f}"
+            for b, st in sorted(eng.stats.buckets.items(), key=lambda kv: kv[0][1]))
+        print(f"  {name}: {ms:.1f} ms for {len(reqs)} requests warm ({ms0:.1f} ms in round 0); replay "
+              f"bit-identical, no new miss (misses {misses}, hits {eng.stats.hits}); warm ms per bucket call "
+              f"(B×S): {per_bucket}; mean δ {np.mean([r['delta'] for r in out]):.4g}")
+    print(f"  peak device memory over the paths: {_peak_gb():.2f} GB")
+    _scores_close("gemma ig fused vs unfused", outs["ig fused"], outs["ig unfused"])
+    _profile("gemma engine ig unfused (warm)", lambda: engines["ig unfused"].explain(reqs))
+    del engines, params
+
+    # the card against the CPU on a narrow gemma3: f32, TF32 off, the 32 bucket above 2w
+    nl, seq, lens, m_cpu = GEMMA_ENGINE_CPU
+    cfg_n = _gemma_narrow(nl, seq)
+    p_card = lm.init_params(cfg_n, torch.Generator(device=DEV).manual_seed(1), device=DEV)
+    p_cpu = tree_map(lambda _, t: t.cpu(), p_card)
+    rng = np.random.default_rng(2)
+    short = [ExplainRequest(rng.integers(1, cfg_n.vocab_size, s).astype("int32"),
+                            int(rng.integers(0, cfg_n.vocab_size))) for s in lens]
+    kw_n = dict(method="ig", schedule="paper", m=m_cpu, n_int=N_INT, attn="flash", seq_buckets=(16, 32))
+    eng_g = ExplainEngine(cfg_n, p_card, device=DEV, **kw_n)
+    eng_c = ExplainEngine(cfg_n, p_cpu, device="cpu", **kw_n)
+    res_g, _, launched = _timed(lambda: eng_g.explain(short))
+    _need(paths_launched, "gemma engine card vs CPU", launched, kernels["ig unfused"])
+    t0 = time.perf_counter()
+    res_c = eng_c.explain(short)
+    cpu_s = time.perf_counter() - t0
+    tied = []
+    for bb in plan_buckets(short, seq_buckets=(16, 32)):
+        vals = [probes.run_probe("boundary", e._explainer.f, *a[:3], n_int=N_INT, mask=a[3]).vals.cpu()
+                for e in (eng_g, eng_c) for a in (e._bucket_inputs(bb),)]
+        rows = (_near_tie_rows(vals[0], m_cpu) | _near_tie_rows(vals[1], m_cpu))[: len(bb.indices)]
+        tied += [i for i, t in zip(bb.indices, rows.tolist()) if t]
+    print(f"  card vs CPU: narrow gemma3 (window {cfg_n.sliding_window}, {nl} layers), prompts of {list(lens)} "
+          f"tokens in buckets 16 and 32, m={m_cpu}, f32 (CPU {cpu_s:.1f} s); near-tie requests {tied}, f(x) gap "
+          f"{max(abs(a['f_x'] - b['f_x']) for a, b in zip(res_g, res_c)):.3g}")
+    for i, (a, b) in enumerate(zip(res_g, res_c)):
+        if i not in tied:
+            _attr_close(f"gemma card vs CPU token scores, request {i}", torch.from_numpy(a["token_scores"])[None],
+                        torch.from_numpy(b["token_scores"])[None])
+    print(f"  peak device memory over the gemma engine phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
+def gemma_mixed_phase() -> dict:
+    """``MixedScheduler(decode_chunk=8)`` over an ``ig`` engine on the
+    8-layer gemma3-27b: 2 greedy generates of 1000 + 48 (decode wraps the
+    rings at position 1024) and 2 explain-only requests, a clean round, then
+    the round with a fault raised inside ``decode_step`` at the third step of
+    the first chunk from position 1024; the retry must give the clean
+    tokens and bits, every decode step's logits and the final cache bit for
+    bit, and nothing degrades. A control round with the rings' snapshot
+    saving nothing must fail that comparison."""
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.models import blocks, lm
+    from repro_torch.serve import ExplainEngine, GenerateRequest, MixedScheduler, ServeEngine
+    from repro_torch.serve.batching import DEFAULT_SEQ_BUCKETS
+
+    _free_card()
+    cfg = _gemma_config(GEMMA_ENGINE_LAYERS)
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    engine = ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=GEMMA_CHUNK,
+                           seq_buckets=DEFAULT_SEQ_BUCKETS + (2048,), attn="flash", device=DEV)
+    n_gen, S, new, dchunk, n_exp = GEMMA_MIXED
+    max_len = S + new
+    sched = MixedScheduler(engine, max_len=max_len, decode_chunk=dchunk)
+    rec = _instrument(sched)
+    rng = np.random.default_rng(22)
+    traffic = [GenerateRequest(rng.integers(1, cfg.vocab_size, S).astype(np.int32), new)
+               for _ in range(n_gen)] + _lm_traffic(cfg, ((n_exp, 17, 128),), seed=6)
+    V, riemann = cfg.vocab_size, PATH_KERNELS["riemann"][0] + FLASH
+    print(f"gemma mixed: MixedScheduler(max_len={max_len}, decode_chunk={dchunk}) over ExplainEngine(ig, m={M}, "
+          f"chunk={GEMMA_CHUNK}) on {cfg.name}, {cfg.num_layers} layers, {cfg.compute_dtype}; {n_gen} greedy "
+          f"generates of {S}+{new} (decode wraps the {cfg.sliding_window}-slot rings), {n_exp} explain-only")
+    paths_launched = {}
+
+    def serve(reqs):
+        tickets = [sched.submit(r) for r in reqs]
+        sched.run_until_idle()
+        return tickets
+
+    # every decode step's logits by position (a retried step replaces its
+    # first attempt's) and the cache the last step returned
+    real_step, seen = lm.decode_step, {"logits": {}, "cache": None}
+
+    def recording(*a, **kw):
+        out = real_step(*a, **kw)
+        seen["logits"][int(a[2]["len"])], seen["cache"] = out
+        return out
+
+    def _decoded():
+        lg = [seen["logits"][p] for p in sorted(seen["logits"])]
+        leaves = [t for e in seen["cache"]["layers"] + seen["cache"]["rem"] for t in (e["k"], e["v"])]
+        seen.update(logits={}, cache=None)
+        return lg, leaves
+
+    _clear(rec)
+    lm.decode_step = recording
+    try:
+        clean, ms, launched = _timed(lambda: serve(traffic))
+    finally:
+        lm.decode_step = real_step
+    decoded = _decoded()
+    _need(paths_launched, "gemma mixed round", launched, riemann)
+    _mixed_ok("gemma mixed round", clean, traffic, rec, V)
+    for kind, names in (("prefill", ("flash_fwd",)), ("decode", ()), ("exp_fixed", riemann)):
+        _need(paths_launched, f"gemma mixed {kind} items", rec["launches"][kind], names)
+    print(f"  clean round: {ms:.1f} ms; decode {_decode_ms(rec, n_gen):.2f} ms a token at B={n_gen} (items' "
+          f"walls); latency {_latencies(sched)}")
+    prompts = torch.as_tensor(np.stack([r.tokens for r in traffic[:n_gen]]), device=DEV)
+    want, gms, launched = _timed(lambda: ServeEngine(cfg, params, max_len, device=DEV)
+                                 .generate({"tokens": prompts}, new))
+    _need(paths_launched, "gemma mixed ServeEngine.generate", launched, ("flash_fwd",))
+    if not np.array_equal(want.cpu().numpy(), np.stack([t.tokens for t in clean[:n_gen]])):
+        raise AssertionError("gemma mixed: the scheduler's greedy tokens are not ServeEngine.generate's")
+    for flush in rec["flushes"]:
+        for (t, pos, _), w in zip(flush, engine.explain([r for _, _, r in flush])):
+            if not all(np.array_equal(dict(_results_of(t))[pos][k], w[k]) for k in w):
+                raise AssertionError(f"gemma mixed: ticket {t.id} differs from engine.explain")
+    print(f"  gate: the {n_gen * new} greedy tokens equal ServeEngine.generate's ({gms:.1f} ms there); the "
+          f"attributions engine.explain's bit for bit")
+
+    # a fault inside decode_step at the third step of the first chunk from position ≥ w:
+    # its first two steps overwrote ring slots that the retried steps attend to
+    def faulted_round(name: str):
+        """The round with the fault; returns its tickets and decode record."""
+        fired, armed = [], []
+
+        def faulty_step(*a, **kw):
+            if armed:
+                armed[0] += 1
+                if armed[0] == GEMMA_FAULT_STEP:
+                    armed.clear()
+                    fired.append(int(a[2]["len"]))
+                    raise RuntimeError("injected fault inside a decode chunk past the ring's wrap")
+            return recording(*a, **kw)
+
+        def hook(kind, payload):
+            if kind == "decode" and not fired and not armed and int(payload.cache["len"]) >= cfg.sliding_window:
+                armed.append(0)
+
+        _clear(rec)
+        d0 = engine.stats.degraded
+        sched.fault_hook, lm.decode_step = hook, faulty_step
+        try:
+            tickets, ms, launched = _timed(lambda: serve(traffic))
+        finally:
+            sched.fault_hook, lm.decode_step = None, real_step
+        _need(paths_launched, name, launched, riemann)
+        if not fired or engine.stats.degraded != d0:
+            raise AssertionError(f"{name}: fired at {fired}, degraded {engine.stats.degraded - d0}")
+        _mixed_ok(name, tickets, traffic, rec, V)
+        return tickets, _decoded(), ms, fired[0]
+
+    faulted, got, ms, at = faulted_round("gemma mixed faults")
+    _same_bits("gemma mixed faults vs the clean round", faulted, clean)
+    if not _same_decode(got, decoded):
+        raise AssertionError("gemma mixed faults: the retried round's decode logits or cache are not the clean "
+                             "round's bit for bit")
+    print(f"  fault round ({ms:.1f} ms): the fault at decode position {at} (ring slot "
+          f"{at % cfg.sliding_window}, step {GEMMA_FAULT_STEP} of its chunk) retried to the clean "
+          f"tokens and bits, and to its {len(decoded[0])} steps' logits and every cache leaf bit for bit; "
+          "nothing degraded")
+    # the gate's power on the card: the same fault with the rings' snapshot saving nothing
+    real_snapshot = blocks.decode_snapshot
+    blocks.decode_snapshot = lambda *a, **kw: lambda: None
+    try:
+        unsaved, got, ms, at = faulted_round("gemma mixed faults, rings unsaved")
+    finally:
+        blocks.decode_snapshot = real_snapshot
+    if _same_decode(got, decoded):
+        raise AssertionError("gemma mixed faults: with the rings unsaved the retry still gave the clean "
+                             "round's logits and cache, so the gate above cannot fail")
+    differ = sum(not np.array_equal(a.tokens, b.tokens) for a, b in zip(unsaved[:n_gen], clean[:n_gen]))
+    print(f"  control ({ms:.1f} ms): the same fault with the rings unsaved gives other logits and cache "
+          f"({differ} of {n_gen} generates' tokens differ), so the gate above can fail")
+    print(f"  peak device memory over the gemma mixed phase: {_peak_gb():.2f} GB")
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2220,10 +2728,15 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_kernel_phase(records)
     print(f"prefill-shape flash phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma_kernel_phase(records)
+    print(f"gemma3-shape kernel phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
-                        ("lm_engine", engine_phase), ("serve", serve_phase), ("mixed", mixed_phase)):
+                        ("lm_engine", engine_phase), ("serve", serve_phase), ("mixed", mixed_phase),
+                        ("gemma_serve", gemma_serve_phase), ("gemma_engine", gemma_engine_phase),
+                        ("gemma_mixed", gemma_mixed_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -2241,7 +2754,7 @@ def main() -> int:
         if sum(out["carry_ranks"].values()) != out["launches"]["interp_add"]:
             raise AssertionError(f"slice {name}: interp_add's carry ranks {out['carry_ranks']} do not add "
                                  f"up to its {out['launches']['interp_add']} launches")
-    for name, rank in (("cnn", 3), ("vit", 3), ("vit_idgi", 2)):
+    for name, rank in (("cnn", 3), ("vit", 3), ("vit_idgi", 2), ("gemma_engine", 3)):
         if slices[name]["carry_ranks"][rank]:
             raise AssertionError(f"slice {name} launched interp_add with a rank-{rank} carry: "
                                  f"{slices[name]['carry_ranks']}")
@@ -2253,8 +2766,13 @@ def main() -> int:
             raise AssertionError(f"slice {name}: kernels not launched {missing}")
     if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
         raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
-    if slices["serve"]["launches"]["flash_bwd_dq"] or slices["serve"]["launches"]["flash_bwd_dkv"]:
-        raise AssertionError(f"the serve slice launched a backward kernel: {slices['serve']['launches']}")
+    for name in ("serve", "gemma_serve"):
+        if slices[name]["launches"]["flash_bwd_dq"] or slices[name]["launches"]["flash_bwd_dkv"]:
+            raise AssertionError(f"the {name} slice launched a backward kernel: {slices[name]['launches']}")
+    missing = [k for k in FLASH + PATH_KERNELS["riemann"][0] + PATH_KERNELS["riemann"][1]
+               if not slices["gemma_engine"]["launches"][k]]
+    if missing:
+        raise AssertionError(f"the gemma engine slice did not launch {missing}")
     fwd_only = {k: n for k, n in slices["vit_fwd"]["launches"].items() if n}
     if set(fwd_only) != {"flash_fwd", "wls_solve"}:
         raise AssertionError(f"the forward-only slice launched {fwd_only}, not only flash_fwd and wls_solve")

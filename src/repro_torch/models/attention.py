@@ -1,18 +1,22 @@
 """GQA attention of ``repro.models.attention``: projections, full, blocked,
-decode, dispatch.
+sliding-window, decode, dispatch.
 
 Layouts: q (B, S, NQ, D), k/v (B, S, NKV, D), grouped as NQ = NKV · G;
 projection weights as in ``repro`` (``wq`` (d, NQ, D), ``wo`` (NQ, D, d)).
 
-``dispatch_attention`` sends ``attn_impl="flash"`` to the port's flash op
-(the CUDA kernels on the card, their plain versions on the CPU), an
-unmasked sequence longer than ``BLOCK_THRESHOLD`` to ``blocked_attention``
-(the online-softmax Q-block × K-block loop, never the (S, S) scores) and
-every other call to ``full_attention``. ``decode_attention`` takes one
-query token against the static decode cache. ``repro`` computes all but
-the flash op outside any Pallas kernel, so they are plain PyTorch here.
-``local_attention`` (sliding windows) and the ring cache raise
-``NotImplementedError``; the costing-mode branch has no PyTorch meaning.
+``dispatch_attention`` sends a local layer of a sliding-window config to
+``local_attention`` whatever ``attn_impl`` says (``repro``'s order), then
+``attn_impl="flash"`` to the port's flash op (the CUDA kernels on the card,
+their plain versions on the CPU), an unmasked sequence longer than
+``BLOCK_THRESHOLD`` to ``blocked_attention`` (the online-softmax Q-block ×
+K-block loop, never the (S, S) scores) and every other call to
+``full_attention``. ``local_attention`` masks the full scores up to 2w
+tokens and above that attends each w-block to itself and the block before
+it. ``decode_attention`` takes one query token against the static decode
+cache, or with ``ring`` against a local layer's ring of w slots (slot =
+position mod w). ``repro`` computes all but the flash op outside any
+Pallas kernel, so they are plain PyTorch here, on the card too; the
+costing-mode branch has no PyTorch meaning.
 """
 from __future__ import annotations
 
@@ -70,20 +74,26 @@ def full_attention(
     v: torch.Tensor,
     *,
     causal: bool = True,
+    q_offset: int = 0,
+    window: int = 0,
     kv_len: Optional[torch.Tensor] = None,  # (B,) valid K lengths (ragged batch)
 ) -> torch.Tensor:
     """Reference attention; materializes the (Sq, Sk) scores in f32 and
-    softmaxes them, probabilities cast to q.dtype. Rows with no valid key
-    softmax over the NEG_INF floor (uniform), as in ``repro``."""
+    softmaxes them, probabilities cast to q.dtype. Query i sits at
+    position ``q_offset + i``; with ``window`` a key more than ``window − 1``
+    positions behind its query is masked. Rows with no valid key softmax
+    over the NEG_INF floor (uniform), as in ``repro``."""
     Sq, NQ, D = q.shape[1], q.shape[2], q.shape[3]
     Sk = k.shape[1]
     ke, ve = expand_kv(k, NQ), expand_kv(v, NQ)
     s = torch.einsum("bqhd,bkhd->bhqk", q * (D**-0.5), ke).float()
-    qpos = torch.arange(Sq, device=q.device)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= qpos[:, None] >= kpos[None, :]
+    if window:
+        mask &= qpos[:, None] - kpos[None, :] < window
     mask = mask[None, None]
     if kv_len is not None:  # per-row ragged mask: (B, 1, Sq, Sk)
         mask = mask & (kpos[None, :] < kv_len.reshape(-1, 1))[:, None, None, :]
@@ -137,6 +147,39 @@ def blocked_attention(
     return out
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int
+                    ) -> torch.Tensor:
+    """Causal sliding-window attention. Up to 2w tokens it is
+    ``full_attention`` with the window mask. Above, each w-block of queries
+    attends to the 2w keys of the block before it and its own, under a band
+    mask (causal and within the window; the first block's zero "previous"
+    block is masked by key position ≥ 0): O(S · 2w) scores, never (S, S).
+    Raises ``ValueError`` above 2w tokens unless S is a multiple of w
+    (``repro`` asserts it; nothing is padded)."""
+    B, S, NQ, D = q.shape
+    w = window
+    if S <= 2 * w:
+        return full_attention(q, k, v, causal=True, window=w)
+    if S % w:
+        raise ValueError(f"local_attention over {S} > 2w tokens needs S a multiple of the "
+                         f"window w={w}")
+    nb = S // w
+
+    def ext(x):  # (B, S, H, D) -> (B, nb, 2w, NQ, D): [previous block | own block]
+        xb = expand_kv(x, NQ).reshape(B, nb, w, NQ, D)
+        return torch.cat([torch.cat([torch.zeros_like(xb[:, :1]), xb[:, :-1]], 1), xb], 2)
+
+    ke, ve = ext(k), ext(v)
+    s = torch.einsum("bnqhd,bnkhd->bnhqk", q.reshape(B, nb, w, NQ, D) * (D**-0.5), ke).float()
+    qpos = torch.arange(w, device=q.device)[:, None]
+    kpos = torch.arange(2 * w, device=q.device)[None, :] - w  # relative to the block's start
+    band = (qpos >= kpos) & (qpos - kpos < w)
+    first = torch.arange(nb, device=q.device) == 0
+    mask = band[None] & ~(first[:, None, None] & (kpos < 0)[None])  # (nb, w, 2w)
+    a = torch.softmax(torch.where(mask[None, :, None], s, NEG_INF), dim=-1).to(q.dtype)
+    return torch.einsum("bnhqk,bnkhd->bnqhd", a, ve).reshape(B, S, NQ, D)
+
+
 def decode_attention(
     q: torch.Tensor,  # (B, 1, NQ, D)
     k_cache: torch.Tensor,  # (B, Smax, NKV, D)
@@ -148,20 +191,22 @@ def decode_attention(
 ) -> torch.Tensor:
     """One query token against the static cache: keys at ``idx >=
     cache_len`` (and, with ``window``, at ``idx < cache_len − window``) are
-    masked. The query heads are grouped over the cache's KV heads, so the
-    cache is read as it lies, never repeated to NQ heads; each score is the
-    same dot product as ``repro``'s expanded einsum. ``ring`` (the local
-    layers' ring buffer) raises ``NotImplementedError``."""
-    if ring:
-        raise NotImplementedError("the ring cache of local layers is not ported yet")
+    masked. With ``ring`` the cache is a local layer's ring (slot = position
+    mod Smax): every slot below min(cache_len, Smax) is valid, the whole
+    ring once it has wrapped. The query heads are grouped over the cache's
+    KV heads, so the cache is read as it lies, never repeated to NQ heads;
+    each score is the same dot product as ``repro``'s expanded einsum."""
     B, Smax, NKV, D = k_cache.shape
     NQ = q.shape[2]
     qg = (q * (D**-0.5)).reshape(B, NKV, NQ // NKV, D)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float()
     idx = torch.arange(Smax, device=q.device)
-    valid = idx < cache_len
-    if window:
-        valid &= idx >= cache_len - window
+    if ring:
+        valid = idx < min(int(cache_len), Smax)
+    else:
+        valid = idx < cache_len
+        if window:
+            valid &= idx >= cache_len - window
     a = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(q.dtype)
     return torch.einsum("bhgk,bkhd->bhgd", a, v_cache).reshape(B, 1, NQ, D)
 
@@ -176,11 +221,14 @@ def dispatch_attention(
     causal: bool,
     kv_len: Optional[torch.Tensor] = None,  # (B,) ragged valid K lengths
 ) -> torch.Tensor:
-    """The attention algorithm for a layer: the flash op when
-    ``cfg.attn_impl == "flash"``, ``blocked_attention`` above
-    ``BLOCK_THRESHOLD`` tokens with no ``kv_len``, else ``full_attention``."""
+    """The attention algorithm for a layer: ``local_attention`` for a local
+    layer of a sliding-window config (``attn_impl`` and ``kv_len`` aside, as
+    in ``repro``: right padding is exact for the real rows under the causal
+    mask), the flash op when ``cfg.attn_impl == "flash"``,
+    ``blocked_attention`` above ``BLOCK_THRESHOLD`` tokens with no
+    ``kv_len``, else ``full_attention``."""
     if mixer == "local" and getattr(cfg, "sliding_window", 0):
-        raise NotImplementedError("local (sliding-window) attention is not ported yet")
+        return local_attention(q, k, v, window=cfg.sliding_window)
     if getattr(cfg, "attn_impl", "auto") == "flash":
         return flash_attention(q, k, v, causal=causal, lengths=kv_len,
                                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)

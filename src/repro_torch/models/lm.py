@@ -1,4 +1,6 @@
-"""The language model of ``repro.models.lm``, for the dense llama-style LMs.
+"""The language model of ``repro.models.lm``, for the dense LMs: the
+llama-style stacks of full-attention layers, and gemma3's pattern of
+sliding-window (local) layers between full-attention ones.
 
 Parameters keep ``repro``'s tree: ``embed`` (``embedding`` (V, d), and
 ``unembed`` (d, V) unless tied), ``final_norm``, ``layers`` — a tuple over
@@ -10,13 +12,15 @@ maps ``repro``'s tree as it is.
 Entry points: ``param_defs`` / ``init_params`` (parameters),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
 differentiates through), ``logits``, and serving: ``init_cache``,
-``prefill`` and ``decode_step``. ``repro``'s MoE auxiliary loss is 0 for
+``prefill``, ``decode_step`` and ``decode_snapshot`` (what a retried
+decode chunk restores). ``repro``'s MoE auxiliary loss is 0 for
 these layers and is not returned. Not ported yet: the encoder, the stub
 frontends and the training loss.
 
 The decode cache is ``repro``'s tree: ``layers`` (per pattern entry, k and
-v stacked over the periods, (P, B, max_len, NKV, D)), ``rem`` and ``len``,
-the one valid length of the batch. Its tensors are written in place, the
+v stacked over the periods, (P, B, slots, NKV, D): ``max_len`` slots for a
+full-attention layer, a ring of min(w, max_len) for a local one), ``rem``
+and ``len``, the one valid length of the batch. Its tensors are written in place, the
 port's counterpart of ``repro``'s donated cache: no step copies the cache,
 and a cache passed to ``decode_step`` is the one it returns. ``len`` is a
 () int32 tensor on the CPU: the host drives the loop and indexes the cache
@@ -24,7 +28,7 @@ with it, so reading it waits for no device work.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -38,12 +42,13 @@ from repro_torch.models.layers import embed, embed_def, rmsnorm, rmsnorm_def, un
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a config this LM cannot build: any
-    layer but (attn, dense), a sliding window, a frontend or an encoder."""
-    layers = {(s.mixer, s.ffn) for s in cfg.pattern}
-    if layers != {("attn", "dense")} or cfg.frontend or cfg.is_encdec or cfg.sliding_window:
+    layer but (attn, dense) and, with a sliding window, (local, dense); a
+    frontend or an encoder."""
+    allowed = {("attn", "dense")} | ({("local", "dense")} if cfg.sliding_window else set())
+    if not {(s.mixer, s.ffn) for s in cfg.pattern} <= allowed or cfg.frontend or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the port's LM builds full-attention dense layers without frontend "
-            "or encoder only")
+            f"{cfg.name}: the port's LM builds full-attention dense layers, and sliding-window "
+            "ones, without frontend or encoder only")
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -109,13 +114,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict
     }
 
 
+def _per_layer(cfg: ArchConfig, tree: dict):
+    """(spec, entry) of ``tree`` (params or a cache) for every layer that
+    runs, in order: each period's slice of the stacked pattern entries (views),
+    then the remainder's."""
+    for i in range(cfg.num_periods):
+        for spec, t in zip(cfg.pattern, tree["layers"]):
+            yield spec, tree_map(lambda _, x: x[i], t)
+    yield from zip(cfg.remainder_specs, tree["rem"])
+
+
 def _layers(cfg: ArchConfig, params: Any, cache: dict):
     """(spec, layer params, layer cache) in the order the layers run; the
     cache entries are views into the stacked tensors."""
-    for i in range(cfg.num_periods):
-        for spec, lp, lc in zip(cfg.pattern, params["layers"], cache["layers"]):
-            yield spec, tree_map(lambda _, t: t[i], lp), tree_map(lambda _, t: t[i], lc)
-    yield from zip(cfg.remainder_specs, params["rem"], cache["rem"])
+    for (spec, lp), (_, lc) in zip(_per_layer(cfg, params), _per_layer(cfg, cache)):
+        yield spec, lp, lc
 
 
 @torch.no_grad()
@@ -141,12 +154,14 @@ def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[to
 def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:
     """token (B, 1) -> (logits (B, 1, V), the cache one longer). Raises
-    ``ValueError`` when the cache is full, where ``repro``'s clamped write
-    would overwrite its last slot."""
+    ``ValueError`` when the cache of a full-attention layer that runs is
+    full, where ``repro``'s clamped write would overwrite its last slot;
+    local layers' rings never fill, so a model that runs local layers only
+    has no cap."""
     pos = int(cache["len"])
-    max_len = (cache["layers"] or cache["rem"])[0]["k"].shape[-3]
-    if pos >= max_len:
-        raise ValueError(f"decode at position {pos}: the cache holds {max_len} tokens")
+    cap = next((lc["k"].shape[1] for spec, lc in _per_layer(cfg, cache) if spec.mixer == "attn"), None)
+    if cap is not None and pos >= cap:
+        raise ValueError(f"decode at position {pos}: the cache holds {cap} tokens")
     x = embed(params["embed"], token, cfg, getattr(torch, cfg.compute_dtype))
     for spec, lp, lc in _layers(cfg, params, cache):
         x, _ = blocks.apply_layer_decode(cfg, spec, lp, x, lc, pos)
@@ -154,3 +169,20 @@ def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
     new_cache = {"layers": cache["layers"], "rem": cache["rem"],
                  "len": torch.tensor(pos + 1, dtype=torch.int32)}
     return logits(cfg, params, x), new_cache
+
+
+def decode_snapshot(cfg: ArchConfig, cache: dict, n: int) -> Callable[[], None]:
+    """Save the state of ``cache`` that a decode chunk of ``n`` steps
+    overwrites and still reads: its length and, in each local layer's ring,
+    the slots the steps write (``blocks.decode_snapshot``). Returns the
+    callable that puts it back, so that a chunk retried after a fault
+    decodes what its first attempt would have."""
+    length = cache["len"].clone()
+    restores = [blocks.decode_snapshot(spec, lc, int(length), n) for spec, lc in _per_layer(cfg, cache)]
+
+    def restore():
+        cache["len"] = length.clone()
+        for r in restores:
+            r()
+
+    return restore

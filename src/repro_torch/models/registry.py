@@ -5,7 +5,8 @@ explain engine serves through.
 ``VitConfig`` to ``models.vit``. Both expose ``target_logprob_at_fn``, the
 bucketed serving output, and an embedding hook (``embed_inputs`` for token
 models, ``embed_features`` for patch models); ``Model`` also binds the
-decode cache's ``init_cache``, ``prefill`` and ``decode_step``. ``repro``'s
+decode cache's ``init_cache``, ``prefill`` and ``decode_step`` (full-attention
+layers' static cache, local layers' rings). ``repro``'s
 dry-run input specs and training loss are not ported here.
 """
 from __future__ import annotations
@@ -45,6 +46,9 @@ class Model:
 
     def decode_step(self, params, cache: dict, token: torch.Tensor):
         return lm.decode_step(self.cfg, params, cache, token)
+
+    def decode_snapshot(self, cache: dict, n: int):
+        return lm.decode_snapshot(self.cfg, cache, n)
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
         return lm.init_cache(self.cfg, batch, max_len, device=device)

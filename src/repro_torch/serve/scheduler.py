@@ -38,8 +38,10 @@ Sampling: each generate group gets one ``torch.Generator`` on the engine's
 device, seeded with the group's seed (0 for a greedy group), and draws in a
 fixed order: the prefill token's noise (sampled groups only), then every
 step of every decode chunk. A retried decode chunk first restores the
-cache's length and the generator's state, so it decodes what its first
-attempt would have.
+cache's length, the generator's state and, where local layers hold rings,
+the ring slots the chunk writes (``Model.decode_snapshot``), so it decodes what
+its first attempt would have. ``repro`` cannot retry inside a chunk (its
+chunk donates the cache), so this exactness is the port's own.
 
 Not ported yet: ``repro``'s result-cache lookups (``_cached_result``,
 ``_cache_result``) wait on the result cache (ROADMAP.md queue 1, item 5);
@@ -496,11 +498,12 @@ class MixedScheduler:
             ("dchunk", grp.prompts.shape[0], n),
             lambda: lambda cache, tok, gen, t: self._chunk_fn(eng.params, cache, tok, gen, t, n))
         # every attempt starts from the state the first one found: the
-        # cache's length (slots past it are rewritten) and the generator's
-        length, gen_state = st.cache["len"].clone(), st.generator.get_state()
+        # generator's, and the cache's that the chunk overwrites and still
+        # reads (its length, and the ring slots of local layers)
+        restore_cache, gen_state = eng.model.decode_snapshot(st.cache, n), st.generator.get_state()
 
         def attempt():
-            st.cache["len"] = length.clone()
+            restore_cache()
             st.generator.set_state(gen_state)
             return chunk(st.cache, st.last_tok, st.generator, temp)
 

@@ -212,6 +212,7 @@ FLASH_SHAPES = [
     (16, 128, 32, 8, 128, True, True),  # the LM engine's attention (llama3-8b heads)
     (2, 256, 48, 8, 128, True, True),  # internlm2-20b's GQA group (6 query heads a KV head)
     (2, 256, 32, 4, 128, True, True),  # yi-9b's (8 a KV head)
+    (2, 2048, 32, 16, 128, True, True),  # gemma3-27b's (2 a KV head) at its 2048-token bucket
 ]
 
 
@@ -468,6 +469,22 @@ def test_lm_logprob_on_the_card_matches_the_cpu(nvcc_card, attn):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
     assert (common.LAUNCHES["flash_fwd"] > 0) == (attn == "flash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [96, 256])
+def test_local_attention_on_the_card_matches_the_cpu(nvcc_card, S):
+    """Sliding-window attention (w=64, 8 query heads on 4, D=128, f32, TF32
+    off) on the card within 1e-5 of the CPU: the masked full path at
+    S ≤ 2w, the blocked path above (plain PyTorch on both devices)."""
+    from repro_torch.models.attention import local_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn(2, S, h, 128, generator=g) for h in (8, 4, 4))
+    want = local_attention(q, k, v, window=64)
+    got = local_attention(q.cuda(), k.cuda(), v.cuda(), window=64)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

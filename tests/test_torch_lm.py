@@ -65,7 +65,7 @@ def _tokens(B=3, S=24, seed=0):
 
 
 def test_configs_are_copies():
-    assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b"}
+    assert set(ARCHS) == {"gemma3-27b", "llama3-8b", "internlm2-20b", "yi-9b"}
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(J_ARCHS[name])
         assert dataclasses.asdict(reduced(cfg)) == dataclasses.asdict(j_reduced(J_ARCHS[name]))
@@ -75,7 +75,7 @@ def test_configs_are_copies():
             cfg.vocab_size) == (2, 64, 4, 2, 16, 512)
 
 
-@pytest.mark.parametrize("change", [dict(pattern=(LayerSpec("local", "dense"),), sliding_window=8),
+@pytest.mark.parametrize("change", [dict(pattern=(LayerSpec("mamba", "dense"),)),
                                     dict(pattern=(LayerSpec("attn", "moe"),)),
                                     dict(frontend="vision")])
 def test_model_for_refuses_what_the_lm_cannot_build(change):

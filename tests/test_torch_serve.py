@@ -272,9 +272,13 @@ def test_decode_attention_matches_repro(cache_len, window, NQ, NKV):
 
 
 def test_decode_attention_ring_is_not_ported():
-    q, k, v = map(torch.from_numpy, _qkv(np.random.default_rng(0), 1, 1, 8, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
-        attn.decode_attention(q, k, v, 4, ring=True)
+    """The ring branch (a local layer's cache of 8 slots) against ``repro``'s:
+    below 8 only the written slots are valid, from 8 on the whole ring."""
+    q, k, v = _qkv(np.random.default_rng(0), 1, 1, 8, 4, 2, 16)
+    for cache_len in (4, 8, 21):
+        want = jattn.decode_attention(q, k, v, jnp.int32(cache_len), ring=True)
+        got = attn.decode_attention(*map(torch.from_numpy, (q, k, v)), cache_len, ring=True)
+        _close(got, np.asarray(want))
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -308,7 +312,7 @@ def test_dispatch_takes_the_blocked_branch_as_repro(monkeypatch):
 # --------------------------------------------------------------------- configs
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "internlm2-20b", "yi-9b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "internlm2-20b", "yi-9b", "gemma3-27b"])
 def test_get_config_is_repro_s(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
     assert get_config(name) is ARCHS[name]
@@ -316,7 +320,7 @@ def test_get_config_is_repro_s(name):
 
 
 def test_get_config_knows_only_the_port_s_archs():
-    assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b"}
-    for name in ("gemma3-27b", "paper-cnn", "vit-s16", "nope"):
+    assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b", "gemma3-27b"}
+    for name in ("paper-cnn", "vit-s16", "nope"):
         with pytest.raises(KeyError):
             get_config(name)
