@@ -73,6 +73,31 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      card against the port on the CPU (2 prompts of ≤ 16 tokens, m=8, f32);
      the stage-2 plans at the LM's F, walls per path and bucket, misses and
      hits, mean δ and m_used, peak memory and one profiled warm round;
+ 9b. the caches (``cache_phase``, right after phase 9) — phase 9's model
+     from seed 0 and its 20 requests, m=64: A. ``model_fingerprint`` timed,
+     the bytes it hashed printed; B. an unfused ``ig`` engine, chunk 16,
+     ``result_cache`` of 256 MiB, serves the 20 (all misses), then the 20
+     in another order and 4 new ones: every hit equal to round 1's result
+     bit for bit, result hits/misses 20/24, the 4 new equal to an engine
+     without a cache, a caller's change to a hit never reaching the entry,
+     an all-hit round timed and launching nothing; C. ``autotune_engine`` on
+     it (files under ``build/cache_phase/``): each bucket's candidates
+     priced by ``roofline.hotpath_cost`` (bytes, FLOPs, bound, predicted
+     peak), those above the card's memory pruned before any launch, the
+     best three by bound timed with their measured peak; then an
+     ``autotune=True`` engine: each bucket at its winner's chunk and equal
+     bit for bit to an engine with that chunk engine-wide, a second round
+     without a miss; D. an adaptive ``ig`` engine (tol 1e-2, m_max 256,
+     ``hop_zero_min=4``) serves rounds until its hop-zero starting rungs
+     settle (each round feeds the δ-history), ``save_warm_state``, its first
+     and last rounds' results to ``build/cache_phase/``; then, the card
+     freed, two fresh processes (``chip_smoke.py --warm-child cold|restore
+     DIR``) build the same model and serve the round once: the restored one
+     must report ``via="replay"``, this process's fingerprint, no miss and
+     this process's last round bit for bit, the cold one must miss and give
+     this process's first round bit for bit; each prints its fingerprint
+     and replay ms, round-0 wall and peak. Any failure, in a child too,
+     fails the run;
  10. generation serving — ``ServeEngine`` on llama3-8b at full width and 32
      layers (bf16, flash prefill, weights drawn on the card): 16 prompts of
      128 tokens with 64 new, greedy, then sampled at T=0.8 with seeds 1234,
@@ -1407,6 +1432,301 @@ def engine_phase() -> dict:
             "per_path": paths_launched}
 
 
+# ---------------------------------------------------------------- the caches
+
+CACHE_BUDGET = 256 * 2**20  # the result cache's byte budget
+CACHE_NEW = (4, 17, 128)  # round 2's new requests: count, shortest, longest prompt
+TUNE_ROUNDS = 2  # timed calls a tuner candidate, after one warm call
+HOP_ZERO_MIN = 4  # base-rung observations before hop-zero moves a start
+WARM_CHILD_S = 600  # each warm-state child's time limit
+
+
+def _cache_dir() -> Path:
+    """The phase's files, under the git-ignored ``build/``."""
+    import shutil
+
+    d = ROOT / "build" / "cache_phase"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _same_results(name: str, got: list, want: list) -> None:
+    """Result dicts equal key for key, arrays bit for bit."""
+    import numpy as np
+
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g.keys() != w.keys() or not all(
+                np.array_equal(g[k], w[k]) if isinstance(g[k], np.ndarray) else g[k] == w[k] for k in g):
+            raise AssertionError(f"{name}: request {i} differs")
+
+
+_ROUND_FIELDS = ("delta", "f_x", "f_baseline", "threshold", "m_used", "hops", "converged", "degraded")
+
+
+def _save_round(path: Path, out: list) -> None:
+    """One round's results as arrays (``_round_equal`` reads them)."""
+    import numpy as np
+
+    arrays = {f"scores_{i}": r["token_scores"] for i, r in enumerate(out)}
+    arrays |= {f"raw_{i}": r["raw_token_scores"] for i, r in enumerate(out)}
+    arrays |= {k: np.asarray([r[k] for r in out]) for k in _ROUND_FIELDS}
+    np.savez(path, **arrays)
+
+
+def _round_equal(path: Path, out: list) -> tuple[bool, str]:
+    """(every array and field of ``out`` equal to the saved round's bit for
+    bit, the first difference)."""
+    import numpy as np
+
+    with np.load(path) as saved:
+        if len(out) != len([k for k in saved.files if k.startswith("scores_")]):
+            return False, f"{len(out)} results against {len(saved.files)} arrays"
+        for i, r in enumerate(out):
+            for k, name in (("token_scores", "scores"), ("raw_token_scores", "raw")):
+                if not np.array_equal(r[k], saved[f"{name}_{i}"]):
+                    return False, f"request {i} {k}"
+        for k in _ROUND_FIELDS:
+            if not np.array_equal(np.asarray([r[k] for r in out]), saved[k]):
+                return False, k
+    return True, ""
+
+
+def _adaptive_engine(cfg, params):
+    """The warm-state part's engine, the same in the parent and its children."""
+    from repro_torch.serve import ExplainEngine
+
+    return ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=LM_CHUNK,
+                         attn="flash", adaptive=True, tol=TOL, m_max=VIT_M_MAX, hop_zero=True,
+                         hop_zero_min=HOP_ZERO_MIN, device=DEV)
+
+
+def _cache_parent(out_dir: Path, paths_launched: dict) -> dict:
+    """Parts A–D of ``cache_phase`` in this process; returns what the
+    warm-state children are held to."""
+    import numpy as np
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ExplainEngine, autotune_engine, save_warm_state
+    from repro_torch.serve.batching import plan_buckets
+
+    cfg = _lm_config()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
+    kw = dict(method="ig", schedule="paper", m=M, n_int=N_INT, attn="flash", device=DEV)
+    ig_path = PATH_KERNELS["riemann"][0] + FLASH
+
+    # A. the model fingerprint, hashed leaf by leaf from the card
+    eng = ExplainEngine(cfg, params, chunk=LM_CHUNK, result_cache=CACHE_BUDGET, **kw)
+    sizes = []
+    tree_map(lambda _, t: sizes.append(t.numel() * t.element_size()), eng.params)
+    nbytes = sum(sizes)
+    _sync()
+    t0 = time.perf_counter()
+    fingerprint = eng.model_fingerprint
+    fp_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  A. model_fingerprint {fingerprint[:16]}…: {fp_ms:.1f} ms for {nbytes / 1e9:.3f} GB of "
+          f"{cfg.param_dtype} weights ({nbytes / fp_ms / 1e6:.3f} GB/s: each leaf streamed to the host through pinned buffers and hashed)")
+
+    # B. the result cache: 20 misses, then the 20 in another order (hits) and 4 new
+    out1, ms1, launched = _timed(lambda: eng.explain(reqs, return_raw=True))
+    _need(paths_launched, "cache: round 1, all misses", launched, ig_path)
+    if (eng.stats.result_hits, eng.stats.result_misses) != (0, len(reqs)):
+        raise AssertionError(f"cache round 1: hits/misses {eng.stats.result_hits}/{eng.stats.result_misses}")
+    _served_ok("cache round 1", out1, reqs)
+    order = np.random.default_rng(5).permutation(len(reqs))
+    new = _lm_traffic(cfg, (CACHE_NEW,), seed=2)
+    round2 = [reqs[i] for i in order] + new
+    out2, ms2, launched = _timed(lambda: eng.explain(round2, return_raw=True))
+    _need(paths_launched, f"cache: round 2, {len(new)} misses", launched, ig_path)
+    hm = (eng.stats.result_hits, eng.stats.result_misses)
+    if hm != (len(reqs), len(reqs) + len(new)):
+        raise AssertionError(f"cache round 2: result hits/misses {hm}, not {len(reqs)}/{len(reqs) + len(new)}")
+    _same_results("cache hits vs round 1", out2[: len(reqs)], [out1[i] for i in order])
+    fresh = ExplainEngine(cfg, params, chunk=LM_CHUNK, **kw).explain(new, return_raw=True)
+    _same_results("cache: the 4 new vs an engine without a cache", out2[len(reqs):], fresh)
+    out2[0]["token_scores"][:] = -1.0  # a caller's change never reaches the stored bytes
+    _same_results("cache: a hit after the caller changed one", eng.explain([round2[0]], return_raw=True),
+                  [out1[order[0]]])
+    hits, ms_hit, launched = _timed(lambda: eng.explain(reqs))
+    if any(launched.values()):
+        raise AssertionError(f"an all-hit round launched {launched}")
+    print(f"  B. result cache ({CACHE_BUDGET >> 20} MiB): round 1 {ms1:.1f} ms ({len(reqs)} misses); round 2 "
+          f"{ms2:.1f} ms (the {len(reqs)} reordered, all hits, bit-identical to round 1, and {len(new)} new misses, bit-identical "
+          f"to an engine without a cache); result hits/misses {hm[0]}/{hm[1]}; a changed hit leaves the "
+          f"entry; an all-hit round of {len(reqs)}: {ms_hit:.3f} ms, no launch; {len(eng.result_cache)} "
+          f"entries, {eng.result_cache.bytes} bytes, hit rate {eng.stats.result_hit_rate:.3f}")
+
+    # C. the tuner: priced, pruned by memory, measured; then served tuned
+    tune_dir = out_dir / "autotune"
+    _sync()
+    t0 = time.perf_counter()
+    report = autotune_engine(eng, reqs, rounds=TUNE_ROUNDS, results_dir=str(tune_dir))
+    tune_s = time.perf_counter() - t0
+    total = torch.cuda.get_device_properties(0).total_memory if DEV == "cuda" else float("inf")
+    print(f"  C. autotune_engine ({report['hw']} model, {TUNE_ROUNDS} timed calls after a warm one, "
+          f"{tune_s:.1f} s) -> {report['path']}; predicted by roofline.hotpath_cost:")
+    winners = {}
+    for key, b in report["buckets"].items():
+        bucket = tuple(int(v) for v in key.split("/")[0][1:].split("xS"))
+        winners[bucket] = b["winner"]["chunk"]
+        for c in b["candidates"]:
+            mp = c["measured_peak_bytes"]
+            if mp is not None and mp > total:
+                raise AssertionError(f"tuner: chunk {c['chunk']} at {bucket} peaked above the card")
+            done = (f"pruned: {c['pruned']}" if c["latency_s"] is None else f"{c['latency_s'] * 1e3:.1f} ms"
+                    + (f", measured peak {mp / 1e9:.2f} GB" if mp is not None else ""))
+            print(f"     {bucket[0]}x{bucket[1]} chunk {c['chunk']:>2}: {c['bytes_accessed'] / 1e9:.2f} GB, "
+                  f"{c['flops'] / 1e12:.2f} TFLOP, bound {c['bound_s'] * 1e3:.2f} ms, predicted peak "
+                  f"{c['peak_bytes'] / 1e9:.2f} GB; {done}")
+        print(f"     {bucket[0]}x{bucket[1]} winner: chunk {winners[bucket]}")
+    tuned = ExplainEngine(cfg, params, autotune=True, autotune_dir=str(tune_dir), chunk=LM_CHUNK, **kw)
+    outT, msT0, launched = _timed(lambda: tuned.explain(reqs, return_raw=True))
+    _need(paths_launched, "cache: autotuned", launched, ig_path)
+    misses = tuned.stats.misses
+    outT2, msT, _ = _timed(lambda: tuned.explain(reqs, return_raw=True))
+    if tuned.stats.misses != misses:
+        raise AssertionError(f"autotuned replay: {tuned.stats.misses - misses} new misses")
+    _same_results("autotuned replay", outT2, outT)
+    for bb in plan_buckets(reqs):
+        if tuned._cfg_for(bb.bucket).chunk != winners[bb.bucket]:
+            raise AssertionError(f"bucket {bb.bucket} does not run its winner's chunk")
+        fixed = ExplainEngine(cfg, params, chunk=winners[bb.bucket], **kw)
+        _same_results(f"bucket {bb.bucket} tuned vs chunk {winners[bb.bucket]} engine-wide",
+                      fixed.explain([reqs[i] for i in bb.indices], return_raw=True), [outT[i] for i in bb.indices])
+    print(f"  autotuned engine: round 0 {msT0:.1f} ms, warm {msT:.1f} ms, no new miss, the same bits; each "
+          f"bucket at its winner's chunk, bit-identical to an engine with that chunk engine-wide; model "
+          f"bytes and peak per bucket (hotpath_cost): "
+          + ", ".join(f"{b[0]}x{b[1]} {s.bytes_accessed / 1e9:.2f} GB / {s.peak_bytes / 1e9:.2f} GB"
+                      for b, s in sorted(tuned.stats.buckets.items(), key=lambda kv: kv[0][1])))
+    del eng, tuned, fixed, fresh
+    _free_card()
+
+    # D. warm state: an adaptive hop-zero engine served until its starting
+    # rungs settle (a round moves the δ-history, and a bucket whose
+    # observations cross hop_zero_min starts higher in the next round), so
+    # that the state saved is the one its last round ran under
+    ad = _adaptive_engine(cfg, params)
+    buckets = sorted({bb.bucket for bb in plan_buckets(reqs)})
+    starts, walls = [{b: ad._hop_zero_m(b) for b in buckets}], []
+    _reset_peak()
+    while True:
+        outA, ms, launched = _timed(lambda: ad.explain(reqs, return_raw=True))
+        _need(paths_launched, f"cache: adaptive hop-zero, round {len(walls) + 1}", launched, ig_path)
+        walls.append(ms)
+        if len(walls) == 1:
+            _save_round(out_dir / "parent_round1.npz", outA)  # base-rung starts: the cold child's work
+        starts.append({b: ad._hop_zero_m(b) for b in buckets})
+        if starts[-1] == starts[-2]:
+            break
+        if len(walls) == 4:
+            raise AssertionError(f"hop-zero starts did not settle in 4 rounds: {starts}")
+    peak = _peak_gb()
+    warm_dir = out_dir / "warm"
+    t0 = time.perf_counter()
+    save_warm_state(ad, str(warm_dir))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    _save_round(out_dir / "parent_round.npz", outA)
+    print(f"  D. adaptive hop-zero engine (hop_zero_min {HOP_ZERO_MIN}): rounds "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms, starting rungs before each and after the last "
+          f"{starts}; peak {peak:.2f} GB; save_warm_state {save_ms:.1f} ms (the fingerprint included), "
+          f"{len(ad._cache)} keys ({sum(k[0] == 'start' for k in ad._cache)} starts, "
+          f"{sum(k[0] == 'hop' for k in ad._cache)} hops); rounds 1 and {len(walls)} saved beside the state")
+    return {"fingerprint": ad.model_fingerprint, "keys": len(ad._cache), "walls": walls}
+
+
+def _warm_child(mode: str) -> dict:
+    """Run ``chip_smoke.py --warm-child MODE DIR`` and read its JSON line."""
+    out_dir = ROOT / "build" / "cache_phase"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--warm-child", mode,
+                           str(out_dir / "warm")], capture_output=True, text=True, timeout=WARM_CHILD_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:] + proc.stderr[-8000:])
+        raise AssertionError(f"the {mode} warm-state child exited {proc.returncode}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["process_s"] = wall
+    return res
+
+
+def warm_child(mode: str, directory: str) -> int:
+    """One fresh process of the warm-state part: the parent's model from the
+    same seed and its engine, ``load_warm_state`` first when ``mode`` is
+    ``restore``, then the parent's last round once; prints one JSON line."""
+    from repro_torch.models import lm
+    from repro_torch.serve import load_warm_state
+
+    t_start = time.perf_counter()
+    cfg = _lm_config()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    eng = _adaptive_engine(cfg, params)
+    reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
+    _sync()
+    t0 = time.perf_counter()
+    fingerprint = eng.model_fingerprint
+    fp_ms = (time.perf_counter() - t0) * 1e3
+    rep, replay_ms = None, 0.0
+    if mode == "restore":
+        t0 = time.perf_counter()
+        rep = load_warm_state(eng, directory)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+    _reset_peak()
+    out, round_ms, _ = _timed(lambda: eng.explain(reqs, return_raw=True))
+    ref = "parent_round.npz" if mode == "restore" else "parent_round1.npz"
+    equal, first_diff = _round_equal(Path(directory).parent / ref, out)
+    print(json.dumps({
+        "mode": mode, "fingerprint": fingerprint, "fingerprint_ms": fp_ms, "replay_ms": replay_ms,
+        "restored": bool(rep and rep.restored), "via": rep.via if rep else "",
+        "executables": rep.executables if rep else 0, "reason": rep.reason if rep else "",
+        "round0_ms": round_ms, "misses": eng.stats.misses, "hits": eng.stats.hits, "peak_gb": _peak_gb(),
+        "equal": equal, "first_diff": first_diff, "to_round_end_s": time.perf_counter() - t_start,
+    }))
+    return 0
+
+
+def cache_phase() -> dict:
+    """The caches on the engine phase's llama3-8b (full width, 4 layers,
+    flash, bf16; weights drawn on the card from seed 0) over its 20
+    requests, m=64: A. the model fingerprint; B. the result cache; C. the
+    tuner and an autotuned engine; D. warm state, saved here and restored in
+    a fresh process (and a cold one beside it); every gate raises."""
+    from repro_torch.kernels import common
+
+    _free_card()
+    out_dir = _cache_dir()
+    paths_launched = {}
+    common.reset_launches()  # the slice's own count starts here
+    parent = _cache_parent(out_dir, paths_launched)
+    launches = dict(common.LAUNCHES)
+    carry = dict(common.CARRY_RANKS)
+    _free_card()  # the children need the card's memory
+    children = {mode: _warm_child(mode) for mode in ("cold", "restore")}
+    walls = parent["walls"]
+    for mode, ch in children.items():
+        same = 1 if mode == "cold" else len(walls)  # this process's round of the same work
+        print(f"  {mode} child (Triton's and the CUDA library's disk caches already filled by this process): "
+              f"fingerprint {ch['fingerprint_ms']:.1f} ms, replay {ch['replay_ms']:.1f} ms "
+              f"({ch['executables']} keys, via {ch['via'] or '—'}), round 0 {ch['round0_ms']:.1f} ms (this "
+              f"process's round {same}, the same work: {walls[same - 1]:.1f} ms), misses {ch['misses']}, hits "
+              f"{ch['hits']}, peak {ch['peak_gb']:.2f} GB, equal to that round bit for bit: {ch['equal']}"
+              + (f" (first difference: {ch['first_diff']})" if not ch["equal"] else "")
+              + f"; {ch['to_round_end_s']:.1f} s from start to the round's end, {ch['process_s']:.1f} s the process")
+    r = children["restore"]
+    if not (r["restored"] and r["via"] == "replay" and r["executables"] == parent["keys"]):
+        raise AssertionError(f"warm restore: {r}")
+    if r["fingerprint"] != parent["fingerprint"]:
+        raise AssertionError("the restored child's model fingerprint differs from this process's")
+    if r["misses"] or not r["equal"]:
+        raise AssertionError(f"the restored child's round: {r['misses']} misses, equal={r['equal']} "
+                             f"({r['first_diff']})")
+    ch = children["cold"]
+    if ch["restored"] or not ch["misses"] or not ch["equal"]:
+        raise AssertionError(f"the cold child must miss and equal this process's round 1: {ch}")
+    return {"launches": launches, "carry_ranks": carry, "per_path": paths_launched}
+
+
 def _causal_pairs(S: int, kvlen: torch.Tensor) -> int:
     """(query, key) pairs a causal attention with per-row key lengths
     computes over S queries: key k < min(q + 1, kvlen)."""
@@ -2688,13 +3008,11 @@ def gemma_mixed_phase() -> dict:
             "per_path": paths_launched}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
+def _setup() -> None:
+    """The checkout's package on the path and the numerics every run of
+    this script takes (the warm-state children too: their bits are held to
+    this process's)."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import common  # fails, printing nothing, outside a checkout
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -2703,6 +3021,17 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    _setup()
+    from repro_torch.kernels import common  # fails, printing nothing, outside a checkout
+
+    if sys.argv[1:2] == ["--warm-child"]:
+        mode, directory = sys.argv[2:4]
+        return warm_child(mode, directory)
     print(_card())
     triton, _ = common.import_triton()  # sets the compile cache first
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}")
@@ -2734,7 +3063,8 @@ def main() -> int:
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
-                        ("lm_engine", engine_phase), ("serve", serve_phase), ("mixed", mixed_phase),
+                        ("lm_engine", engine_phase), ("cache", cache_phase), ("serve", serve_phase),
+                        ("mixed", mixed_phase),
                         ("gemma_serve", gemma_serve_phase), ("gemma_engine", gemma_engine_phase),
                         ("gemma_mixed", gemma_mixed_phase)):
         t0 = time.perf_counter()

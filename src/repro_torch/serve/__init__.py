@@ -1,9 +1,15 @@
 """Serving of the port, as ``repro.serve``: the generation engine and its
 steps, the explain engine, its bucketing and its compatibility shim, and
 ``MixedScheduler``, which serves generate and explain traffic from one
-admission-controlled queue. The tuner, the result cache and warm state are
-not ported yet."""
-from repro_torch.serve.autotune import HotpathConfig, bucket_key
+admission-controlled queue, and the caches: the per-bucket tuner, the
+result cache and warm state."""
+from repro_torch.serve.autotune import (
+    AutotuneCache,
+    HotpathConfig,
+    autotune_engine,
+    bucket_key,
+    chunk_candidates,
+)
 from repro_torch.serve.batching import BucketBatch, bucket_for, plan_buckets, pow2_ladder
 from repro_torch.serve.engine import (
     ServeEngine,
@@ -30,6 +36,8 @@ from repro_torch.serve.scheduler import (
     TenantPolicy,
     Ticket,
 )
+from repro_torch.serve.result_cache import ResultCache
+from repro_torch.serve.warm_state import WarmRestoreReport, load_warm_state, save_warm_state
 
 __all__ = [
     "ServeEngine",
@@ -57,4 +65,11 @@ __all__ = [
     "INTERACTIVE",
     "BATCH",
     "EXPLAIN",
+    "AutotuneCache",
+    "autotune_engine",
+    "chunk_candidates",
+    "ResultCache",
+    "WarmRestoreReport",
+    "load_warm_state",
+    "save_warm_state",
 ]

@@ -36,23 +36,32 @@ refined schedule only (``AdaptiveBucketRun``).
 ``degrade`` abandons the ladder after a fault), counted on ``EngineStats``'
 ``degraded``, ``preempted`` and ``queue_depth``.
 
-Not ported yet (ROADMAP.md queue 1): the device mesh (item 7), the
-autotuner and the result cache (item 5) are no constructor parameters
-here; the model fingerprint, request keys, warm state and
-``precompile_hop_zero_starts`` wait on item 5.
+**Caches.** ``result_cache`` (``serve.result_cache``) replays a finished
+attribution under its content key (``request_cache_key``: the context of
+``_context_parts``, which hashes the bytes ``repro`` hashes, and the
+request's own bytes); ``autotune`` loads per-bucket chunks tuned by
+``serve.autotune``; every callable's argument shapes and dtypes are
+recorded when it is built, so ``serve.warm_state`` can rebuild and replay
+the key set in a new process. ``BucketStats.bytes_accessed`` and
+``peak_bytes`` of the gradient class come from ``roofline.hotpath_cost``
+on an LM. Not ported yet: the device mesh (ROADMAP.md queue 1, item 7);
+``_mesh_key`` is ``()``, as ``repro``'s without a mesh.
 """
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core import methods as methods_mod, perturb
 from repro_torch.core.api import Explainer
 from repro_torch.core.baselines import pad_embedding
+from repro_torch.core.fingerprint import model_fingerprint
 from repro_torch.core.ig import IGState
 from repro_torch.core.probes import map_tree, probe_cost
 from repro_torch.core.schedule import Schedule, family, m_ladder
@@ -62,7 +71,8 @@ from repro_torch.kernels.interpolate.ops import interpolate
 from repro_torch.kernels.lstsq.ops import wls_solve
 from repro_torch.models.common import tree_map
 from repro_torch.models.registry import model_for
-from repro_torch.serve.autotune import HotpathConfig
+from repro_torch.roofline import hotpath_cost
+from repro_torch.serve.autotune import AutotuneCache, HotpathConfig, bucket_key, device_kind
 from repro_torch.serve.batching import (
     DEFAULT_BATCH_BUCKETS,
     DEFAULT_SEQ_BUCKETS,
@@ -70,6 +80,8 @@ from repro_torch.serve.batching import (
     pad_rows,
     plan_buckets,
 )
+from repro_torch.serve.result_cache import ResultCache
+from repro_torch.serve.warm_state import arg_spec
 
 # draw(s_bucket, row indices, feature shape) -> (rows, *shape) standard normals
 NormalDraw = Callable[[int, Sequence[int], tuple], Any]
@@ -98,8 +110,8 @@ class BucketStats:
     compile_s: float = 0.0
     total_s: float = 0.0  # wall time of cached calls (excludes builds)
     # ``repro`` records XLA's cost_analysis bytes and peak bytes here; the
-    # port has no compiler to ask, so both stay 0 until the analytic byte
-    # models of ROADMAP.md queue 1, item 5 land
+    # port counts them with ``roofline.hotpath_cost`` when a gradient-class
+    # callable of an LM is built (0 for the forward-only class and the ViT)
     bytes_accessed: float = 0.0
     peak_bytes: float = 0.0
 
@@ -130,9 +142,8 @@ class AdaptiveStats:
 
 @dataclass
 class EngineStats:
-    """Cache counters, per-bucket latency and the scheduler's counters.
-    ``repro``'s mesh and result-cache counters belong to modules not ported
-    yet."""
+    """Cache counters, per-bucket latency, the scheduler's counters and the
+    result cache's (``repro``'s mesh counter waits on the mesh)."""
 
     hits: int = 0  # callable-cache hits
     misses: int = 0  # callable-cache misses == builds
@@ -147,11 +158,22 @@ class EngineStats:
     degraded: int = 0
     preempted: int = 0
     queue_depth: int = 0
+    # the RESULT cache (serve.result_cache), mirrored from it: whole
+    # attributions replayed, where hits/misses above count callables
+    result_hits: int = 0
+    result_misses: int = 0
+    result_evictions: int = 0
+    result_bytes: int = 0
 
     @property
     def hit_rate(self) -> float:
         n = self.hits + self.misses
         return self.hits / n if n else 0.0
+
+    @property
+    def result_hit_rate(self) -> float:
+        n = self.result_hits + self.result_misses
+        return self.result_hits / n if n else 0.0
 
     def bucket(self, shape: tuple[int, int]) -> BucketStats:
         return self.buckets.setdefault(shape, BucketStats())
@@ -182,6 +204,10 @@ class ExplainEngine:
             kernels on the card; False is refused there (the plain versions
             run on the CPU only, where the ops take them either way).
         attn: "flash" serves the model with ``attn_impl="flash"``.
+        autotune / autotune_dir: load the per-bucket chunks tuned for this
+            device (``autotune_<device kind>.json`` in ``autotune_dir``).
+        result_cache: an int byte budget (``True``: 256 MiB) or a shared
+            ``ResultCache``; None serves every request afresh.
         device: where the parameters live and the explanations run.
         draw / draw_masks: the random draws (``NormalDraw``, ``MaskDraw``);
             by default a row's draw comes from a CPU ``torch.Generator``
@@ -232,6 +258,9 @@ class ExplainEngine:
         fused: bool = False,
         use_kernels: bool = True,
         attn: str = "auto",
+        autotune: bool = False,
+        autotune_dir: str = "results",
+        result_cache: Union[None, int, ResultCache] = None,
         hop_zero: bool = False,
         hop_zero_q: float = 0.75,
         hop_zero_min: int = 8,
@@ -261,6 +290,11 @@ class ExplainEngine:
         self.pad_id = pad_id
         self.fused = fused
         self.use_kernels = use_kernels
+        # per-(bucket, device kind) tuned chunks, loaded once; a missing
+        # file is an empty cache (every bucket runs the engine-wide chunk)
+        self._autotune_cache = (
+            AutotuneCache.load(autotune_dir, device_kind(self.device)) if autotune else None
+        )
         self.seq_buckets = tuple(seq_buckets)
         self.batch_buckets = tuple(batch_buckets) if batch_buckets else None
         self.max_batch = max_batch
@@ -288,6 +322,17 @@ class ExplainEngine:
         self.model = model_for(cfg)
         self.stats = EngineStats()
         self._cache: dict[tuple, Callable] = {}  # key -> built callable
+        # key -> its arguments' shapes and dtypes (``warm_state.arg_spec``),
+        # what serve.warm_state replays the key set from
+        self._arg_specs: dict[tuple, Any] = {}
+        self._mesh_key: tuple = ()  # repro's mesh_cache_key(None): no mesh yet
+        self._model_fp: Optional[str] = None
+        if isinstance(result_cache, ResultCache):
+            self.result_cache: Optional[ResultCache] = result_cache
+        elif result_cache:
+            self.result_cache = ResultCache() if result_cache is True else ResultCache(int(result_cache))
+        else:
+            self.result_cache = None
         # hop-zero starting rung: the per-(S-bucket, method) m_used history
         self.hop_zero = hop_zero and adaptive
         self.hop_zero_q = hop_zero_q
@@ -329,8 +374,14 @@ class ExplainEngine:
         return kw
 
     def _cfg_for(self, bucket: tuple[int, int]) -> HotpathConfig:
-        """The bucket's stage-2 config: the engine-wide chunk (the tuner of
-        ``repro`` is not ported)."""
+        """The bucket's tuned config, or the engine-wide chunk where no
+        autotune entry exists."""
+        if self._autotune_cache is not None:
+            tuned = self._autotune_cache.config_for(
+                bucket_key(bucket, self._spec.accum, self.schedule, self.m, self.n_int, self.fused,
+                           attn=self.attn))
+            if tuned is not None:
+                return tuned
         return HotpathConfig(self.chunk)
 
     def _explainer_at(self, cfg: HotpathConfig) -> Explainer:
@@ -361,18 +412,156 @@ class ExplainEngine:
         return (bucket, self._spec.accum, self.schedule, self.m, self.n_int,
                 self._cfg_for(bucket), self.fused, self.use_kernels, self.attn, with_fx)
 
-    def _executable(self, key: tuple, bs: BucketStats, build: Callable[[], Callable]) -> Callable:
-        """The cached callable for ``key``; a miss builds it with ``build()``
-        and charges the build to the stats row ``bs``."""
+    def _build(self, key: tuple) -> Callable:
+        """The callable of one cache key, built from the key alone (so a
+        restored key set rebuilds in a new process):
+
+          * ``(bucket, accum, schedule, m, n_int, config, fused, use_kernels,
+            attn, with_fx)`` — the fixed-m unit at ``config``;
+          * ``("start", bucket, accum, schedule, m0, n_int, chunk, ...)`` —
+            adaptive rung 0 at rung m0;
+          * ``("hop", (B', S), accum, n_new, chunk, ...)`` — one hop; it
+            depends on the ladder only through its chunk, which the rung m
+            sets when the engine chunk is 0;
+          * ``("fwd", bucket, accum, n_masks, chunk, ...)`` — the
+            forward-only unit.
+        """
+        kind = key[0]
+        if kind == "start":
+            return self._start_fn_for(key[4])
+        if kind == "hop":
+            return self._hop_fn_for(self.m if self.chunk else key[4])
+        if kind == "fwd":
+            return self._fwd_fn_at(self._cfg_for(key[1]))
+        return self._attr_fn_at(key[5], with_fx=key[-1])
+
+    def _cost(self, key: tuple) -> Optional[dict]:
+        """``roofline.hotpath_cost`` of one gradient-class key of an LM
+        (None for the forward-only class and other models)."""
+        if key[0] == "fwd" or not isinstance(self.cfg, ArchConfig):
+            return None
+        if key[0] == "hop":
+            bucket, m, chunk, probes = key[1], key[3], key[4], 0
+        else:
+            if key[0] == "start":
+                bucket, m, chunk = key[1], key[4], key[6]
+            else:
+                bucket, m, chunk = key[0], key[3], key[5].chunk
+            probes = self._forwards_a_row(with_fx=key[-1])
+        return hotpath_cost(self.cfg, bucket, m, chunk, self.cfg.compute_dtype,
+                            probe_forwards=probes, fused=self.fused)
+
+    def _forwards_a_row(self, *, with_fx: bool) -> int:
+        """Forwards a row of a fixed-m or start call runs besides stage 2:
+        stage 1's probe and the endpoints f(x), f(x′) (f(x′) alone when
+        f(x) is donated)."""
+        return probe_cost(family(self.schedule).probe, n_int=self.n_int,
+                          rounds=self._explainer.refine_rounds, known_fx=with_fx) + (1 if with_fx else 2)
+
+    def _executable(self, key: tuple, bs: BucketStats, args: tuple) -> Callable:
+        """The cached callable for ``key``; a miss builds it, records the
+        arguments' spec and the key's cost, and charges the build to the
+        stats row ``bs``."""
         if key in self._cache:
             self.stats.hits += 1
             return self._cache[key]
         self.stats.misses += 1
         bs.compiles += 1
         t0 = time.perf_counter()
-        self._cache[key] = build()
+        self._cache[key] = self._build(key)
+        self._arg_specs[key] = arg_spec(args)
         bs.compile_s += time.perf_counter() - t0
+        cost = self._cost(key)
+        if cost is not None:
+            bs.bytes_accessed, bs.peak_bytes = cost["bytes accessed"], cost["peak bytes"]
         return self._cache[key]
+
+    def precompile_hop_zero_starts(self) -> int:
+        """Build the start callables the δ-history now implies.
+
+        The history grows while the engine serves, so the elevated starting
+        rung ``_hop_zero_m`` would now pick for a bucket may never have been
+        built. ``serve.warm_state.save_warm_state`` calls this first, so a
+        restored engine serves seen buckets without a miss where the
+        restored history elevates the start. The rung changes no argument
+        shape: the new key takes the base start's spec. Returns how many
+        keys were added (not charged to the serving stats)."""
+        if not self.hop_zero:
+            return 0
+        n = 0
+        for key in [k for k in self._cache if k[0] == "start"]:
+            bucket, with_fx = key[1], key[-1]
+            m0 = self._hop_zero_m(bucket)
+            if m0 == key[4]:
+                continue
+            new_key = ("start", bucket, self._spec.accum, self.schedule, m0, self.n_int,
+                       self._explainer_for_m(m0).adaptive_chunk, self.fused, self.use_kernels,
+                       self.attn, with_fx)
+            if new_key in self._cache:
+                continue
+            self._cache[new_key] = self._build(new_key)
+            self._arg_specs[new_key] = self._arg_specs[key]
+            n += 1
+        return n
+
+    # -- content-addressed identity (result cache, warm state) --------------
+
+    @property
+    def model_fingerprint(self) -> str:
+        """sha256 of (config repr, parameter bytes), computed once, lazily."""
+        if self._model_fp is None:
+            self._model_fp = model_fingerprint(self.cfg, self.params)
+        return self._model_fp
+
+    def _context_parts(self) -> list:
+        """Everything engine-level that changes the attribution bytes:
+        ``repro``'s list, entry for entry. Keyed by METHOD NAME (IDGI and IG
+        attributions of one input differ though they share callables); the
+        bucket ladders are absent, since padding invariance makes results
+        independent of the bucket a request lands in."""
+        return [
+            "ctx-v1", self.model_fingerprint, self.method, self.schedule,
+            self.m, self.n_int, self.chunk, self.adaptive, self.tol,
+            self.m_max, self.n_samples, self.sigma, self.sample_seed,
+            self.n_masks, self.fused, self.use_kernels, self.attn,
+            self._mesh_key, self.pad_id, self._autotune_cache is not None,
+        ]
+
+    def warm_context(self) -> str:
+        """The identity a warm state must match. The autotune ENTRIES are not
+        in it: the warm state carries and installs them itself."""
+        return hashlib.sha256(repr(self._context_parts()).encode()).hexdigest()
+
+    def request_cache_key(self, req: ExplainRequest) -> str:
+        """sha256 content key of one request's result: the engine context
+        with the loaded autotune entries (a tuned chunk changes the bits),
+        then the request's tokens, target, features and donated f(x) — the
+        last dropped where ``explain`` drops it (path ensembles, the
+        forward-only class)."""
+        parts = self._context_parts()
+        if self._autotune_cache is not None:
+            parts.append(self._autotune_cache.entries_fingerprint())
+        h = hashlib.sha256(repr(parts).encode())
+        tok = np.ascontiguousarray(np.asarray(req.tokens, np.int32))
+        h.update(str(tok.shape).encode())
+        h.update(tok.tobytes())
+        h.update(str(int(req.target)).encode())
+        if req.features is not None:
+            f = np.ascontiguousarray(np.asarray(req.features, np.float32))
+            h.update(b"feat")
+            h.update(str(f.shape).encode())
+            h.update(f.tobytes())
+        f_x = None if self._spec.forward_only or self.n_samples > 1 else req.f_x
+        h.update(b"fx" + (np.float32(f_x).tobytes() if f_x is not None else b"none"))
+        return h.hexdigest()
+
+    def _sync_result_stats(self) -> None:
+        """Mirror the result cache's counters onto ``stats``."""
+        rc = self.result_cache
+        if rc is not None:
+            st = self.stats
+            st.result_hits, st.result_misses = rc.hits, rc.misses
+            st.result_evictions, st.result_bytes = rc.evictions, rc.bytes
 
     def _timed_call(self, bs: BucketStats, fn: Callable, args: tuple) -> Any:
         """Run one cached callable, synchronised, and charge its wall time."""
@@ -494,8 +683,7 @@ class ExplainEngine:
         args = self._bucket_inputs(bb)
         with_fx = bb.f_x is not None
         bs = self.stats.bucket(bb.bucket)
-        fn = self._executable(self._key(bb.bucket, with_fx=with_fx), bs,
-                              lambda: self._attr_fn_at(self._cfg_for(bb.bucket), with_fx=with_fx))
+        fn = self._executable(self._key(bb.bucket, with_fx=with_fx), bs, args)
         res = self._timed_call(bs, fn, args)
         bs.requests += len(bb.indices)
         return res
@@ -559,7 +747,7 @@ class ExplainEngine:
         bs = self.stats.bucket(bb.bucket)
         key = ("fwd", bb.bucket, self._spec.accum, self.n_masks, self._fwd_chunk(),
                self.use_kernels, self.attn)
-        fn = self._executable(key, bs, lambda: self._fwd_fn_at(self._cfg_for(bb.bucket)))
+        fn = self._executable(key, bs, args)
         res = self._timed_call(bs, fn, args)
         bs.requests += len(bb.indices)
         return res
@@ -597,9 +785,30 @@ class ExplainEngine:
         return r
 
     def explain(self, requests: Sequence[ExplainRequest], *, return_raw: bool = False) -> list[dict]:
-        """Serve a heterogeneous batch; results align with ``requests``
-        (``_explain_uncached``: ``repro``'s result cache is not ported)."""
-        return self._explain_uncached(requests, return_raw=return_raw)
+        """Serve a heterogeneous batch; results align with ``requests``.
+
+        With a ``result_cache`` each request's content key is looked up
+        before planning: hits replay the stored dict (a fresh copy), and only
+        the misses are planned and computed — always with their raw rows, so
+        an entry serves both ``return_raw`` variants. Degraded results are
+        never cached."""
+        rc = self.result_cache
+        if rc is None:
+            return self._explain_uncached(requests, return_raw=return_raw)
+        keys = [self.request_cache_key(r) for r in requests]
+        results: list[Optional[dict]] = [rc.get(k) for k in keys]
+        miss = [i for i, r in enumerate(results) if r is None]
+        if miss:
+            fresh = self._explain_uncached([requests[i] for i in miss], return_raw=True)
+            for i, r in zip(miss, fresh):
+                if not r.get("degraded"):
+                    rc.put(keys[i], r)
+                results[i] = r
+        self._sync_result_stats()
+        if not return_raw:
+            for r in results:
+                r.pop("raw_token_scores", None)
+        return results
 
     def _explain_uncached(self, requests: Sequence[ExplainRequest], *,
                           return_raw: bool = False) -> list[dict]:
@@ -704,7 +913,7 @@ class AdaptiveBucketRun:
         key = ("start", bb.bucket, eng._spec.accum, eng.schedule, self.m0, eng.n_int,
                self.chunk, eng.fused, eng.use_kernels, eng.attn, with_fx)
         bs = eng.stats.bucket(bb.bucket)
-        fn = eng._executable(key, bs, lambda: eng._start_fn_for(self.m0))
+        fn = eng._executable(key, bs, args)
         res, state, sched = eng._timed_call(bs, fn, args)
         self._started = True
         bs.requests += len(bb.indices)
@@ -766,7 +975,7 @@ class AdaptiveBucketRun:
         hop_key = ("hop", hop_bucket, eng._spec.accum, n_new, self.chunk,
                    eng.fused, eng.use_kernels, eng.attn)
         hbs = eng.stats.hop_bucket(hop_bucket)
-        fn = eng._executable(hop_key, hbs, lambda: eng._hop_fn_for(self.m0))
+        fn = eng._executable(hop_key, hbs, hop_args)
         res2, st2 = eng._timed_call(hbs, fn, hop_args)
         self._rung_i += 1  # only now: a hop that raised is retried at the same rung
         ast = eng.stats.adaptive

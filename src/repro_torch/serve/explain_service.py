@@ -2,9 +2,9 @@
 one-method ``ExplainService`` over ``ExplainEngine``.
 
 Requests of any length are bucketed and masked; ``method`` names an
-attribution method of ``core.methods`` and ``schedule`` a schedule family.
-``repro``'s ``autotune`` flag waits on the tuner (ROADMAP.md queue 1,
-item 5) and is not taken.
+attribution method of ``core.methods`` and ``schedule`` a schedule family;
+``autotune`` loads the per-bucket chunks tuned for the device from
+``results/`` (``serve.autotune``).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ class ExplainService:
     sigma: float = 0.0
     fused: bool = False
     use_kernels: bool = True
+    autotune: bool = False
     device: Any = "cuda"
 
     def __post_init__(self):
@@ -40,7 +41,8 @@ class ExplainService:
             self.cfg, self.params, method=self.method, schedule=self.schedule, m=self.m,
             n_int=self.n_int, chunk=self.chunk, pad_id=self.pad_id, adaptive=self.adaptive,
             tol=self.tol, m_max=self.m_max, n_samples=self.n_samples, sigma=self.sigma,
-            fused=self.fused, use_kernels=self.use_kernels, device=self.device,
+            fused=self.fused, use_kernels=self.use_kernels, autotune=self.autotune,
+            device=self.device,
         )
 
     @property

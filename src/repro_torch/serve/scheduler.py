@@ -43,10 +43,14 @@ the ring slots the chunk writes (``Model.decode_snapshot``), so it decodes what
 its first attempt would have. ``repro`` cannot retry inside a chunk (its
 chunk donates the cache), so this exactness is the port's own.
 
-Not ported yet: ``repro``'s result-cache lookups (``_cached_result``,
-``_cache_result``) wait on the result cache (ROADMAP.md queue 1, item 5);
-buckets are padded to no multiple of a data-parallel extent until the mesh
-(item 7).
+**The result cache** — with an engine ``result_cache``, an explain request
+whose content key is cached completes at admission, before backpressure
+and rate checks (no queue slot, no tenant budget), and a streamed
+position's hit never reaches the explain queue; every finished result is
+cached but a degraded one (``_cached_result``/``_cache_result``).
+
+Not ported yet: buckets are padded to no multiple of a data-parallel
+extent until the mesh (ROADMAP.md queue 1, item 7).
 
 The dispatch loop is synchronous and cooperative: ``step()`` runs exactly
 one work item, so preemption happens between items.
@@ -320,6 +324,16 @@ class MixedScheduler:
         )
         self._next_id += 1
         self.tickets.append(t)
+        if not is_gen:
+            hit = self._cached_result(req)
+            if hit is not None:
+                # a replayed result costs no queue slot and no tenant budget,
+                # so cached traffic never pushes fresh traffic into rejection
+                t.result = hit
+                t._decode_done = True
+                t._pending_explains = 0
+                self._finish(t)
+                return t
         if self.queue_depth >= self.max_queue:
             t.status = "rejected_backpressure"
             self.rejected_backpressure += 1
@@ -537,13 +551,38 @@ class MixedScheduler:
 
     # -- explain items -------------------------------------------------------
 
+    def _cached_result(self, req: ExplainRequest) -> Optional[dict]:
+        """The engine's result cache's entry for ``req`` (a fresh copy, raw
+        row dropped: tickets carry caller-facing dicts), or None."""
+        rc = self.engine.result_cache
+        if rc is None:
+            return None
+        hit = rc.get(self.engine.request_cache_key(req))
+        self.engine._sync_result_stats()
+        if hit is not None:
+            hit.pop("raw_token_scores", None)
+        return hit
+
+    def _cache_result(self, req: ExplainRequest, r: dict) -> None:
+        """Cache one finished result; a degraded fallback never is (replaying
+        a fault's zero vector forever would be wrong)."""
+        rc = self.engine.result_cache
+        if rc is not None and not r.get("degraded"):
+            rc.put(self.engine.request_cache_key(req), r)
+            self.engine._sync_result_stats()
+
     def _enqueue_explain(self, t: Ticket, *, pos: int, token: int, prompt: np.ndarray,
                          f_x: Optional[float]) -> None:
         t._pending_explains += 1
         if len(prompt) > max(self.engine.seq_buckets):
             self._deliver_degraded(t, pos, token, n_tokens=len(prompt))
             return
-        self._pending_exp.append((t, pos, token, ExplainRequest(tokens=prompt, target=token, f_x=f_x)))
+        req = ExplainRequest(tokens=prompt, target=token, f_x=f_x)
+        hit = self._cached_result(req)
+        if hit is not None:  # this position's attribution never reaches the queue
+            self._deliver(t, pos, token, hit)
+            return
+        self._pending_exp.append((t, pos, token, req))
         if not self._exp_flush_queued:
             self._exp_flush_queued = True
             self._push(_PRIO_EXPLAIN_WORK, "exp_flush", None)
@@ -553,8 +592,8 @@ class MixedScheduler:
         bucket (``per_token`` (B, S), exactly 0 at padding)."""
         per_token = per_token.cpu().numpy()
         delta, f_x, f_b = (v.cpu().numpy() for v in (res.delta, res.f_x, res.f_baseline))
-        for row, (t, pos, token, _) in enumerate(reqmap):
-            self._deliver(t, pos, token, {
+        for row, (t, pos, token, req) in enumerate(reqmap):
+            r = {
                 "token_scores": per_token[row, : bb.lens[row]],
                 "delta": float(delta[row]),
                 "f_x": float(f_x[row]),
@@ -562,7 +601,9 @@ class MixedScheduler:
                 "bucket": bb.bucket,
                 "degraded": False,
                 "raw_token_scores": per_token[row],
-            })
+            }
+            self._cache_result(req, r)
+            self._deliver(t, pos, token, r)
 
     def _degrade_items(self, reqmap) -> None:
         self.engine.stats.degraded += len(reqmap)
@@ -609,8 +650,9 @@ class MixedScheduler:
             self._push(_PRIO_HOP, "hop", payload)
             return
         # results arrive in bb.indices order, which is reqmap's
-        for r, (t, pos, token, _) in zip(run.results(), reqmap):
+        for r, (t, pos, token, req) in zip(run.results(), reqmap):
             r.pop("request", None)
+            self._cache_result(req, r)
             self._deliver(t, pos, token, r)
 
     # -- completion / degradation -------------------------------------------

@@ -611,6 +611,59 @@ def test_mixed_scheduler_on_the_card(nvcc_card):
             assert np.all(row[n:] == 0.0) and np.array_equal(row[:n], res["token_scores"])
 
 
+@pytest.mark.cuda
+def test_params_fingerprint_on_the_card_matches_the_cpu(monkeypatch):
+    """A tree on the card hashes as its CPU copy does: leaves streamed
+    through the pinned buffers in chunks of 1000 bytes (so chunk edges fall
+    inside leaves), bf16 as raw words, a 0-d leaf, an empty one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.core import fingerprint
+
+    monkeypatch.setattr(fingerprint, "_CHUNK", 1000)
+    g = torch.Generator().manual_seed(0)
+    cpu = {"w": torch.randn(37, 41, generator=g), "b": (torch.randn(999, generator=g).to(torch.bfloat16),
+           {"i": torch.arange(300, dtype=torch.int32), "s": torch.tensor(2.5), "e": torch.zeros(0)})}
+    card = {"w": cpu["w"].cuda(), "b": (cpu["b"][0].cuda(), {k: v.cuda() for k, v in cpu["b"][1].items()})}
+    assert fingerprint.params_fingerprint(card) == fingerprint.params_fingerprint(cpu)
+    card["w"][3, 5] += 1.0
+    assert fingerprint.params_fingerprint(card) != fingerprint.params_fingerprint(cpu)
+
+
+@pytest.mark.cuda
+def test_warm_state_restores_on_the_card(nvcc_card, tmp_path):
+    """An adaptive hop-zero engine on the reduced LM (flash) served until its
+    starting rungs settle (each round feeds the δ-history), then saved; a
+    fresh engine restored from it replays every key, then serves the round
+    without a miss and with the saving engine's last round's bits."""
+    import numpy as np
+
+    from repro_torch.serve import ExplainEngine, ExplainRequest, load_warm_state, save_warm_state
+
+    cfg, _, p_card = _lm_cpu_and_card("flash")
+    kw = dict(m=8, n_int=4, seq_buckets=(8, 16, 32), adaptive=True, tol=1e-3, m_max=32, hop_zero=True,
+              hop_zero_min=2, device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [ExplainRequest(rng.integers(1, cfg.vocab_size, s).astype(np.int32), 5) for s in (5, 9, 20, 7, 30)]
+    eng = ExplainEngine(cfg, p_card, **kw)
+    starts = lambda: [eng._hop_zero_m((1, S)) for S in (8, 16, 32)]
+    for _ in range(4):
+        before = starts()
+        want = eng.explain(reqs, return_raw=True)
+        if starts() == before:
+            break
+    assert starts() == before, "the starting rungs did not settle in 4 rounds"
+    save_warm_state(eng, str(tmp_path / "warm"))
+    fresh = ExplainEngine(cfg, p_card, **kw)
+    rep = load_warm_state(fresh, str(tmp_path / "warm"))
+    assert rep.restored and rep.via == "replay" and rep.executables == len(eng._cache)
+    got = fresh.explain(reqs, return_raw=True)
+    assert fresh.stats.misses == 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a["raw_token_scores"], b["raw_token_scores"])
+        assert (a["delta"], a["m_used"]) == (b["delta"], b["m_used"])
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
     the flash op and the solve op run on CPU tensors, no library is loaded,
