@@ -95,6 +95,14 @@ class ArchConfig:
         return self.encoder_layers > 0
 
     @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
     def layer_specs(self) -> tuple[LayerSpec, ...]:
         """Pattern repeated/truncated to exactly ``num_layers`` entries."""
         pat = tuple(self.pattern)
@@ -126,10 +134,9 @@ class ArchConfig:
             if s.mixer in ("attn", "local"):
                 total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d
             elif s.mixer == "mamba":
-                di, ns = self.ssm_expand * d, self.ssm_state
-                heads = di // self.ssm_head_dim if ns else 0
-                total += d * (2 * di + 2 * self.ssm_groups * ns + heads)
-                total += di * self.ssm_conv + di * d + heads * 2
+                di, ns = self.d_inner, self.ssm_state
+                total += d * (2 * di + 2 * self.ssm_groups * ns + self.ssm_heads)
+                total += di * self.ssm_conv + di * d + self.ssm_heads * 2
             if s.ffn == "dense" and self.d_ff:
                 total += 3 * d * self.d_ff
             elif s.ffn == "moe":
@@ -138,6 +145,15 @@ class ArchConfig:
         if self.is_encdec:  # cross-attention in every decoder layer
             total += self.num_layers * (d * hd * (n_q + 2 * n_kv) + n_q * hd * d)
         return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        eff = self.moe_d_ff or self.d_ff
+        inactive = sum((self.num_experts - self.experts_per_tok) * 3 * self.d_model * eff
+                       for s in self.layer_specs if s.ffn == "moe")
+        return self.param_count() - inactive
 
 
 def reduced(cfg: ArchConfig, *, seq: int = 64) -> ArchConfig:

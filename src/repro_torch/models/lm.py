@@ -1,6 +1,7 @@
-"""The language model of ``repro.models.lm``, for the dense LMs: the
-llama-style stacks of full-attention layers, and gemma3's pattern of
-sliding-window (local) layers between full-attention ones.
+"""The language model of ``repro.models.lm``: the llama-style stacks of
+full-attention layers, gemma3's pattern of sliding-window (local) layers
+between full-attention ones, the MoE stacks (qwen3-moe), the attention-free
+Mamba-2 stack (mamba2) and the hybrid of all three (jamba).
 
 Parameters keep ``repro``'s tree: ``embed`` (``embedding`` (V, d), and
 ``unembed`` (d, V) unless tied), ``final_norm``, ``layers`` — a tuple over
@@ -13,14 +14,15 @@ Entry points: ``param_defs`` / ``init_params`` (parameters),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
 differentiates through), ``logits``, and serving: ``init_cache``,
 ``prefill``, ``decode_step`` and ``decode_snapshot`` (what a retried
-decode chunk restores). ``repro``'s MoE auxiliary loss is 0 for
-these layers and is not returned. Not ported yet: the encoder, the stub
-frontends and the training loss.
+decode chunk restores). ``repro``'s MoE auxiliary loss is not returned: it
+feeds only the training loss, which is not ported yet, nor are the
+encoder and the stub frontends.
 
 The decode cache is ``repro``'s tree: ``layers`` (per pattern entry, k and
 v stacked over the periods, (P, B, slots, NKV, D): ``max_len`` slots for a
-full-attention layer, a ring of min(w, max_len) for a local one), ``rem``
-and ``len``, the one valid length of the batch. Its tensors are written in place, the
+full-attention layer, a ring of min(w, max_len) for a local one; a mamba
+layer's f32 state (P, B, H, hd, N) and conv tail (P, B, W − 1, channels)),
+``rem`` and ``len``, the one valid length of the batch. Its tensors are written in place, the
 port's counterpart of ``repro``'s donated cache: no step copies the cache,
 and a cache passed to ``decode_step`` is the one it returns. ``len`` is a
 () int32 tensor on the CPU: the host drives the loop and indexes the cache
@@ -41,14 +43,15 @@ from repro_torch.models.layers import embed, embed_def, rmsnorm, rmsnorm_def, un
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this LM cannot build: any
-    layer but (attn, dense) and, with a sliding window, (local, dense); a
-    frontend or an encoder."""
-    allowed = {("attn", "dense")} | ({("local", "dense")} if cfg.sliding_window else set())
-    if not {(s.mixer, s.ffn) for s in cfg.pattern} <= allowed or cfg.frontend or cfg.is_encdec:
+    """Raise ``NotImplementedError`` for a config this LM cannot build: a
+    layer without a mixer, a local layer without a window, a frontend or an
+    encoder."""
+    ok = all(s.mixer in ("attn", "mamba") or (s.mixer == "local" and cfg.sliding_window)
+             for s in cfg.pattern)
+    if not ok or cfg.frontend or cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the port's LM builds full-attention dense layers, and sliding-window "
-            "ones, without frontend or encoder only")
+            f"{cfg.name}: the port's LM builds attention, sliding-window and Mamba-2 layers with "
+            "dense, MoE or no FFN, without frontend or encoder only")
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -156,8 +159,8 @@ def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
     """token (B, 1) -> (logits (B, 1, V), the cache one longer). Raises
     ``ValueError`` when the cache of a full-attention layer that runs is
     full, where ``repro``'s clamped write would overwrite its last slot;
-    local layers' rings never fill, so a model that runs local layers only
-    has no cap."""
+    local layers' rings never fill and a mamba layer keeps a state, so a
+    model without full-attention layers (mamba2) has no cap."""
     pos = int(cache["len"])
     cap = next((lc["k"].shape[1] for spec, lc in _per_layer(cfg, cache) if spec.mixer == "attn"), None)
     if cap is not None and pos >= cap:
@@ -173,8 +176,9 @@ def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
 
 def decode_snapshot(cfg: ArchConfig, cache: dict, n: int) -> Callable[[], None]:
     """Save the state of ``cache`` that a decode chunk of ``n`` steps
-    overwrites and still reads: its length and, in each local layer's ring,
-    the slots the steps write (``blocks.decode_snapshot``). Returns the
+    overwrites and still reads: its length, in each local layer's ring the
+    slots the steps write, and each mamba layer's state and conv tail
+    (``blocks.decode_snapshot``). Returns the
     callable that puts it back, so that a chunk retried after a fault
     decodes what its first attempt would have."""
     length = cache["len"].clone()

@@ -6,7 +6,8 @@ explain engine serves through.
 bucketed serving output, and an embedding hook (``embed_inputs`` for token
 models, ``embed_features`` for patch models); ``Model`` also binds the
 decode cache's ``init_cache``, ``prefill`` and ``decode_step`` (full-attention
-layers' static cache, local layers' rings). ``repro``'s
+layers' static cache, local layers' rings, mamba layers' state and conv
+tail). ``repro``'s
 dry-run input specs and training loss are not ported here.
 """
 from __future__ import annotations
@@ -71,8 +72,12 @@ class Model:
         position of each row's last real token}: the logits are taken at
         ``h[rows, pos]`` only, so no (B, S, V) tensor exists. On the flash
         path the rows' lengths pos + 1 reach the kernels as ``kvlen``, as in
-        ``repro``; the plain path needs no mask (causal right padding is
-        already exact)."""
+        ``repro``; the plain path needs no mask: causal right padding is
+        already exact for attention, and for an SSM, which is causal too.
+        Not for a MoE layer: its capacity is sized from all the call's
+        tokens, padding included, and they compete for the experts' slots,
+        so padding and batchmates can displace a real token's choice, as in
+        ``repro``. Neither path masks that."""
         flash = self.cfg.attn_impl == "flash"
 
         def f(e: torch.Tensor, aux: dict) -> torch.Tensor:

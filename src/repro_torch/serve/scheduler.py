@@ -38,9 +38,10 @@ Sampling: each generate group gets one ``torch.Generator`` on the engine's
 device, seeded with the group's seed (0 for a greedy group), and draws in a
 fixed order: the prefill token's noise (sampled groups only), then every
 step of every decode chunk. A retried decode chunk first restores the
-cache's length, the generator's state and, where local layers hold rings,
-the ring slots the chunk writes (``Model.decode_snapshot``), so it decodes what
-its first attempt would have. ``repro`` cannot retry inside a chunk (its
+cache's length, the generator's state, where local layers hold rings the
+ring slots the chunk writes, and where mamba layers hold an SSM state that
+state and the conv tail whole (``Model.decode_snapshot``), so it decodes
+what its first attempt would have. ``repro`` cannot retry inside a chunk (its
 chunk donates the cache), so this exactness is the port's own.
 
 **The result cache** — with an engine ``result_cache``, an explain request
@@ -513,7 +514,7 @@ class MixedScheduler:
             lambda: lambda cache, tok, gen, t: self._chunk_fn(eng.params, cache, tok, gen, t, n))
         # every attempt starts from the state the first one found: the
         # generator's, and the cache's that the chunk overwrites and still
-        # reads (its length, and the ring slots of local layers)
+        # reads (its length, the ring slots of local layers, mamba layers' states)
         restore_cache, gen_state = eng.model.decode_snapshot(st.cache, n), st.generator.get_state()
 
         def attempt():

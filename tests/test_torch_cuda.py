@@ -14,7 +14,9 @@ summation order over up to 150,528 terms), its accumulation 1e-5 relative
 to the largest |value|; the reduced LM on the card against the CPU (f32,
 TF32 off): log-probs, f(x) and decode logits 1e-5, engine token scores
 1e-4 of a request's largest |score| (f32 products summed in another
-order), generated tokens exactly;
+order), generated tokens exactly; the MoE layer on the card against the CPU (f32,
+TF32 off) 1e-5 of the largest |value|, the SSD mixer 1e-4 (sums over a
+256-token chunk), the MoE's routing and its repeats exactly;
 flash attention 1e-4 in f32 and 3e-2 in bf16, absolute and relative (the
 JAX package's own flash tolerances: sums over D and over keys in another
 order, and one bf16 rounding of each output); the Gauss–Jordan solve 1e-6
@@ -662,6 +664,107 @@ def test_warm_state_restores_on_the_card(nvcc_card, tmp_path):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a["raw_token_scores"], b["raw_token_scores"])
         assert (a["delta"], a["m_used"]) == (b["delta"], b["m_used"])
+
+
+@pytest.fixture
+def cuda_gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _moe_layer(gen, dtype):
+    """A qwen3-moe layer at d=512, 32 experts top-8 of 128 (full routing
+    rules), over 4 × 512 tokens: each token's 8 choices meet in its
+    gradient, and a capacity factor of 1 drops some."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params
+
+    cfg = replace(ARCHS["qwen3-moe-30b-a3b"], d_model=512, num_experts=32, moe_d_ff=128,
+                  capacity_factor=1.0)
+    p = init_params(moe.moe_def(cfg), gen, device="cuda")
+    x = torch.randn((4, 512, 512), generator=gen, device="cuda").to(dtype)
+    return cfg, p, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_repeats_bit_for_bit_on_the_card(cuda_gen, dtype):
+    """Dispatch and combine are gathers in both directions: two calls give
+    the same output and input gradient bit for bit (a scatter-add's float
+    atomics would not)."""
+    from repro_torch.models import moe
+
+    cfg, p, x = _moe_layer(cuda_gen, dtype)
+    w = torch.randn(x.shape, generator=cuda_gen, device="cuda").to(dtype)
+    outs = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        y, aux = moe.moe(p, xg, cfg)
+        (y * w).sum().backward()
+        outs.append((y.detach(), aux.detach(), xg.grad))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    r = moe.route(p["router"], x.reshape(-1, x.shape[-1]), cfg)
+    assert 0 < int((~r.keep).sum()) < r.keep.numel()  # some choices dropped, most kept
+
+
+@pytest.mark.cuda
+def test_moe_on_the_card_matches_the_cpu(cuda_gen):
+    """f32, TF32 off: output and input gradient within 1e-5 of the CPU's
+    largest |value| (f32 products summed in another order), where the
+    routing is the same."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _moe_layer(cuda_gen, torch.float32)
+    got, want = [], []
+    for dev, into in (("cuda", got), ("cpu", want)):
+        pd = tree_map(lambda _, t: t.to(dev), p)
+        xd = x.detach().to(dev).requires_grad_()
+        y, _ = moe.moe(pd, xd, cfg)
+        y.square().sum().backward()
+        r = moe.route(pd["router"], xd.detach().reshape(-1, x.shape[-1]), cfg)
+        into += [y.detach().cpu(), xd.grad.cpu(), r.keep.cpu()]
+    assert torch.equal(got[2], want[2])
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [256, 997], ids=["S=256 (one chunk)", "S=997 (chunk 1)"])
+def test_ssd_on_the_card_matches_the_cpu(cuda_gen, S):
+    """mamba2-780m's SSD mixer at full width (48 heads of 64, state 128,
+    chunk 256), f32, TF32 off: the output, the prefill's state and conv
+    tail, and at S=256 the input gradient (finite: the mask comes before
+    the exponential), within 1e-4 of the CPU's largest |value| (sums over
+    a 256-token chunk in another order: the state parts by 1.4e-5 of it)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import ssm
+    from repro_torch.models.common import init_params, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(ARCHS["mamba2-780m"], compute_dtype="float32")
+    p = init_params(ssm.ssm_def(cfg), cuda_gen, device="cuda")
+    u = torch.randn((1, S, cfg.d_model), generator=cuda_gen, device="cuda")
+    got, want = [], []
+    for dev, into in (("cuda", got), ("cpu", want)):
+        pd = tree_map(lambda _, t: t.to(dev), p)
+        ud = u.detach().to(dev).requires_grad_(S == 256)
+        out, cache = ssm.ssm_forward_with_state(pd, ud, cfg)
+        into += [out.detach().cpu(), cache["state"].cpu(), cache["conv"].cpu()]
+        if S == 256:
+            out.square().sum().backward()
+            into.append(ud.grad.cpu())
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):

@@ -30,7 +30,7 @@ from repro.models.registry import Model as JModel
 from repro.serve import batching as jbatch
 from repro.serve.autotune import HotpathConfig as JHotpathConfig, bucket_key as j_bucket_key
 from repro.serve.explain_engine import ExplainRequest as JRequest
-from repro_torch.configs import ARCHS, LayerSpec, reduced
+from repro_torch.configs import ARCHS, ArchConfig, LayerSpec, reduced
 from repro_torch.configs.vit import reduced_vit
 from repro_torch.core.probes import cat_tree, repeat_tree
 from repro_torch.models import layers, lm, vit as tvit
@@ -65,22 +65,37 @@ def _tokens(B=3, S=24, seed=0):
 
 
 def test_configs_are_copies():
-    assert set(ARCHS) == {"gemma3-27b", "llama3-8b", "internlm2-20b", "yi-9b"}
+    assert set(ARCHS) == set(J_ARCHS) - {"whisper-tiny", "internvl2-26b"} == {
+        "gemma3-27b", "llama3-8b", "internlm2-20b", "yi-9b", "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
+        "mamba2-780m", "jamba-v0.1-52b"}
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(J_ARCHS[name])
         assert dataclasses.asdict(reduced(cfg)) == dataclasses.asdict(j_reduced(J_ARCHS[name]))
         assert cfg.param_count() == J_ARCHS[name].param_count()
+        assert cfg.active_param_count() == J_ARCHS[name].active_param_count()
+        assert (cfg.d_inner, cfg.ssm_heads) == (J_ARCHS[name].d_inner, J_ARCHS[name].ssm_heads)
+        model_for(cfg)
     cfg = reduced(ARCHS["llama3-8b"])
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
             cfg.vocab_size) == (2, 64, 4, 2, 16, 512)
 
 
-@pytest.mark.parametrize("change", [dict(pattern=(LayerSpec("mamba", "dense"),)),
-                                    dict(pattern=(LayerSpec("attn", "moe"),)),
-                                    dict(frontend="vision")])
-def test_model_for_refuses_what_the_lm_cannot_build(change):
-    cfg = dataclasses.replace(reduced(ARCHS["llama3-8b"]), **change)
-    with pytest.raises(NotImplementedError, match="full-attention dense layers"):
+def _port_config(jcfg):
+    """A ``repro`` config as the port's ``ArchConfig``, field for field."""
+    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    fields["pattern"] = tuple(LayerSpec(s.mixer, s.ffn) for s in jcfg.pattern)
+    return ArchConfig(**fields)
+
+
+@pytest.mark.parametrize("case", ["vision frontend", "internvl2-26b", "whisper-tiny"])
+def test_model_for_refuses_what_the_lm_cannot_build(case):
+    """A stub frontend (internvl2-26b's vision one) or an encoder
+    (whisper-tiny's, with its audio frontend) is not ported."""
+    if case == "vision frontend":
+        cfg = dataclasses.replace(reduced(ARCHS["llama3-8b"]), frontend="vision")
+    else:
+        cfg = _port_config(j_reduced(J_ARCHS[case]))
+    with pytest.raises(NotImplementedError, match="without frontend or encoder"):
         model_for(cfg)
 
 

@@ -320,7 +320,8 @@ def test_get_config_is_repro_s(name):
 
 
 def test_get_config_knows_only_the_port_s_archs():
-    assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b", "gemma3-27b"}
-    for name in ("paper-cnn", "vit-s16", "nope"):
+    assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b", "gemma3-27b", "qwen3-moe-30b-a3b",
+                          "qwen3-moe-235b-a22b", "mamba2-780m", "jamba-v0.1-52b"}
+    for name in ("paper-cnn", "vit-s16", "whisper-tiny", "internvl2-26b", "nope"):
         with pytest.raises(KeyError):
             get_config(name)
