@@ -8,8 +8,9 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
 
   1. device — the ``nvidia-smi`` name and power-limit line;
   2. Triton kernels — builds the six Triton kernels (the compile cache
-     goes to ``build/triton``) while two threads build the CUDA flash and
-     solve libraries (``build/cuda``), and holds each Triton kernel against its plain
+     goes to ``build/triton``) while two threads build the CUDA flash
+     library (its 7 parts compiled at once) and the solve library
+     (``build/cuda``), and holds each Triton kernel against its plain
      PyTorch version on the card: at the CNN path's shape (B=16, K=64,
      F=3072, f32) and the ViT path's (B=16, K=16, F=150,528), at a ragged
      masked shape through the op wrappers, in bf16, and (IDGI's two) on
@@ -194,7 +195,35 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
  18. jamba-v0.1-52b at full width, 5 layers (M_D M_E M_D M_E A_D, no whole
      period) — ``ExplainEngine`` ``ig`` over 6 requests of 17–128 tokens,
      m=64, served twice with the peak gate and a profiled warm round, and a
-     greedy generate of 2 × 128 + 32 against a fresh forward (printed).
+     greedy generate of 2 × 128 + 32 against a fresh forward (printed);
+ 19. whisper-tiny at full width and depth (4 encoder and 4 decoder layers,
+     d=384, 1500 seeded frames a prompt, bf16, flash) — the encoder alone
+     (4 non-causal flash forwards over 1500 frames); greedy 4 × 32 + 32
+     (the prefill's flash forwards: the encoder's non-causal, the
+     decoder's causal); f32 decode against a fresh forward and the card
+     against the CPU within 1e-4; ``ExplainEngine`` ``ig`` over the token
+     stream on the 20 requests, served twice with the peak gate, then in
+     f32 (4 prompts, m=16) on the card against the CPU within 1e-4;
+ 20. internvl2-26b explanations — ``ExplainEngine`` at full width, 4 of 48
+     layers, bf16, flash, over the 20 requests at the largest fitting
+     chunk: ``ig`` unfused and fused, each served twice (no miss, the same
+     bits, the peak gate); fused against unfused printed in bf16 beside an
+     unfused run from the fused path's interpolants (uncounted); on the 3
+     requests the bf16 paths part most, f32 fused against unfused at the
+     same depth within 1e-4 and each bf16 run printed against f32; the
+     card against the CPU (f32, 2 layers, m=8) within 1e-4; a
+     ``MixedScheduler`` round of 2 greedy generates and 2 explain-only
+     requests, token-only, the tokens and scores the engines' own;
+ 21. internvl2-26b generation — ``ServeEngine`` at 24 layers: 16 × (256
+     seeded patches + 128) + 32 greedy at ``max_len`` 416 (``repro``'s
+     sizing, prompt + new, refused before the prefill); bf16 decode
+     against a fresh forward printed; at 2 layers f32 decode against a
+     fresh forward and the card against the CPU within 1e-4;
+ 22. the launchers — seven command lines of ``repro_torch.launch.explain``
+     and ``.serve`` run in-process through ``run`` (``LAUNCHES_BY_RUN``):
+     each returns 0 with finite δ, launches exactly its path's kernels,
+     adds no miss at a seen bucket, and internvl2's classic greedy tokens
+     equal a direct ``ServeEngine`` call's on the same draws.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -213,6 +242,14 @@ beside SDPA (``at_gemma_explain``); ``local_attention``'s blocked path at
 2 × 4096 against the masked ``full_attention(window=1024)``, both timed; and
 the four stage-2 kernels of ``ig`` at that bucket's (1, 4, 2048·5376) in
 bf16 against their plain versions beside their bounds (``at_gemma_explain``).
+Then at phases 19–21's shapes, bf16: the flash forward at whisper's
+encoder (4 × 1500, 6 heads of 64, non-causal; ``at_encoder``) and at
+internvl2's prefill (16 × 384, 48 on 8, D=128, causal;
+``at_vlm_prefill``); the trio at the explain buckets (B·chunk rows,
+ragged) of whisper (16x128, ``at_whisper_explain``) and internvl2 (16x128
+and 4x512, ``at_vlm_explain`` and ``at_vlm_explain_512``) beside SDPA;
+and the four stage-2 kernels of ``ig`` at internvl2's two buckets (S ·
+6144) under the same two names.
 
 Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
@@ -829,6 +866,15 @@ def _need(paths_launched: dict, path: str, launched: dict, names) -> None:
         raise AssertionError(f"{path}: kernels not launched {missing}, unexpected {extra}")
 
 
+def _slice(paths_launched: dict) -> dict:
+    """A slice phase's result: the launches and carry ranks since its
+    ``reset_launches`` and each path's first launches."""
+    from repro_torch.kernels import common
+
+    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
+            "per_path": paths_launched}
+
+
 def _near_tie_rows(vals: torch.Tensor, m: int) -> torch.Tensor:
     """Rows whose largest-remainder ranking is within 1e-5 of a tie (or of a
     floor boundary), where two devices' probe values may allocate apart."""
@@ -945,8 +991,7 @@ def slice_phase() -> dict:
             for key in ("m_used", "hops", "converged"):
                 if not ((info[key] == info_c[key]) | edge).all():
                     raise AssertionError(f"card vs CPU adaptive {key}: {info[key]} != {info_c[key]}")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def _tree_to(tree: dict, device: str) -> dict:
@@ -1079,8 +1124,7 @@ def vit_phase(method: str) -> dict:
             _profile(f"{tag} unfused", lambda: ex.attribute(x, bl, t))
             _profile(f"{tag} fused", lambda: ex_fused.attribute(x, bl, t))
     print(f"  peak device memory over the {tag} slice: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def zoo_phase() -> dict:
@@ -1154,8 +1198,7 @@ def zoo_phase() -> dict:
         raise AssertionError(f"zoo lime cells: non-finite result or shape {tuple(res.attributions.shape)}")
     print(f"  lime over {xc.shape[1]} cells of {CNN_CELL}×{CNN_CELL}×{cfg.channels}: {ms:.2f} ms, "
           f"{N_MASKS} masks a row, mean |score| {float(res.attributions.abs().mean()):.3g}")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def _perturb_close(name: str, got, want, amp: torch.Tensor) -> None:
@@ -1259,8 +1302,7 @@ def vit_fwd_phase() -> dict:
               f"mean δ {float(res.delta.mean()):.3g}")
     print(f"  peak device memory over the forward-only slice: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 # ---------------------------------------------------------------- the LM engine
@@ -1468,8 +1510,7 @@ def engine_phase() -> dict:
     want = torch.nn.utils.rnn.pad_sequence([torch.from_numpy(r["token_scores"]) for r in res_c], True)
     _attr_close("card vs CPU token scores", got, want, ~tied)
     print(f"  peak device memory over the LM engine phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 # ---------------------------------------------------------------- the caches
@@ -1976,41 +2017,25 @@ def serve_kernel_phase(records: list) -> None:
     bf16 rate and one SDPA forward on the same tensors; then at the GQA
     groups of internlm2-20b and yi-9b with ragged lengths. The flash
     forward's record gains ``at_prefill_shapes`` and ``at_gqa_groups``."""
-    import torch.nn.functional as tnf
-
     from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
 
     g = torch.Generator(device=DEV).manual_seed(6)
     bf, tol = torch.bfloat16, FLASH_TOL[torch.bfloat16]
     rec = next(r for r in records if r["name"] == "flash_fwd")
-    for shapes, ragged, into in ((PREFILL_ATTN, False, "at_prefill_shapes"),
-                                 (GQA_ATTN, True, "at_gqa_groups")):
-        rec[into] = {}
-        for Bq, S, NQ, NKV, D in shapes:
-            q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, ragged)
-            print(f"flash forward at B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, "
-                  + (f"ragged kvlen {kvlen.tolist()}:" if ragged else "every key:"))
-            o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
-            o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
-            _sync()
-            err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
-            err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
-            out = {"max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol}
-            if not ragged:  # timed at the prefills' own shapes
-                ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
-                work = _causal_pairs(S, kvlen) * NQ * D
-                nbytes = 2 * (2 * Bq * NQ * S * D) + 2 * (2 * Bq * NKV * S * D) + 4 * Bq * NQ * S
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * work / BF16_FLOPS
-                out.update(
-                    ms=_cold_ms(lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)),
-                    plain_ms=_cold_ms(lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=True)),
-                    bound_ms=max(t_bytes, t_ops) * 1e3,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations (bf16)",
-                    library_ms=_cold_ms(lambda: tnf.scaled_dot_product_attention(q, ke, ve, is_causal=True)))
-                print(f"  flash_fwd: {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, SDPA forward "
-                      f"{out['library_ms']:.4f} ms (its own backend choice, causal, K/V repeated), bound "
-                      f"{out['bound_ms']:.4f} ms ({out['bound_by']}), {out['bound_ms'] / out['ms']:.3f} of it")
-            rec[into][f"B={Bq} S={S} NQ={NQ} NKV={NKV} D={D}"] = out
+    rec["at_prefill_shapes"] = {f"B={Bq} S={S} NQ={NQ} NKV={NKV} D={D}": _flash_fwd_timed(
+        g, (Bq, S, NQ, NKV, D), True, "a prefill's attention") for Bq, S, NQ, NKV, D in PREFILL_ATTN}
+    rec["at_gqa_groups"] = {}
+    for Bq, S, NQ, NKV, D in GQA_ATTN:
+        q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, True)
+        print(f"flash forward at B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, ragged kvlen "
+              f"{kvlen.tolist()}:")
+        o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+        o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
+        _sync()
+        err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
+        err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
+        rec["at_gqa_groups"][f"B={Bq} S={S} NQ={NQ} NKV={NKV} D={D}"] = {
+            "max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol}
 
 
 def _row_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float, gate: bool = True) -> float:
@@ -2051,10 +2076,11 @@ def _generated(paths_launched: dict, path: str, fn, vocab: int, kernels=("flash_
     return out, ms
 
 
-def _teacher_forced(model, params, prompts: torch.Tensor, toks: torch.Tensor, max_len: int):
-    """Decode logits (B, n, V): the prefill's, then ``decode_step`` fed
-    ``toks[:, :-1]``."""
-    lg, cache = model.prefill(params, {"tokens": prompts}, max_len)
+def _teacher_forced(model, params, prompts: torch.Tensor, toks: torch.Tensor, max_len: int, frontend=None):
+    """Decode logits (B, n, V): the prefill's (with ``frontend`` features
+    for a frontend config), then ``decode_step`` fed ``toks[:, :-1]``."""
+    batch = {"tokens": prompts} if frontend is None else {"tokens": prompts, "frontend": frontend}
+    lg, cache = model.prefill(params, batch, max_len)
     out = [lg[:, -1]]
     for j in range(toks.shape[1] - 1):
         lg, cache = model.decode_step(params, cache, toks[:, j:j + 1])
@@ -2063,13 +2089,16 @@ def _teacher_forced(model, params, prompts: torch.Tensor, toks: torch.Tensor, ma
 
 
 @torch.no_grad()
-def _fresh(model, params, prompts: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
-    """Logits (B, n, V) of one causal forward over prompt + toks[:, :-1] at
+def _fresh(model, params, prompts: torch.Tensor, toks: torch.Tensor, frontend=None) -> torch.Tensor:
+    """Logits (B, n, V) of one causal forward over prompt + toks[:, :-1]
+    (after a vision config's patches, over an encoder-decoder's frames) at
     the positions that predict each of ``toks``: a fresh forward over each
     prefix, all at once."""
     full = torch.cat([prompts, toks[:, :-1].to(prompts.dtype)], 1)
-    h = model.hidden_from_embeds(params, model.embed_inputs(params, {"tokens": full}))
-    return model.logits(params, h[:, prompts.shape[1] - 1:])
+    batch = {"tokens": full} if frontend is None else {"tokens": full, "frontend": frontend}
+    h = model.forward_hidden(params, batch)
+    patches = h.shape[1] - full.shape[1]
+    return model.logits(params, h[:, patches + prompts.shape[1] - 1:])
 
 
 def _layers_of(params: dict, n: int) -> dict:
@@ -2248,8 +2277,7 @@ def serve_phase() -> dict:
                    _fresh(m3, p, pr, out), ENGINE_TOL)
         del p
     print(f"  peak device memory over the serve phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 # ---------------------------------------------------------------- mixed serving
@@ -2606,8 +2634,7 @@ def mixed_phase() -> dict:
           f"{ms:.1f} ms, every attribution lime.explain's bit for bit; preempted {lime.stats.preempted}, degraded {lime.stats.degraded}; latency "
           f"{_latencies(sl)}")
     print(f"  peak device memory over the mixed phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 # ------------------------------------------------------------------ gemma3-27b
@@ -2671,39 +2698,15 @@ def gemma_kernel_phase(records: list) -> None:
     shape against their plain versions. The flash records gain
     ``at_gemma_prefill`` and ``at_gemma_explain``, the stage-2 ones
     ``at_gemma_explain``."""
-    import torch.nn.functional as tnf
-
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
     from repro_torch.models.attention import full_attention, local_attention
 
     g = torch.Generator(device=DEV).manual_seed(9)
     bf, tol = torch.bfloat16, FLASH_TOL[torch.bfloat16]
     by_name = {r["name"]: r for r in records}
+    by_name["flash_fwd"]["at_gemma_prefill"] = _flash_fwd_timed(g, GEMMA_PREFILL_ATTN, True,
+                                                                "gemma3-27b's prefill attention")
     Bq, S, NQ, NKV, D = GEMMA_PREFILL_ATTN
-    q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
-    print(f"flash forward at gemma3-27b's prefill attention B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, "
-          "causal, every key:")
-    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
-    o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
-    _sync()
-    err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
-    err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
-    del o, lse, o_ref, lse_ref
-    ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
-    work = _causal_pairs(S, kvlen) * NQ * D
-    nbytes = 2 * (2 * Bq * NQ * S * D) + 2 * (2 * Bq * NKV * S * D) + 4 * Bq * NQ * S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * work / BF16_FLOPS
-    rec = {"max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol,
-           "ms": _cold_ms(lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)),
-           "plain_ms": _cold_ms(lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=True)),
-           "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations (bf16)",
-           "library_ms": _cold_ms(lambda: tnf.scaled_dot_product_attention(q, ke, ve, is_causal=True))}
-    by_name["flash_fwd"]["at_gemma_prefill"] = rec
-    print(f"  flash_fwd: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA forward "
-          f"{rec['library_ms']:.4f} ms (its own backend choice, causal, K/V repeated), bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.3f} of it")
-    del ke, ve
+    q, k, v, _, _ = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
 
     # the local layers' attention (plain PyTorch on the card, as in repro): blocked vs masked
     w = _gemma_config(GEMMA_ENGINE_LAYERS).sliding_window
@@ -2812,8 +2815,7 @@ def gemma_serve_phase() -> dict:
     _row_close("gemma card vs CPU decode logits, teacher-forced on the CPU's tokens",
                _teacher_forced(m_n, p_card, prompts, out_c.to(DEV), S + new).cpu(), tf_c, LOGIT_TOL_F32)
     print(f"  peak device memory over the gemma serve phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def gemma_engine_phase() -> dict:
@@ -2903,8 +2905,7 @@ def gemma_engine_phase() -> dict:
             _attr_close(f"gemma card vs CPU token scores, request {i}", torch.from_numpy(a["token_scores"])[None],
                         torch.from_numpy(b["token_scores"])[None])
     print(f"  peak device memory over the gemma engine phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def gemma_mixed_phase() -> dict:
@@ -3044,8 +3045,7 @@ def gemma_mixed_phase() -> dict:
     print(f"  control ({ms:.1f} ms): the same fault with the rings unsaved gives other logits and cache "
           f"({differ} of {n_gen} generates' tokens differ), so the gate above can fail")
     print(f"  peak device memory over the gemma mixed phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 # ------------------------------------------- MoE and Mamba-2 (SSD): qwen3-moe, mamba2, jamba
@@ -3258,8 +3258,7 @@ def moe_engine_phase() -> dict:
     if not bool(tied.all()):
         _attr_close("moe card vs CPU token scores", got, want, ~tied)
     print(f"  peak device memory over the moe engine phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def moe_serve_phase() -> dict:
@@ -3340,8 +3339,7 @@ def moe_serve_phase() -> dict:
         _row_close("moe serve card vs CPU decode logits, teacher-forced on the CPU's tokens", tf_g, tf_c,
                    LOGIT_TOL_F32)
     print(f"  peak device memory over the moe serve phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def _cache_tensors(cache: dict) -> list:
@@ -3530,8 +3528,7 @@ def ssm_phase() -> dict:
                              "logits and states, so the gate above cannot fail")
     print(f"  control ({ms:.1f} ms): the same fault with the SSM states unsaved gives other logits and states")
     print(f"  peak device memory over the ssm phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
 
 
 def hybrid_phase() -> dict:
@@ -3583,8 +3580,612 @@ def hybrid_phase() -> dict:
                f"{max(c['dropped'] for c in fresh_calls):.4f} of the fresh forward's, a layer)",
                tf, fresh, ENGINE_TOL, gate=False)
     print(f"  peak device memory over the hybrid phase: {_peak_gb():.2f} GB")
-    return {"launches": dict(common.LAUNCHES), "carry_ranks": dict(common.CARRY_RANKS),
-            "per_path": paths_launched}
+    return _slice(paths_launched)
+
+
+# ---------------------------------- whisper-tiny, internvl2-26b and the launchers
+
+ENCODER_ATTN = (4, 1500, 6, 6, 64)  # whisper's encoder self-attention (B, S, NQ, NKV, D), non-causal
+VLM_PREFILL_ATTN = (16, 384, 48, 8, 128)  # internvl2's prefill: 256 patches + 128 tokens, causal
+WHISPER_GEN = (4, 32, 32)  # prompts, tokens, new, over 1500 frames each
+WHISPER_CPU = (2, 16, 8)  # card vs CPU, f32, full depth: prompts, tokens, new
+WHISPER_ENGINE_CPU = (4, 64, 16)  # the engine's card vs CPU, f32, full depth: prompts, most tokens, m
+VLM_ENGINE_LAYERS = 4  # internvl2-26b at full width, 4 of 48 layers: 10.9 GB of f32 weights
+VLM_ENGINE_F32 = (2, 2, 16, 8)  # f32 card vs CPU: layers, prompts, most tokens, m
+VLM_REF_N = 3  # f32 at the engine's depth on this many requests: those the bf16 paths part most
+VLM_SERVE = (24, 16, 128, 32)  # layers (42.1 GB), prompts, text tokens, new: max_len 256 + 128 + 32
+VLM_F32 = (2, 2, 16, 8)  # f32 decode vs a fresh forward: layers (7.7 GB), prompts, tokens, new
+VLM_CPU = (1, 16, 4)  # card vs CPU at VLM_F32's depth: prompts, text tokens, new
+VLM_MIXED = (2, 128, 16, 2)  # generates: requests, tokens, new; explain-only requests
+# the command lines driven in-process, each with the kernels its path must launch
+LAUNCHES_BY_RUN = (
+    ("explain", ["--arch", "internvl2-26b", "--full", "--layers", "4", "--attn", "flash", "--rounds", "2"],
+     PATH_KERNELS["riemann"][0] + FLASH),
+    ("explain", ["--arch", "whisper-tiny", "--full", "--attn", "flash", "--fused", "--adaptive", "--m", "8",
+                 "--m-max", "64", "--workload", "prompt", "--rounds", "2"], PATH_KERNELS["riemann"][1] + FLASH),
+    ("explain", ["--workload", "vit", "--attn", "flash", "--rounds", "2"], PATH_KERNELS["riemann"][0] + FLASH),
+    ("serve", ["--arch", "internvl2-26b", "--full", "--layers", "24", "--batch", "4", "--prompt-len", "128",
+               "--tokens", "32"], ()),
+    ("serve", ["--arch", "internvl2-26b", "--full", "--layers", "24", "--batch", "4", "--prompt-len", "128",
+               "--tokens", "32", "--sample"], ()),
+    ("serve", ["--arch", "whisper-tiny", "--full", "--tokens", "32"], ()),
+    ("serve", ["--mixed", "--arch", "llama3-8b", "--full", "--layers", "4", "--rounds", "2"],
+     PATH_KERNELS["riemann"][0]),
+)
+
+
+def _flash_fwd_timed(g, shape, causal: bool, what: str) -> dict:
+    """The flash forward at ``shape`` (B, S, NQ, NKV, D), bf16, every key,
+    against its plain version, timed beside SDPA's forward on the same
+    tensors and its bound at the bf16 rate; returns the record."""
+    import torch.nn.functional as tnf
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    bf, tol = torch.bfloat16, FLASH_TOL[torch.bfloat16]
+    Bq, S, NQ, NKV, D = shape
+    q, k, v, _, kvlen = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
+    print(f"flash forward at {what} B={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, "
+          f"{'causal' if causal else 'non-causal'}, every key:")
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=causal)
+    o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    _sync()
+    err_o, r_o = _flash_close("flash_fwd o", o, o_ref, tol)
+    err_l, r_l = _flash_close("flash_fwd lse", lse, lse_ref, tol)
+    del o, lse, o_ref, lse_ref
+    ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
+    work = (_causal_pairs(S, kvlen) if causal else Bq * S * S) * NQ * D
+    nbytes = 2 * (2 * Bq * NQ * S * D) + 2 * (2 * Bq * NKV * S * D) + 4 * Bq * NQ * S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * work / BF16_FLOPS
+    rec = {"max_abs_err": max(err_o, err_l), "worst_ratio": max(r_o, r_l), "tolerance": tol,
+           "ms": _cold_ms(lambda: fk.flash_fwd_cuda(q, k, v, kvlen, causal=causal)),
+           "plain_ms": _cold_ms(lambda: fr.flash_fwd_ref(q, k, v, kvlen, causal=causal)),
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations (bf16)",
+           "library_ms": _cold_ms(lambda: tnf.scaled_dot_product_attention(q, ke, ve, is_causal=causal))}
+    print(f"  flash_fwd: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, SDPA forward "
+          f"{rec['library_ms']:.4f} ms (its own backend choice, K/V repeated), bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), {rec['bound_ms'] / rec['ms']:.3f} of it")
+    return rec
+
+
+def _explain_plan(cfg) -> tuple:
+    """The explain phases' buckets of the LM engine's 20 requests on ``cfg``
+    and the chunk ``_fitting_chunk`` picks for them."""
+    from repro_torch.serve.batching import plan_buckets
+
+    plan = plan_buckets(_lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0))
+    return plan, _fitting_chunk(cfg, plan)
+
+
+def _explain_attn(cfg, bucket: tuple, chunk: int) -> tuple:
+    """(B·chunk, S, NQ, NKV, D): the attention an explain bucket runs."""
+    return (bucket[0] * chunk, bucket[1], cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+
+
+def encdec_kernel_phase(records: list) -> None:
+    """The flash forward at whisper-tiny's encoder (non-causal over 1500
+    frames, D=64) and at internvl2-26b's prefill (256 patches + 128 tokens,
+    48 query heads on 8, D=128, causal), both bf16: ``at_encoder`` and
+    ``at_vlm_prefill`` in its record. Then the kernels of the two explain
+    phases at their own shapes, bf16, against their plain versions beside
+    their bounds: the flash trio at whisper's 16x128 bucket (D=64, causal,
+    ``at_whisper_explain``) and at internvl2's 16x128 and 4x512 buckets (48
+    query heads on 8, ``at_vlm_explain`` and ``at_vlm_explain_512``), and
+    the stage-2 kernels of ``ig`` unfused and fused at internvl2's two
+    buckets (S · d=6144, under the same names)."""
+    g = torch.Generator(device=DEV).manual_seed(12)
+    by_name = {r["name"]: r for r in records}
+    by_name["flash_fwd"]["at_encoder"] = _flash_fwd_timed(g, ENCODER_ATTN, False, "whisper-tiny's encoder")
+    by_name["flash_fwd"]["at_vlm_prefill"] = _flash_fwd_timed(g, VLM_PREFILL_ATTN, True,
+                                                              "internvl2-26b's prefill")
+    cfg_w = _arch("whisper-tiny", 4, attn_impl="flash")
+    _, chunk_w = _explain_plan(cfg_w)
+    _flash_trio_timed(g, _explain_attn(cfg_w, (16, 128), chunk_w), by_name, "at_whisper_explain",
+                      f"whisper-tiny's 16x128 explain bucket (chunk {chunk_w})")
+    cfg_v = _vlm_config(VLM_ENGINE_LAYERS)
+    _, chunk_v = _explain_plan(cfg_v)
+    for bucket, into in (((16, 128), "at_vlm_explain"), ((4, 512), "at_vlm_explain_512")):
+        what = f"internvl2-26b's {bucket[0]}x{bucket[1]} explain bucket"
+        _flash_trio_timed(g, _explain_attn(cfg_v, bucket, chunk_v), by_name, into, f"{what} (chunk {chunk_v})")
+        _stage2_timed(g, (bucket[0], chunk_v, bucket[1] * cfg_v.d_model), by_name, into,
+                      f"{what} (S={bucket[1]} · d={cfg_v.d_model})", labels=GEMMA_STAGE2_KERNELS)
+
+
+@contextmanager
+def _flash_calls():
+    """Record each flash forward the op launches: its (S_q, S_k) and
+    whether it was causal."""
+    from repro_torch.kernels.flash_attention import ops
+
+    real, calls = ops.flash_fwd_cuda, []
+
+    def recorded(q, k, v, kvlen, *, causal, **kw):
+        calls.append({"S": (q.shape[2], k.shape[2]), "causal": causal})
+        return real(q, k, v, kvlen, causal=causal, **kw)
+
+    ops.flash_fwd_cuda = recorded
+    try:
+        yield calls
+    finally:
+        ops.flash_fwd_cuda = real
+
+
+def _flash_kinds(calls: list) -> list:
+    return sorted({(c["causal"], c["S"]) for c in calls})
+
+
+@contextmanager
+def _uncounted():
+    """Launches inside are not counted: the counts are restored after."""
+    from repro_torch.kernels import common
+
+    saved = {id(c): dict(c) for c in (common.LAUNCHES, common.CARRY_RANKS)}
+    try:
+        yield
+    finally:
+        for c in (common.LAUNCHES, common.CARRY_RANKS):
+            c.update(saved[id(c)])
+
+
+@contextmanager
+def _interpolants_as_fused():
+    """Unfused engines built inside take their interpolants from the fused
+    path's kernel (``interp_add`` at a zero carry), which rounds α, x − b
+    and each step to the input's precision, where ``interpolate`` rounds
+    once from f32: the two paths then start from the same bits."""
+    from repro_torch.kernels.interp_accum.ops import interp_accum
+    from repro_torch.serve import explain_engine
+
+    real = explain_engine.interpolate
+
+    def rounded(x, baseline, alphas, *, mask=None):
+        zero = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return interp_accum(x, baseline, alphas, zero, mask=mask)
+
+    explain_engine.interpolate = rounded
+    try:
+        yield
+    finally:
+        explain_engine.interpolate = real
+
+
+def _score_ratios(got: list, want: list):
+    """Each request's worst token-score error over ``_scores_close``'s
+    allowance."""
+    import numpy as np
+
+    out = []
+    for g, w in zip(got, want):
+        a, b = g["token_scores"], w["token_scores"]
+        out.append(float((np.abs(a - b) / (ENGINE_TOL * np.abs(b) + ENGINE_TOL * np.abs(b).max())).max()))
+    return np.array(out)
+
+
+def _engine_card_vs_cpu(name: str, cfg32, params: dict, reqs: list, m: int, most: int) -> list:
+    """``ig`` (paper schedule, flash) at f32 over ``reqs`` in one bucket of
+    ``most`` tokens, on the card and on the CPU; token scores gated at 1e-4
+    of the row's largest, rows at a near tie of the schedule's allocation
+    exempt. Returns the card's results."""
+    from repro_torch.core import probes
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import ExplainEngine
+    from repro_torch.serve.batching import plan_buckets
+
+    kw32 = dict(method="ig", schedule="paper", m=m, n_int=N_INT, attn="flash", seq_buckets=(most,))
+    eng_g = ExplainEngine(cfg32, params, device=DEV, **kw32)
+    res_g = eng_g.explain(reqs)
+    t0 = time.perf_counter()
+    eng_c = ExplainEngine(cfg32, tree_map(lambda _, t: t.cpu(), params), device="cpu", **kw32)
+    res_c = eng_c.explain(reqs)
+    cpu_s = time.perf_counter() - t0
+    bb = plan_buckets(reqs, seq_buckets=(most,))[0]
+    vals = [probes.run_probe("boundary", e._explainer.f, *a[:3], n_int=N_INT, mask=a[3]).vals.cpu()
+            for e in (eng_g, eng_c) for a in (e._bucket_inputs(bb),)]
+    tied = (_near_tie_rows(vals[0], m) | _near_tie_rows(vals[1], m))[: len(reqs)]
+    print(f"  {name}: f32, {cfg32.num_layers} layers, {len(reqs)} prompts of {[len(r.tokens) for r in reqs]} "
+          f"tokens, m={m}, TF32 off; CPU run {cpu_s:.1f} s; near-tie rows {torch.nonzero(tied).flatten().tolist()}")
+    _attr_close(f"{name} card vs CPU token scores", _token_scores(res_g), _token_scores(res_c), ~tied)
+    return res_g
+
+
+def _rel_delta(res: list) -> float:
+    """Mean |δ| / |f(x) − f(x′)| of explain results."""
+    return sum(abs(r["delta"]) / max(abs(r["f_x"] - r["f_baseline"]), 1e-12) for r in res) / len(res)
+
+
+def _token_scores(res: list) -> torch.Tensor:
+    return torch.nn.utils.rnn.pad_sequence([torch.from_numpy(r["token_scores"]) for r in res], True)
+
+
+def whisper_phase() -> dict:
+    """whisper-tiny at full width and depth (flash, bf16, weights drawn on
+    the card): the encoder alone, greedy generation over 1500 frames a
+    prompt, f32 decode against a fresh forward, the card against the CPU,
+    and ``ExplainEngine`` ``ig`` over the token stream on the LM engine's
+    20 requests, then in f32 on the card against the CPU."""
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import ExplainEngine, ServeEngine
+    from repro_torch.serve.batching import plan_buckets
+
+    _free_card()
+    cfg = _arch("whisper-tiny", 4, attn_impl="flash")
+    model, V = Model(cfg), cfg.vocab_size
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    Bw, S, n_new = WHISPER_GEN
+    prompts = _prompts(g, cfg, Bw, S)
+    frames = torch.randn((Bw, cfg.encoder_seq, cfg.frontend_dim), generator=g, device=DEV)
+    batch = {"tokens": prompts, "frontend": frames}
+    print(f"whisper: {cfg.name} at full width and depth, {cfg.encoder_layers} encoder and {cfg.num_layers} "
+          f"decoder layers, d={cfg.d_model}, {cfg.num_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.encoder_seq} frames of {cfg.frontend_dim} (seeded normal), vocabulary {V}, "
+          f"{cfg.compute_dtype}, flash; {cfg.param_count() / 1e6:.2f}M parameters "
+          f"({cfg.param_count() * 4 / 1e9:.3f} GB of f32) drawn on the card")
+    paths_launched = {}
+    with _flash_calls() as calls:
+        enc, ms, launched = _timed(lambda: lm.encode(cfg, params, frames))
+    _need(paths_launched, "whisper encoder", launched, ("flash_fwd",))
+    if launched["flash_fwd"] != cfg.encoder_layers or _flash_kinds(calls) != [(False, (cfg.encoder_seq,) * 2)]:
+        raise AssertionError(f"whisper encoder: flash forwards {_flash_kinds(calls)}, "
+                             f"{launched['flash_fwd']} launches")
+    if not bool(torch.isfinite(enc).all()):
+        raise AssertionError("whisper encoder: non-finite output")
+    print(f"  encoder over {Bw} × {cfg.encoder_seq} frames: {ms:.2f} ms (cold); the flash forward launched "
+          f"{launched['flash_fwd']} times, non-causal, S_q = S_k = {cfg.encoder_seq}")
+    eng = ServeEngine(cfg, params, max_len=S + n_new, device=DEV)
+    eng.generate(batch, 2)  # warm: cuBLAS handles and plans
+    with _flash_calls() as calls:
+        _, prefill_ms = _generated(paths_launched, "whisper prefill (1 token)", lambda: eng.generate(batch, 1), V)
+    want = [(False, (cfg.encoder_seq,) * 2), (True, (S, S))]
+    if _flash_kinds(calls) != want:
+        raise AssertionError(f"whisper prefill: flash forwards {_flash_kinds(calls)}, not {want}")
+    greedy, ms = _generated(paths_launched, f"whisper greedy {Bw}x{S}+{n_new}", lambda: eng.generate(batch, n_new), V)
+    print(f"  greedy, {Bw} prompts of {S} over {cfg.encoder_seq} frames, {n_new} new: {ms:.1f} ms; prefill "
+          f"(encoder included) {prefill_ms:.1f} ms, decode {(ms - prefill_ms) / (n_new - 1):.2f} ms a token "
+          f"(B={Bw}); the prefill's flash forwards: the encoder's non-causal over {cfg.encoder_seq}, the "
+          f"decoder's causal over {S}")
+    _row_close(f"whisper bf16 decode vs fresh forward, steps 0..{n_new - 1}",
+               _teacher_forced(model, params, prompts, greedy, S + n_new, frames),
+               _fresh(model, params, prompts, greedy, frames), ENGINE_TOL, gate=False)
+
+    # f32 at full depth: decode against a fresh forward
+    cfg32 = replace(cfg, compute_dtype="float32")
+    m32 = Model(cfg32)
+    out32, _ = _generated(paths_launched, "whisper greedy f32",
+                          lambda: ServeEngine(cfg32, params, S + n_new, device=DEV).generate(batch, n_new), V)
+    fresh = _fresh(m32, params, prompts, out32, frames)
+    _row_close("whisper f32 decode vs fresh forward, full depth",
+               _teacher_forced(m32, params, prompts, out32, S + n_new, frames), fresh, LOGIT_TOL_F32)
+    _tokens_agree("whisper f32 tokens vs the fresh forward's argmax", out32, fresh.argmax(-1), fresh,
+                  LOGIT_TOL_F32)
+
+    # the card against the CPU, f32, full depth
+    n4, s4, k4 = WHISPER_CPU
+    p4, f4 = prompts[:n4, :s4], frames[:n4]
+    out_g, _ = _generated(paths_launched, "whisper greedy card vs CPU", lambda: ServeEngine(
+        cfg32, params, s4 + k4, device=DEV).generate({"tokens": p4, "frontend": f4}, k4), V)
+    params_cpu = tree_map(lambda _, t: t.cpu(), params)
+    t0 = time.perf_counter()
+    out_c = ServeEngine(cfg32, params_cpu, s4 + k4, device="cpu").generate(
+        {"tokens": p4.cpu(), "frontend": f4.cpu()}, k4)
+    tf_c = _teacher_forced(m32, params_cpu, p4.cpu(), out_c, s4 + k4, f4.cpu())
+    print(f"  card vs CPU: {n4} prompts of {s4} over {cfg.encoder_seq} frames, {k4} new, f32; CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    _tokens_agree("whisper card vs CPU tokens", out_g, out_c, tf_c, LOGIT_TOL_F32)
+    _row_close("whisper card vs CPU decode logits, teacher-forced on the CPU's tokens",
+               _teacher_forced(m32, params, p4, out_c.to(DEV), s4 + k4, f4).cpu(), tf_c, LOGIT_TOL_F32)
+    del params_cpu, eng
+
+    # explanation over the token stream (no encoder output), as repro
+    reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
+    plan = plan_buckets(reqs)
+    chunk = _fitting_chunk(cfg, plan)
+    print(f"  whisper engine: ig, m={M}, n_int={N_INT}, chunk {chunk}, flash, over the token stream; "
+          f"{len(reqs)} requests in buckets {[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan]}")
+    eng_x = ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=chunk,
+                          attn="flash", device=DEV)
+    _served_twice("whisper ig unfused", eng_x, reqs, paths_launched, PATH_KERNELS["riemann"][0] + FLASH)
+    del eng_x
+    n_cpu, most, m_cpu = WHISPER_ENGINE_CPU
+    _engine_card_vs_cpu("whisper ig", cfg32, params, _lm_traffic(cfg, ((n_cpu, most // 2, most),), seed=1),
+                        m_cpu, most)
+    print(f"  peak device memory over the whisper phase: {_peak_gb():.2f} GB")
+    return _slice(paths_launched)
+
+
+def _vlm_config(layers: int):
+    return _arch("internvl2-26b", layers, attn_impl="flash")
+
+
+def vlm_engine_phase() -> dict:
+    """internvl2-26b at full width, 4 layers (flash, bf16): ``ExplainEngine``
+    ``ig`` unfused and fused over the LM engine's 20 requests at the chunk
+    ``_fitting_chunk`` picks, each served twice, fused against unfused; then
+    a ``MixedScheduler`` round of 2 greedy generates and 2 explain-only
+    requests, token-only as ``repro`` serves them. Fused against unfused is
+    printed in bf16, beside an unfused run from the fused path's
+    interpolants; it is gated in f32 at the engine's depth on the requests
+    the bf16 paths part most, where each bf16 run is printed against f32;
+    the card against the CPU in f32 at 2 layers."""
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.serve import ExplainEngine, GenerateRequest, MixedScheduler, ServeEngine
+    from repro_torch.serve.batching import plan_buckets
+
+    _free_card()
+    cfg = _vlm_config(VLM_ENGINE_LAYERS)
+    common.reset_launches()  # the slice's own count starts here
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
+    plan = plan_buckets(reqs)
+    chunk = _fitting_chunk(cfg, plan)
+    print(f"vlm engine: {cfg.name} at full width, {cfg.num_layers} layers (of 48), d={cfg.d_model}, "
+          f"{cfg.num_heads} heads on {cfg.num_kv_heads} of {cfg.resolved_head_dim}, SwiGLU {cfg.d_ff}, "
+          f"vocabulary {cfg.vocab_size}, {cfg.frontend_tokens} patches of {cfg.frontend_dim} (unused: the "
+          f"token stream is explained), {cfg.compute_dtype}; {cfg.param_count() / 1e9:.3f}B parameters; "
+          f"{len(reqs)} requests in buckets {[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan]}; m={M}, "
+          f"n_int={N_INT}, chunk {chunk} (the largest whose predicted peak fits {PEAK_BUDGET / 1e9:.0f} GB)")
+    kw = dict(method="ig", schedule="paper", m=M, n_int=N_INT, chunk=chunk, attn="flash", device=DEV)
+    paths_launched, outs = {}, {}
+    for name, fused in (("vlm ig unfused", False), ("vlm ig fused", True)):
+        _free_card()
+        eng = ExplainEngine(cfg, params, fused=fused, **kw)
+        outs[name], _ = _served_twice(name, eng, reqs, paths_launched,
+                                      PATH_KERNELS["riemann"][int(fused)] + FLASH)
+        del eng
+    # In bf16 the paths round differently, as in repro: unfused's interpolants come from f32 in one
+    # rounding (interpolate), fused's at the input's precision, each operation rounded (interp_add);
+    # fused weights each step's cotangent before the model's bf16 backward, unfused after it. An
+    # unfused run from fused's interpolants parts the interpolants' share from the rest
+    with _uncounted(), _interpolants_as_fused():  # a diagnosis, not the main path
+        _free_card()
+        eng = ExplainEngine(cfg, params, fused=False, **kw)
+        outs["vlm ig unfused from fused's interpolants"] = eng.explain(reqs, return_raw=True)
+        del eng
+    u, f, u2 = (outs[k] for k in ("vlm ig unfused", "vlm ig fused", "vlm ig unfused from fused's interpolants"))
+    for name, got, want in (("fused vs unfused", f, u), ("unfused from fused's interpolants vs unfused", u2, u),
+                            ("fused vs unfused from fused's interpolants", f, u2)):
+        _scores_close(f"vlm ig {name}, bf16", got, want, gate=False)
+        r = _score_ratios(got, want)
+        print(f"    per request: {' '.join(f'{x:.3g}' for x in r)}")
+
+    # f32 at the engine's depth on the requests the bf16 paths part most: fused against unfused
+    # (gated), and each bf16 run against f32 (printed)
+    worst = [int(i) for i in np.argsort(-_score_ratios(f, u))[:VLM_REF_N]]
+    sub = [reqs[i] for i in worst]
+    cfg32 = replace(cfg, compute_dtype="float32")
+    plan32 = plan_buckets(sub)
+    refs, walls = {}, {}
+    for fused in (False, True):
+        _free_card()
+        eng32 = ExplainEngine(cfg32, params, fused=fused, method="ig", schedule="paper", m=M, n_int=N_INT,
+                              chunk=_fitting_chunk(cfg32, plan32), attn="flash", device=DEV)
+        refs[fused], walls[fused], _ = _timed(lambda: eng32.explain(sub, return_raw=True))
+        del eng32
+    ref = refs[False]
+    print(f"  f32, {cfg.num_layers} layers, m={M}, requests {worst} of {[len(r.tokens) for r in sub]} tokens in "
+          f"buckets {[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan32]}: unfused {walls[False]:.0f} ms, fused "
+          f"{walls[True]:.0f} ms (cold)")
+    _attr_close(f"vlm f32 fused vs unfused token scores, {cfg.num_layers} layers", _token_scores(refs[True]),
+                _token_scores(ref))
+    print(f"    f32 unfused: mean |δ| / |f(x) − f(x′)| {_rel_delta(ref):.4g} on these requests")
+    for name, o in (("unfused", u), ("fused", f), ("unfused from fused's interpolants", u2)):
+        mine = [o[i] for i in worst]
+        print(f"    bf16 {name} vs f32 (err/allowed, as above): per request "
+              f"{' '.join(f'{x:.3g}' for x in _score_ratios(mine, ref))}; mean |δ| / |f(x) − f(x′)| "
+              f"{_rel_delta(mine):.4g}")
+
+    # f32 at 2 layers: the card against the CPU
+    nl, n_cpu, most, m_cpu = VLM_ENGINE_F32
+    _engine_card_vs_cpu("vlm ig", replace(cfg, num_layers=nl, compute_dtype="float32"), _layers_of(params, nl),
+                        _lm_traffic(cfg, ((n_cpu, most // 2, most),), seed=1), m_cpu, most)
+
+    # the mixed scheduler, token-only
+    n_gen, S, n_new, n_exp = VLM_MIXED
+    _free_card()
+    engine = ExplainEngine(cfg, params, m=M, n_int=N_INT, chunk=chunk, attn="flash", device=DEV)
+    sched = MixedScheduler(engine, max_len=S + n_new)
+    rng = np.random.default_rng(31)
+    gens = [GenerateRequest(rng.integers(1, cfg.vocab_size, S).astype(np.int32), n_new) for _ in range(n_gen)]
+    exps = _lm_traffic(cfg, ((n_exp, 17, 128),), seed=4)
+    tickets = [sched.submit(r) for r in gens + exps]
+    _, ms, launched = _timed(sched.run_until_idle)
+    _need(paths_launched, "vlm mixed round", launched, PATH_KERNELS["riemann"][0] + FLASH)
+    if any(t.status != "done" for t in tickets):
+        raise AssertionError(f"vlm mixed: statuses {[t.status for t in tickets]}")
+    direct = ServeEngine(cfg, params, S + n_new, device=DEV).generate(
+        {"tokens": torch.as_tensor(np.stack([r.tokens for r in gens]), device=DEV)}, n_new)
+    if not all(np.array_equal(np.asarray(t.tokens), direct[i].cpu().numpy()) for i, t in enumerate(tickets[:n_gen])):
+        raise AssertionError("vlm mixed: the scheduler's greedy tokens are not ServeEngine.generate's")
+    _scores_close("vlm mixed explain-only vs engine.explain", [t.result for t in tickets[n_gen:]],
+                  engine.explain(exps))
+    print(f"  vlm mixed: {n_gen} greedy generates of {S}+{n_new} and {n_exp} explain-only in {ms:.1f} ms (cold); "
+          "tokens ServeEngine.generate's")
+    print(f"  peak device memory over the vlm engine phase: {_peak_gb():.2f} GB")
+    return _slice(paths_launched)
+
+
+def vlm_serve_phase() -> dict:
+    """internvl2-26b at full width and 24 layers (flash prefill, bf16): 16
+    prompts of 256 patches + 128 tokens, 32 new; bf16 decode against a
+    fresh forward (printed); at 2 layers f32 decode against a fresh forward
+    (gated) and the card against the CPU."""
+    from repro_torch.kernels import common
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.registry import Model
+    from repro_torch.serve import ServeEngine
+
+    _free_card()
+    layers, Bs, S, n_new = VLM_SERVE
+    cfg = _vlm_config(layers)
+    model, V, P = Model(cfg), cfg.vocab_size, cfg.frontend_tokens
+    common.reset_launches()  # the slice's own count starts here
+    _reset_peak()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    g = torch.Generator(device=DEV).manual_seed(13)
+    prompts = _prompts(g, cfg, Bs, S)
+    patches = torch.randn((Bs, P, cfg.frontend_dim), generator=g, device=DEV)
+    batch = {"tokens": prompts, "frontend": patches}
+    max_len = P + S + n_new
+    print(f"vlm serve: {cfg.name} at full width, {layers} layers (of 48), {cfg.compute_dtype}, flash prefill; "
+          f"{cfg.param_count() / 1e9:.3f}B parameters ({cfg.param_count() * 4 / 1e9:.1f} GB of f32); {Bs} "
+          f"prompts of {P} patches (seeded normal) + {S} tokens, {n_new} new, max_len {max_len}")
+    paths_launched = {}
+    eng = ServeEngine(cfg, params, max_len=max_len, device=DEV)
+    eng.generate(batch, 2)  # warm
+    _, prefill_ms = _generated(paths_launched, "vlm prefill (1 token)", lambda: eng.generate(batch, 1), V)
+    greedy, ms = _generated(paths_launched, f"vlm greedy {Bs}x({P}+{S})+{n_new}",
+                            lambda: eng.generate(batch, n_new), V)
+    print(f"  greedy: {ms:.1f} ms; prefill over {P + S} positions {prefill_ms:.1f} ms, decode "
+          f"{(ms - prefill_ms) / (n_new - 1):.2f} ms a token (B={Bs}), {Bs * n_new / ms * 1e3:.0f} tokens/s")
+    try:
+        ServeEngine(cfg, params, max_len=S + n_new, device=DEV).generate(batch, n_new)
+    except ValueError as e:
+        print(f"  repro.launch.serve's sizing (prompt + new, {S + n_new}) refused before the prefill: {e}")
+    else:
+        raise AssertionError("vlm serve: a cache without room for the patches was not refused")
+    _row_close(f"vlm bf16 decode vs fresh forward, {layers} layers, steps 0..{n_new - 1}",
+               _teacher_forced(model, params, prompts, greedy, max_len, patches),
+               _fresh(model, params, prompts, greedy, patches), ENGINE_TOL, gate=False)
+    print(f"  peak device memory over the {layers}-layer runs: {_peak_gb():.2f} GB")
+    del eng
+
+    # f32 at 2 layers: decode against a fresh forward, then the card against the CPU
+    nl, n2, s2, k2 = VLM_F32
+    cfg32 = replace(cfg, num_layers=nl, compute_dtype="float32")
+    m32, p32 = Model(cfg32), _layers_of(params, nl)
+    p2, f2 = prompts[:n2, :s2], patches[:n2]
+    out, _ = _generated(paths_launched, "vlm greedy f32", lambda: ServeEngine(cfg32, p32, P + s2 + k2, device=DEV)
+                        .generate({"tokens": p2, "frontend": f2}, k2), V)
+    fresh = _fresh(m32, p32, p2, out, f2)
+    _row_close(f"vlm f32 decode vs fresh forward, {nl} layers",
+               _teacher_forced(m32, p32, p2, out, P + s2 + k2, f2), fresh, LOGIT_TOL_F32)
+    _tokens_agree("vlm f32 tokens vs the fresh forward's argmax", out, fresh.argmax(-1), fresh, LOGIT_TOL_F32)
+    n4, s4, k4 = VLM_CPU
+    p4, f4 = prompts[:n4, :s4], patches[:n4]
+    out_g, _ = _generated(paths_launched, "vlm greedy card vs CPU", lambda: ServeEngine(
+        cfg32, p32, P + s4 + k4, device=DEV).generate({"tokens": p4, "frontend": f4}, k4), V)
+    params_cpu = tree_map(lambda _, t: t.cpu(), p32)
+    t0 = time.perf_counter()
+    out_c = ServeEngine(cfg32, params_cpu, P + s4 + k4, device="cpu").generate(
+        {"tokens": p4.cpu(), "frontend": f4.cpu()}, k4)
+    tf_c = _teacher_forced(m32, params_cpu, p4.cpu(), out_c, P + s4 + k4, f4.cpu())
+    print(f"  card vs CPU: {n4} prompt of {P} patches + {s4} tokens, {k4} new, {nl} layers, f32; CPU "
+          f"{time.perf_counter() - t0:.1f} s")
+    _tokens_agree("vlm card vs CPU tokens", out_g, out_c, tf_c, LOGIT_TOL_F32)
+    _row_close("vlm card vs CPU decode logits, teacher-forced on the CPU's tokens",
+               _teacher_forced(m32, p32, p4, out_c.to(DEV), P + s4 + k4, f4).cpu(), tf_c, LOGIT_TOL_F32)
+    print(f"  peak device memory over the vlm serve phase: {_peak_gb():.2f} GB")
+    return _slice(paths_launched)
+
+
+def _launcher_run(module, argv: list) -> tuple:
+    """``module.run`` on ``argv`` in this process, its stdout captured and
+    echoed; returns (what run returned, the output, wall s, launches, each
+    explain call's misses and its new buckets)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import common
+    from repro_torch.serve import ExplainEngine
+
+    real, calls = ExplainEngine.explain, []
+
+    def recorded(eng, requests, **kw):
+        seen, misses = set(eng.stats.buckets) | set(eng.stats.hop_buckets), eng.stats.misses
+        out = real(eng, requests, **kw)
+        calls.append((id(eng), eng.stats.misses - misses,
+                      (set(eng.stats.buckets) | set(eng.stats.hop_buckets)) - seen))
+        return out
+
+    buf = io.StringIO()
+    ExplainEngine.explain = recorded
+    before = dict(common.LAUNCHES)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = module.run(module.parser().parse_args(argv))
+        _sync()
+    finally:
+        ExplainEngine.explain = real
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print("  | " + text.rstrip().replace("\n", "\n  | "))
+    return out, text, wall, _launched(before, common.LAUNCHES), calls
+
+
+def _same_as_direct(cmd: str, engine, tokens, params, batch) -> None:
+    """The classic serve run's greedy ids against a direct
+    ``ServeEngine.generate`` on the same draws."""
+    from repro_torch.serve import ServeEngine
+
+    direct = ServeEngine(engine.cfg, params, engine.max_len, device=DEV).generate(batch, tokens.shape[1])
+    if not torch.equal(direct, tokens):
+        raise AssertionError(f"{cmd}: greedy tokens differ from a direct ServeEngine call")
+    print("  greedy tokens equal a direct ServeEngine.generate on the same draws")
+
+
+def launcher_phase() -> dict:
+    """``repro_torch.launch.explain`` and ``.serve`` on their command lines
+    (``LAUNCHES_BY_RUN``), in this process: each returns, launches exactly
+    the kernels of its path, prints finite δ; an explain call that brings
+    no new bucket adds no miss, and a fixed-request workload's round 1 none
+    at all; the classic internvl2 run's greedy tokens equal a direct
+    ``ServeEngine`` call on the same draws."""
+    import re
+
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.launch import explain, serve
+
+    common.reset_launches()  # the slice's own count starts here
+    paths_launched, draws = {}, []
+    real_draw = serve.draw
+
+    def kept(*a, **kw):  # the classic path's draws, kept for the direct call
+        draws.append(real_draw(*a, **kw))
+        return draws[-1]
+
+    for which, argv, kernels in LAUNCHES_BY_RUN:
+        _free_card()
+        module = explain if which == "explain" else serve
+        cmd = f"python -m repro_torch.launch.{which} {' '.join(argv)}"
+        print(f"launcher: {cmd}")
+        serve.draw = kept
+        try:
+            out, text, wall, launched, calls = _launcher_run(module, argv)
+        finally:
+            serve.draw = real_draw
+        _need(paths_launched, cmd, launched, kernels)
+        deltas = [float(x) for x in re.findall(r"(?:mean|max)_delta=(\S+)", text)]
+        if not all(np.isfinite(deltas)) or ("delta=nan" in text):
+            raise AssertionError(f"{cmd}: a non-finite δ")
+        for i, (eng, misses, new) in enumerate(calls):
+            if misses and not new:
+                raise AssertionError(f"{cmd}: explain call {i} added {misses} misses at seen buckets")
+        if "--workload" in argv:  # one fixed request a round: round 1 builds nothing
+            per_eng = {}
+            for eng, misses, _ in calls:
+                per_eng.setdefault(eng, []).append(misses)
+            if any(sum(m[1:]) for m in per_eng.values()):
+                raise AssertionError(f"{cmd}: a round after the first added misses {per_eng}")
+        if which == "serve" and "--mixed" not in argv and "--sample" not in argv and "internvl2-26b" in argv:
+            _same_as_direct(cmd, *out, *draws[-1])
+        draws.clear()
+        del out
+        print(f"  {which}: {wall:.1f} s, launches {json.dumps({k: n for k, n in launched.items() if n})}, "
+              f"{len(calls)} explain calls, misses by call {[m for _, m, _ in calls]}")
+    return _slice(paths_launched)
 
 
 def _setup() -> None:
@@ -3639,6 +4240,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gemma_kernel_phase(records)
     print(f"gemma3-shape kernel phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    encdec_kernel_phase(records)
+    print(f"whisper- and internvl2-shape flash phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
@@ -3646,7 +4250,9 @@ def main() -> int:
                         ("mixed", mixed_phase),
                         ("gemma_serve", gemma_serve_phase), ("gemma_engine", gemma_engine_phase),
                         ("gemma_mixed", gemma_mixed_phase), ("moe_engine", moe_engine_phase),
-                        ("moe_serve", moe_serve_phase), ("ssm", ssm_phase), ("hybrid", hybrid_phase)):
+                        ("moe_serve", moe_serve_phase), ("ssm", ssm_phase), ("hybrid", hybrid_phase),
+                        ("whisper", whisper_phase), ("vlm_engine", vlm_engine_phase),
+                        ("vlm_serve", vlm_serve_phase), ("launchers", launcher_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -3665,7 +4271,7 @@ def main() -> int:
             raise AssertionError(f"slice {name}: interp_add's carry ranks {out['carry_ranks']} do not add "
                                  f"up to its {out['launches']['interp_add']} launches")
     for name, rank in (("cnn", 3), ("vit", 3), ("vit_idgi", 2), ("gemma_engine", 3), ("moe_engine", 3),
-                       ("ssm", 3), ("hybrid", 3)):
+                       ("ssm", 3), ("hybrid", 3), ("whisper", 3), ("vlm_engine", 3), ("launchers", 3)):
         if slices[name]["carry_ranks"][rank]:
             raise AssertionError(f"slice {name} launched interp_add with a rank-{rank} carry: "
                                  f"{slices[name]['carry_ranks']}")
@@ -3677,10 +4283,11 @@ def main() -> int:
             raise AssertionError(f"slice {name}: kernels not launched {missing}")
     if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
         raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
-    for name in ("serve", "gemma_serve", "moe_serve"):
+    for name in ("serve", "gemma_serve", "moe_serve", "vlm_serve"):
         if slices[name]["launches"]["flash_bwd_dq"] or slices[name]["launches"]["flash_bwd_dkv"]:
             raise AssertionError(f"the {name} slice launched a backward kernel: {slices[name]['launches']}")
-    for name, fused in (("gemma_engine", True), ("moe_engine", True), ("hybrid", False)):
+    for name, fused in (("gemma_engine", True), ("moe_engine", True), ("hybrid", False), ("whisper", False),
+                        ("vlm_engine", True), ("launchers", True)):
         missing = [k for k in FLASH + PATH_KERNELS["riemann"][0] + (PATH_KERNELS["riemann"][1] if fused else ())
                    if not slices[name]["launches"][k]]
         if missing:

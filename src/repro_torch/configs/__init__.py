@@ -1,22 +1,24 @@
 """Config registry of the port.
 
-``ARCHS`` holds the architectures the port's LM can build, copies of
-``repro``'s: the dense llama-style LMs (internlm2-20b, llama3-8b, yi-9b),
-gemma3-27b (5 local layers of a 1024-token window to 1 global), the MoE
-LMs qwen3-moe-30b-a3b and qwen3-moe-235b-a22b (128 experts, top-8),
-mamba2-780m (attention-free Mamba-2 SSD) and jamba-v0.1-52b (Mamba,
-attention and MoE interleaved). ``repro``'s whisper-tiny (an encoder and
-an audio frontend) and internvl2-26b (a vision frontend) are not ported;
-``get_config`` resolves a name among the eight.
+``ARCHS`` holds ``repro``'s ten architectures, copies field for field: the
+dense llama-style LMs (internlm2-20b, llama3-8b, yi-9b), gemma3-27b (5
+local layers of a 1024-token window to 1 global), the MoE LMs
+qwen3-moe-30b-a3b and qwen3-moe-235b-a22b (128 experts, top-8),
+mamba2-780m (attention-free Mamba-2 SSD), jamba-v0.1-52b (Mamba, attention
+and MoE interleaved), whisper-tiny (an encoder-decoder over stub audio
+frames) and internvl2-26b (stub vision patches prepended to an
+internlm2-style backbone). ``get_config`` resolves a name among them.
 """
 from repro_torch.configs import (
     gemma3_27b,
     internlm2_20b,
+    internvl2_26b,
     jamba_v01_52b,
     llama3_8b,
     mamba2_780m,
     qwen3_moe_30b_a3b,
     qwen3_moe_235b_a22b,
+    whisper_tiny,
     yi_9b,
 )
 from repro_torch.configs.base import ArchConfig, LayerSpec, reduced
@@ -32,6 +34,8 @@ ARCHS: dict[str, ArchConfig] = {
         qwen3_moe_235b_a22b.CONFIG,
         mamba2_780m.CONFIG,
         jamba_v01_52b.CONFIG,
+        whisper_tiny.CONFIG,
+        internvl2_26b.CONFIG,
     )
 }
 

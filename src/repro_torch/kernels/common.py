@@ -188,7 +188,7 @@ def find_nvcc() -> str:
 
 
 @functools.cache
-def load_cuda(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+def load_cuda(name: str, sources: tuple[str, ...], parts: int = 1) -> ctypes.CDLL:
     """Build (at first use) and load the shared library ``name`` from
     ``sources``, paths relative to ``kernels/``.
 
@@ -197,10 +197,17 @@ def load_cuda(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
     rebuilds and an unchanged one is loaded as it is. The build writes a
     temporary file and renames it, so processes building at once never load
     half a library. Raises ``RuntimeError`` with nvcc's output if it fails.
+
+    With ``parts`` > 1 each source is compiled ``parts`` times at once, with
+    ``-DKERNEL_PART=0`` to ``parts - 1`` (the source says which kernels each
+    part holds), and the objects are linked into the library: the build
+    takes about as long as its slowest part, not the sum of them.
     """
     paths = [KERNELS_DIR / s for s in sources]
     deps = sorted({h for p in paths for h in p.parent.glob("*.cuh")} | set(paths))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    if parts > 1:
+        digest.update(f"parts {parts}".encode())
     for p in deps:
         digest.update(p.name.encode() + p.read_bytes())
     out = BUILD_DIR / "cuda" / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -208,11 +215,29 @@ def load_cuda(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
         nvcc = find_nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                               f"{res.stdout}{res.stderr}")
+        if parts == 1:
+            _nvcc([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]], tmp)
+        else:
+            flags = [f for f in NVCC_FLAGS if f != "--shared"]
+            objs = [out.with_name(f"{out.stem}.{os.getpid()}.{j}.{i}.o")
+                    for j in range(len(paths)) for i in range(parts)]
+            try:
+                _nvcc([[nvcc, *flags, f"-DKERNEL_PART={i}", "-c", "-o", str(objs[j * parts + i]), str(p)]
+                       for j, p in enumerate(paths) for i in range(parts)], tmp)
+                _nvcc([[nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]], tmp)
+            finally:
+                for o in objs:
+                    o.unlink(missing_ok=True)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def _nvcc(cmds: list[list[str]], tmp: Path) -> None:
+    """Run the nvcc commands all at once; on any failure remove ``tmp`` and
+    raise ``RuntimeError`` with the first failed command and its output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, proc, (so, se) in zip(cmds, procs, outs):
+        if proc.returncode:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{so}{se}")

@@ -934,56 +934,104 @@ cudaError_t run_fwd(const Params& p, cudaStream_t stream) {
                 stream, p, vec);
 }
 
-// which: 1 dQ, 2 dK/dV.
-template <typename T, int DMAX, int NW, int MINB, int DSPLIT, int BT>
-cudaError_t run_bwd(int which, const Params& p, cudaStream_t stream) {
+// WHICH: 1 dQ, 2 dK/dV.
+template <int WHICH, typename T, int DMAX, int NW, int MINB, int DSPLIT, int BT>
+cudaError_t run_bwd(const Params& p, cudaStream_t stream) {
   constexpr size_t row = sizeof(float) * (DMAX + 4);
   const int vec = std::is_same<T, float>::value && rows_aligned16(p);
   constexpr int rows = 16 * NW / DSPLIT;  // rows a block owns
   constexpr size_t smem = row * (2 * rows + 8 * BT);  // two owned tiles, two split buffers of two
-  if (which == 1)
+  if constexpr (WHICH == 1)
     return launch(flash_dq_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
                   dim3((unsigned)((p.Sq + rows - 1) / rows), (unsigned)p.NQ, (unsigned)p.B), 32 * NW,
                   smem, stream, p, vec);
-  return launch(flash_dkv_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
-                dim3((unsigned)((p.Sk + rows - 1) / rows), (unsigned)p.NKV, (unsigned)p.B), 32 * NW,
-                smem + sizeof(float) * 4 * BT, stream, p, vec);
+  else
+    return launch(flash_dkv_kernel<T, DMAX, NW, MINB, DSPLIT, BT>,
+                  dim3((unsigned)((p.Sk + rows - 1) / rows), (unsigned)p.NKV, (unsigned)p.B), 32 * NW,
+                  smem + sizeof(float) * 4 * BT, stream, p, vec);
 }
 
-// which: 0 forward, 1 dQ, 2 dK/dV; three head-dim tiers (rows a block owns,
+// WHICH: 0 forward, 1 dQ, 2 dK/dV; three head-dim tiers (rows a block owns,
 // swept tile, shared memory, the same for all three kernels): up to 64,
 // 8 warps at two blocks an SM (128 rows, 16, 102 KB); up to 128, 4 warps
 // (32 rows, 16, 99 KB); up to 256, 4 warps (32 rows, 16, 195 KB). Above 64 two warps
 // share a 16-row strip, each with half the output columns, so the
 // accumulators fit in registers.
-template <typename T>
-cudaError_t run_d(int which, const Params& p, cudaStream_t stream) {
-  if (p.D < 1 || p.D > 256 || which < 0 || which > 2) return cudaErrorInvalidValue;
-  if (which == 0) {
+template <typename T, int WHICH>
+cudaError_t run_d(const Params& p, cudaStream_t stream) {
+  if (p.D < 1 || p.D > 256) return cudaErrorInvalidValue;
+  if constexpr (WHICH == 0) {
     if (p.D <= 64) return run_fwd<T, 64, 8, 2, 1, 16>(p, stream);
     if (p.D <= 128) return run_fwd<T, 128, 4, 1, 2, 16>(p, stream);
     return run_fwd<T, 256, 4, 1, 2, 16>(p, stream);
+  } else {
+    if (p.D <= 64) return run_bwd<WHICH, T, 64, 8, 2, 1, 16>(p, stream);
+    if (p.D <= 128) return run_bwd<WHICH, T, 128, 4, 1, 2, 16>(p, stream);
+    return run_bwd<WHICH, T, 256, 4, 1, 2, 16>(p, stream);
   }
-  if (p.D <= 64) return run_bwd<T, 64, 8, 2, 1, 16>(which, p, stream);
-  if (p.D <= 128) return run_bwd<T, 128, 4, 1, 2, 16>(which, p, stream);
-  return run_bwd<T, 256, 4, 1, 2, 16>(which, p, stream);
 }
 
 }  // namespace
 
+// The library is one translation unit, or FLASH_PARTS of them built side by
+// side from this file (common.load_cuda, -DKERNEL_PART=i) and linked: part
+// 3 d + w holds kernel w (0 forward, 1 dQ, 2 dK/dV) at dtype d (0 float32,
+// 1 bfloat16), each with its three head-dim tiers, and the last part the
+// entry points. Each part's compile is a sixth of the whole one.
+#define FLASH_PARTS 7
+#define FLASH_PART(i, T, WHICH)                                                                    \
+  extern "C" int flash_part##i(const void* params, void* stream) {                                 \
+    return run_d<T, WHICH>(*static_cast<const Params*>(params), static_cast<cudaStream_t>(stream)); \
+  }
+#ifdef KERNEL_PART
+#define IN_PART(i) (KERNEL_PART == (i))
+#else
+#define IN_PART(i) 1
+#endif
+
+#if IN_PART(0)
+FLASH_PART(0, float, 0)
+#endif
+#if IN_PART(1)
+FLASH_PART(1, float, 1)
+#endif
+#if IN_PART(2)
+FLASH_PART(2, float, 2)
+#endif
+#if IN_PART(3)
+FLASH_PART(3, __nv_bfloat16, 0)
+#endif
+#if IN_PART(4)
+FLASH_PART(4, __nv_bfloat16, 1)
+#endif
+#if IN_PART(5)
+FLASH_PART(5, __nv_bfloat16, 2)
+#endif
+
+#if IN_PART(FLASH_PARTS - 1)
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. Returns the launch's cudaError_t.
+int flash_part0(const void*, void*);
+int flash_part1(const void*, void*);
+int flash_part2(const void*, void*);
+int flash_part3(const void*, void*);
+int flash_part4(const void*, void*);
+int flash_part5(const void*, void*);
+
+// which: 0 forward, 1 dQ, 2 dK/dV; dtype: 0 float32, 1 bfloat16. Returns the
+// launch's cudaError_t.
 int flash_launch(int which, const void* params, int dtype, void* stream) {
-  const Params& p = *static_cast<const Params*>(params);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run_d<float>(which, p, s);
-  if (dtype == 1) return run_d<__nv_bfloat16>(which, p, s);
-  return cudaErrorInvalidValue;
+  static int (*const parts[6])(const void*, void*) = {flash_part0, flash_part1, flash_part2,
+                                                      flash_part3, flash_part4, flash_part5};
+  if (which < 0 || which > 2 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
+  return parts[3 * dtype + which](params, stream);
 }
 
 const char* flash_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 int flash_params_size() { return (int)sizeof(Params); }
 
+int flash_parts() { return FLASH_PARTS; }
+
 }  // extern "C"
+#endif

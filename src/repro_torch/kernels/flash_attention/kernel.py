@@ -33,6 +33,7 @@ import torch
 from repro_torch.kernels import common
 
 SOURCES = ("flash_attention/csrc/flash_attention.cu",)
+PARTS = 7  # the source's FLASH_PARTS: compiled side by side (``common.load_cuda``)
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD, _DQ, _DKV = 0, 1, 2
@@ -54,13 +55,17 @@ class _Params(ctypes.Structure):
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The built and loaded kernel library (built at the first call)."""
-    lib = common.load_cuda("flash_attention", SOURCES)
+    lib = common.load_cuda("flash_attention", SOURCES, PARTS)
     lib.flash_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.flash_launch.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     lib.flash_params_size.argtypes = []
     lib.flash_params_size.restype = ctypes.c_int
+    lib.flash_parts.argtypes = []
+    lib.flash_parts.restype = ctypes.c_int
+    if lib.flash_parts() != PARTS:
+        raise RuntimeError(f"flash_attention library: {lib.flash_parts()} parts, the wrapper builds {PARTS}")
     if lib.flash_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError(f"flash_attention library: Params is {lib.flash_params_size()} bytes, "
                            f"the wrapper's {ctypes.sizeof(_Params)}")

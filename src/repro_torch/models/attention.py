@@ -31,9 +31,11 @@ NEG_INF = -1e30
 BLOCK_THRESHOLD = 4096  # longer unmasked sequences take blocked_attention, as in repro
 
 
-def attn_def(cfg) -> dict:
+def attn_def(cfg, *, cross: bool = False) -> dict:
     """``repro``'s ``attn_def``: the projections at fan-in scale (``wq``'s
-    fan-in is d·H, ``repro``'s rule)."""
+    fan-in is d·H, ``repro``'s rule). A decoder layer's cross-attention
+    (``cross``) has the same shapes: its k and v project the encoder's
+    output."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
         "wq": ParamDef((d, cfg.num_heads, hd)),

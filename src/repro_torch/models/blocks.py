@@ -10,10 +10,14 @@ and none (mamba2's layers). Each layer runs over a full sequence
 full-attention layer holds ``max_len`` slots, a local layer a ring of
 min(w, ``max_len``) slots where position p lies at slot p mod w, a mamba
 layer its f32 state and its conv's last W − 1 inputs; ``decode_snapshot``
-saves what a retried decode must find again. ``repro``'s MoE auxiliary
-loss is not returned (it only feeds the training loss, not ported yet). A
-layer without a mixer raises ``NotImplementedError``; cross-attention (the
-encoder-decoder) is not ported.
+saves what a retried decode must find again. A decoder layer of an
+encoder-decoder (whisper) adds cross-attention between the mixer and the
+FFN: ``norm_x``, then ``cross``'s query over the encoder output's keys and
+values, non-causal and plain PyTorch (``repro`` computes it outside any
+Pallas kernel); its cache holds those keys and values as ``xk``/``xv``,
+written by the prefill and read by every decode step. ``repro``'s MoE
+auxiliary loss is not returned (it only feeds the training loss, not
+ported yet). A layer without a mixer raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,10 +36,13 @@ def _check(spec: LayerSpec) -> None:
                                   "attn, local and mamba, the FFNs dense, moe and none")
 
 
-def layer_def(cfg: ArchConfig, spec: LayerSpec) -> dict:
+def layer_def(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False) -> dict:
     _check(spec)
     d = {"norm1": rmsnorm_def(cfg.d_model),
          "mixer": ssm.ssm_def(cfg) if spec.mixer == "mamba" else attn.attn_def(cfg)}
+    if cross:
+        d["norm_x"] = rmsnorm_def(cfg.d_model)
+        d["cross"] = attn.attn_def(cfg, cross=True)
     if spec.ffn != "none":
         d["norm2"] = rmsnorm_def(cfg.d_model)
         d["ffn"] = moe_mod.moe_def(cfg) if spec.ffn == "moe" else mlp_def(cfg.d_model, cfg.d_ff)
@@ -48,6 +55,26 @@ def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor) -> torch.Te
         return x
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + (moe_mod.moe(p["ffn"], h, cfg)[0] if spec.ffn == "moe" else mlp(p["ffn"], h))
+
+
+def _cross_kv(p: dict, enc_out: Optional[torch.Tensor], dtype):
+    """The cross-attention's keys and values (B, S_enc, NKV, D) of the
+    encoder output; None without one (the explain path over the token
+    stream) or without a cross-attention."""
+    if enc_out is None or "cross" not in p:
+        return None
+    return tuple(attn._project(enc_out, p["cross"][n].to(dtype)) for n in ("wk", "wv"))
+
+
+def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, kv) -> torch.Tensor:
+    """x + cross-attention of norm_x(x) over the encoder's (k, v), every key
+    (``repro``'s ``full_attention(causal=False)``); x when ``kv`` is None."""
+    if kv is None:
+        return x
+    h = rmsnorm(p["norm_x"], x, cfg.norm_eps)
+    q = attn._project(h, p["cross"]["wq"].to(x.dtype))
+    o = attn.full_attention(q, *kv, causal=False)
+    return x + attn.out_proj(p["cross"], o, x.dtype)
 
 
 def _attn_in(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -65,10 +92,12 @@ def apply_layer(
     *,
     positions: torch.Tensor,
     causal: bool = True,
+    enc_out: Optional[torch.Tensor] = None,
     kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full-sequence layer: x + mixer(norm1(x)), then + ffn(norm2(·)).
-    ``kv_len`` reaches attention only (an SSM is causal). ``repro`` also
+    """Full-sequence layer: x + mixer(norm1(x)), then with ``enc_out`` and
+    a cross-attention + cross(norm_x(·)), then + ffn(norm2(·)). ``kv_len``
+    reaches the self-attention only (an SSM is causal). ``repro`` also
     returns the MoE auxiliary loss, which is not returned here."""
     _check(spec)
     if spec.mixer == "mamba":
@@ -77,21 +106,29 @@ def apply_layer(
         q, k, v = _attn_in(cfg, p, x, positions)
         o = attn.dispatch_attention(cfg, q, k, v, mixer=spec.mixer, causal=causal, kv_len=kv_len)
         x = x + attn.out_proj(p["mixer"], o, x.dtype)
-    return _ffn(cfg, spec, p, x)
+    return _ffn(cfg, spec, p, _cross(cfg, p, x, _cross_kv(p, enc_out, x.dtype)))
 
 
 def layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int, dtype,
                 device="cuda") -> dict:
     """The layer's empty decode cache: k and v, (B, slots, NKV, D) zeros, with
     ``max_len`` slots, or for a local layer the ring's min(w, max_len); for
-    a mamba layer ``ssm.ssm_init_cache``'s state and conv tail."""
+    a mamba layer ``ssm.ssm_init_cache``'s state and conv tail. A decoder
+    layer of an encoder-decoder adds ``xk``/``xv``, (B, encoder_seq, NKV,
+    D), for its cross-attention."""
     _check(spec)
     if spec.mixer == "mamba":
-        return ssm.ssm_init_cache(cfg, batch, dtype, device)
-    slots = min(cfg.sliding_window or max_len, max_len) if spec.mixer == "local" else max_len
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        cache = ssm.ssm_init_cache(cfg, batch, dtype, device)
+    else:
+        slots = min(cfg.sliding_window or max_len, max_len) if spec.mixer == "local" else max_len
+        shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.is_encdec:
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def apply_layer_prefill(
@@ -102,31 +139,38 @@ def apply_layer_prefill(
     cache: dict,
     *,
     positions: torch.Tensor,
+    enc_out: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, dict]:
     """The causal layer over the prompt; its k and v are written into
     ``cache`` in place: the first S slots, or for a local layer whose ring
     of w slots the prompt fills, the last w positions at slot = pos mod w
     (``repro``'s roll by S mod w); a mamba layer writes its last state and
-    conv tail. Returns (x, cache)."""
+    conv tail; a cross-attention writes the keys and values of ``enc_out``
+    into ``xk``/``xv``. Returns (x, cache)."""
     _check(spec)
     if spec.mixer == "mamba":
         y, st = ssm.ssm_forward_with_state(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cfg,
                                            cfg.norm_eps)
         for key in ("state", "conv"):
             cache[key].copy_(st[key])
-        return _ffn(cfg, spec, p, x + y), cache
-    q, k, v = _attn_in(cfg, p, x, positions)
-    o = attn.dispatch_attention(cfg, q, k, v, mixer=spec.mixer, causal=True)
-    S, w = k.shape[1], cache["k"].shape[1]
-    if spec.mixer == "local" and S >= w:
-        shift = S % w  # position S − w, the oldest kept, belongs at slot (S − w) mod w
-        cache["k"].copy_(torch.roll(k[:, S - w:], shift, dims=1))
-        cache["v"].copy_(torch.roll(v[:, S - w:], shift, dims=1))
+        x = x + y
     else:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
-    x = x + attn.out_proj(p["mixer"], o, x.dtype)
-    return _ffn(cfg, spec, p, x), cache
+        q, k, v = _attn_in(cfg, p, x, positions)
+        o = attn.dispatch_attention(cfg, q, k, v, mixer=spec.mixer, causal=True)
+        S, w = k.shape[1], cache["k"].shape[1]
+        if spec.mixer == "local" and S >= w:
+            shift = S % w  # position S − w, the oldest kept, belongs at slot (S − w) mod w
+            cache["k"].copy_(torch.roll(k[:, S - w:], shift, dims=1))
+            cache["v"].copy_(torch.roll(v[:, S - w:], shift, dims=1))
+        else:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
+        x = x + attn.out_proj(p["mixer"], o, x.dtype)
+    kv = _cross_kv(p, enc_out, x.dtype)
+    if kv is not None:
+        cache["xk"].copy_(kv[0])
+        cache["xv"].copy_(kv[1])
+    return _ffn(cfg, spec, p, _cross(cfg, p, x, kv)), cache
 
 
 def _slot(spec: LayerSpec, cache: dict, pos):
@@ -142,7 +186,9 @@ def decode_snapshot(spec: LayerSpec, cache: dict, pos: int, n: int) -> Callable[
     the keys of positions pos + j − w; a mamba layer's state and conv tail,
     which every step overwrites, whole (1.5 MB of f32 state a row on
     mamba2); a full-attention layer's slots from ``pos`` on are masked
-    until written, so it saves nothing."""
+    until written, so it saves nothing. A cross-attention's ``xk``/``xv``
+    are written by the prefill only, never by a decode step, so nothing of
+    them is saved."""
     if spec.mixer == "mamba":
         saved = [(t, t.clone()) for t in (cache["state"], cache["conv"])]
 
@@ -175,17 +221,20 @@ def apply_layer_decode(
     """One token: its k and v are written into slot ``pos`` of ``cache`` in
     place (no copy of the cache), then it attends to slots 0..pos; a local
     layer writes slot pos mod w of its ring and attends to the ring; a
-    mamba layer advances its state and conv tail in place."""
+    mamba layer advances its state and conv tail in place; a
+    cross-attention reads the prefill's ``xk``/``xv``."""
     _check(spec)
     if spec.mixer == "mamba":
         y, cache = ssm.ssm_decode_step(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cache, cfg,
                                        cfg.norm_eps)
-        return _ffn(cfg, spec, p, x + y), cache
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
-    q, k, v = _attn_in(cfg, p, x, positions)
-    slot = _slot(spec, cache, pos)
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    o = attn.decode_attention(q, cache["k"], cache["v"], pos + 1, ring=spec.mixer == "local")
-    x = x + attn.out_proj(p["mixer"], o, x.dtype)
-    return _ffn(cfg, spec, p, x), cache
+        x = x + y
+    else:
+        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        q, k, v = _attn_in(cfg, p, x, positions)
+        slot = _slot(spec, cache, pos)
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        o = attn.decode_attention(q, cache["k"], cache["v"], pos + 1, ring=spec.mixer == "local")
+        x = x + attn.out_proj(p["mixer"], o, x.dtype)
+    kv = (cache["xk"], cache["xv"]) if "xk" in cache else None
+    return _ffn(cfg, spec, p, _cross(cfg, p, x, kv)), cache

@@ -71,5 +71,7 @@ def init_params(defs: Any, generator: torch.Generator, *, dtype: torch.dtype = t
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """A ``repro`` parameter tree (dicts and tuples of arrays) -> the same
-    tree of tensors on ``device``; the layouts are shared, so nothing moves."""
+    tree of tensors on ``device``; the layouts are shared, so nothing moves:
+    every leaf is carried, an encoder-decoder's ``encoder``, ``norm_x`` and
+    ``cross`` and a stub frontend's ``frontend_proj`` included."""
     return tree_map(lambda _, a: torch.from_numpy(np.array(a)).to(device), tree)

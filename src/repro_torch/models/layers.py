@@ -1,11 +1,11 @@
-"""Core layers of ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP and
-the token embeddings.
+"""Core layers of ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP,
+the token embeddings and the stub frontend's projection.
 
 Parameters keep ``repro``'s layouts (``mlp`` weights (d, f) and (f, d) for
-``x @ w``, ``embedding`` (V, d), ``unembed`` (d, V)). ``repro`` pins the MLP
-hidden to its tensor-parallel axis with ``sharding.context.constrain``; on
-one card that has no meaning and is dropped. Not ported yet: the stub
-frontend projection and the chunked loss (training).
+``x @ w``, ``embedding`` (V, d), ``unembed`` (d, V), ``frontend_proj``
+(frontend_dim, d)). ``repro`` pins the MLP hidden to its tensor-parallel
+axis with ``sharding.context.constrain``; on one card that has no meaning
+and is dropped. Not ported yet: the chunked loss (training).
 """
 from __future__ import annotations
 
@@ -50,13 +50,14 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_def(cfg) -> dict:
-    """The token embedding (V, d), unit normal, and unless tied the
-    unembedding (d, V) at fan-in scale."""
-    if cfg.frontend:
-        raise NotImplementedError("the stub frontend projection is not ported yet")
+    """The token embedding (V, d), unit normal, unless tied the unembedding
+    (d, V), and with a stub frontend its projection (frontend_dim, d), both
+    at fan-in scale."""
     d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), "embed")}
     if not cfg.tie_embeddings:
         d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+    if cfg.frontend:
+        d["frontend_proj"] = ParamDef((cfg.frontend_dim or cfg.d_model, cfg.d_model))
     return d
 
 
@@ -66,6 +67,12 @@ def embed(p: dict, tokens: torch.Tensor, cfg, dtype: torch.dtype) -> torch.Tenso
     if cfg.name.startswith("gemma"):
         e = e * torch.tensor(cfg.d_model**0.5, dtype=dtype)
     return e
+
+
+def project_frontend(p: dict, feats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Stub frontend features (…, frontend_dim) — audio frames or vision
+    patches — -> embeddings (…, d) in ``dtype``."""
+    return feats.to(dtype) @ p["frontend_proj"].to(dtype)
 
 
 def unembed(p: dict, h: torch.Tensor, cfg) -> torch.Tensor:

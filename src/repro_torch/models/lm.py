@@ -1,28 +1,36 @@
 """The language model of ``repro.models.lm``: the llama-style stacks of
 full-attention layers, gemma3's pattern of sliding-window (local) layers
 between full-attention ones, the MoE stacks (qwen3-moe), the attention-free
-Mamba-2 stack (mamba2) and the hybrid of all three (jamba).
+Mamba-2 stack (mamba2), the hybrid of all three (jamba), the
+encoder-decoder over stub audio frames (whisper) and the backbone with stub
+vision patches prepended (internvl2).
 
 Parameters keep ``repro``'s tree: ``embed`` (``embedding`` (V, d), and
 ``unembed`` (d, V) unless tied), ``final_norm``, ``layers`` — a tuple over
 the layer pattern of dicts whose tensors carry a leading period axis — and
-``rem``, the remainder layers. A Python loop over the periods replaces
+``rem``, the remainder layers; an encoder-decoder adds ``encoder``
+(``layers``, stacked over the encoder's depth, and ``final_norm``) and each
+decoder layer its ``norm_x`` and ``cross``; a stub frontend adds
+``embed.frontend_proj``. A Python loop over the periods replaces
 ``repro``'s ``lax.scan``, so ``params_from_numpy`` (``models.common``)
 maps ``repro``'s tree as it is.
 
 Entry points: ``param_defs`` / ``init_params`` (parameters),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
-differentiates through), ``logits``, and serving: ``init_cache``,
-``prefill``, ``decode_step`` and ``decode_snapshot`` (what a retried
-decode chunk restores). ``repro``'s MoE auxiliary loss is not returned: it
-feeds only the training loss, which is not ported yet, nor are the
-encoder and the stub frontends.
+differentiates through), ``encode`` (the encoder over stub frames),
+``forward_hidden`` (the backbone over a batch with its frontend),
+``logits``, and serving: ``init_cache``, ``prefill``, ``decode_step`` and
+``decode_snapshot`` (what a retried decode chunk restores). ``repro``'s
+MoE auxiliary loss is not returned: it feeds only the training loss
+(``loss``), which is not ported yet.
 
 The decode cache is ``repro``'s tree: ``layers`` (per pattern entry, k and
 v stacked over the periods, (P, B, slots, NKV, D): ``max_len`` slots for a
 full-attention layer, a ring of min(w, max_len) for a local one; a mamba
 layer's f32 state (P, B, H, hd, N) and conv tail (P, B, W − 1, channels)),
-``rem`` and ``len``, the one valid length of the batch. Its tensors are written in place, the
+``rem`` and ``len``, the one valid length of the batch; a decoder layer
+of an encoder-decoder also holds its cross-attention's keys and values of
+the encoder output, ``xk``/``xv`` (P, B, encoder_seq, NKV, D). Its tensors are written in place, the
 port's counterpart of ``repro``'s donated cache: no step copies the cache,
 and a cache passed to ``decode_step`` is the one it returns. ``len`` is a
 () int32 tensor on the CPU: the host drives the loop and indexes the cache
@@ -34,35 +42,43 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import blocks
 # params_from_numpy is re-exported: the bridge that carries repro's weights across
 from repro_torch.models.common import init_params as init_tree, params_from_numpy  # noqa: F401
 from repro_torch.models.common import stack_defs, tree_map
-from repro_torch.models.layers import embed, embed_def, rmsnorm, rmsnorm_def, unembed
+from repro_torch.models.layers import (embed, embed_def, project_frontend, rmsnorm, rmsnorm_def,
+                                       unembed)
+
+ENC_SPEC = LayerSpec("attn", "dense")  # every encoder layer
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this LM cannot build: a
-    layer without a mixer, a local layer without a window, a frontend or an
-    encoder."""
+    """Raise ``NotImplementedError`` for a config whose layers this LM
+    cannot build: a layer without a mixer or a local layer without a
+    window."""
     ok = all(s.mixer in ("attn", "mamba") or (s.mixer == "local" and cfg.sliding_window)
              for s in cfg.pattern)
-    if not ok or cfg.frontend or cfg.is_encdec:
+    if not ok:
         raise NotImplementedError(
             f"{cfg.name}: the port's LM builds attention, sliding-window and Mamba-2 layers with "
-            "dense, MoE or no FFN, without frontend or encoder only")
+            "dense, MoE or no FFN only")
 
 
 def param_defs(cfg: ArchConfig) -> dict:
     check_supported(cfg)
-    return {
+    cross = cfg.is_encdec
+    defs = {
         "embed": embed_def(cfg),
         "final_norm": rmsnorm_def(cfg.d_model),
-        "layers": tuple(stack_defs(blocks.layer_def(cfg, spec), cfg.num_periods)
+        "layers": tuple(stack_defs(blocks.layer_def(cfg, spec, cross=cross), cfg.num_periods)
                         for spec in cfg.pattern),
-        "rem": tuple(blocks.layer_def(cfg, spec) for spec in cfg.remainder_specs),
+        "rem": tuple(blocks.layer_def(cfg, spec, cross=cross) for spec in cfg.remainder_specs),
     }
+    if cfg.is_encdec:
+        defs["encoder"] = {"layers": stack_defs(blocks.layer_def(cfg, ENC_SPEC), cfg.encoder_layers),
+                           "final_norm": rmsnorm_def(cfg.d_model)}
+    return defs
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> dict:
@@ -73,8 +89,29 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> d
 
 
 def embed_inputs(cfg: ArchConfig, params: Any, batch: dict) -> torch.Tensor:
-    """Token inputs -> backbone embeddings (B, S, d) in the compute dtype."""
-    return embed(params["embed"], batch["tokens"], cfg, getattr(torch, cfg.compute_dtype))
+    """Token (+ stub frontend) inputs -> backbone embeddings (B, S, d) in the
+    compute dtype. A vision config prepends the projected patches of
+    ``batch["frontend"]`` (B, frontend_tokens, frontend_dim) when the batch
+    has them; audio frames feed the encoder instead (``encode``)."""
+    dt = getattr(torch, cfg.compute_dtype)
+    e = embed(params["embed"], batch["tokens"], cfg, dt)
+    if cfg.frontend == "vision" and "frontend" in batch:
+        e = torch.cat([project_frontend(params["embed"], batch["frontend"], dt), e], dim=1)
+    return e
+
+
+def encode(cfg: ArchConfig, params: Any, frontend: torch.Tensor) -> torch.Tensor:
+    """The encoder (whisper) over stub frame features (B, S_enc,
+    frontend_dim): their projection, then ``encoder_layers`` non-causal
+    attention layers (the flash op under ``attn_impl="flash"``) and the
+    final norm -> (B, S_enc, d) in the compute dtype."""
+    x = project_frontend(params["embed"], frontend, getattr(torch, cfg.compute_dtype))
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    enc = params["encoder"]
+    for i in range(cfg.encoder_layers):
+        x = blocks.apply_layer(cfg, ENC_SPEC, tree_map(lambda _, t: t[i], enc["layers"]), x,
+                               positions=pos, causal=False)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
 def hidden_from_embeds(
@@ -82,20 +119,26 @@ def hidden_from_embeds(
     params: Any,
     e: torch.Tensor,
     *,
+    enc_out: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,  # (B,) ragged valid lengths
 ) -> torch.Tensor:
     """Backbone over embeddings -> final-normed hidden states (B, S, d).
     ``lengths`` reach the attention as its valid key lengths (the flash
-    op's ``kvlen``)."""
+    op's ``kvlen``); with ``enc_out`` the decoder layers cross-attend to it,
+    without it they skip their cross-attention, as in ``repro``."""
     pos = torch.arange(e.shape[1], device=e.device).expand(e.shape[:2])
     x = e
-    for i in range(cfg.num_periods):
-        for spec, lp in zip(cfg.pattern, params["layers"]):
-            x = blocks.apply_layer(cfg, spec, tree_map(lambda _, t: t[i], lp), x,
-                                   positions=pos, kv_len=lengths)
-    for spec, lp in zip(cfg.remainder_specs, params["rem"]):
-        x = blocks.apply_layer(cfg, spec, lp, x, positions=pos, kv_len=lengths)
+    for spec, lp in _per_layer(cfg, params):
+        x = blocks.apply_layer(cfg, spec, lp, x, positions=pos, enc_out=enc_out, kv_len=lengths)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward_hidden(cfg: ArchConfig, params: Any, batch: dict) -> torch.Tensor:
+    """The backbone over a batch (``tokens``, and ``frontend`` for a
+    frontend config): the encoder's output for an encoder-decoder, the
+    patches prepended for a vision config -> hidden states (B, S, d)."""
+    enc_out = encode(cfg, params, batch["frontend"]) if cfg.is_encdec else None
+    return hidden_from_embeds(cfg, params, embed_inputs(cfg, params, batch), enc_out=enc_out)
 
 
 def logits(cfg: ArchConfig, params: Any, h: torch.Tensor) -> torch.Tensor:
@@ -137,8 +180,14 @@ def _layers(cfg: ArchConfig, params: Any, cache: dict):
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
     """Run the prompt, fill a new cache, return the last position's logits
-    (B, 1, V). Raises ``ValueError`` when the prompt is longer than the
-    cache (``repro`` asserts it)."""
+    (B, 1, V). The sequence counts a vision config's prepended patches; an
+    encoder-decoder encodes ``batch["frontend"]`` first and caches each
+    decoder layer's cross keys and values of it. Raises ``ValueError`` when
+    the sequence is longer than the cache (``repro`` asserts it) or the
+    frames are not ``encoder_seq`` long."""
+    enc_out = encode(cfg, params, batch["frontend"]) if cfg.is_encdec else None
+    if enc_out is not None and enc_out.shape[1] != cfg.encoder_seq:
+        raise ValueError(f"{enc_out.shape[1]} encoder frames; {cfg.name} caches {cfg.encoder_seq}")
     e = embed_inputs(cfg, params, batch)
     B, S, _ = e.shape
     if S > max_len:
@@ -147,7 +196,7 @@ def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[to
     cache = init_cache(cfg, B, max_len, device=e.device)
     x = e
     for spec, lp, lc in _layers(cfg, params, cache):
-        x, _ = blocks.apply_layer_prefill(cfg, spec, lp, x, lc, positions=pos)
+        x, _ = blocks.apply_layer_prefill(cfg, spec, lp, x, lc, positions=pos, enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["len"] = torch.tensor(S, dtype=torch.int32)
     return logits(cfg, params, x[:, -1:]), cache

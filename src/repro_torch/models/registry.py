@@ -7,7 +7,10 @@ bucketed serving output, and an embedding hook (``embed_inputs`` for token
 models, ``embed_features`` for patch models); ``Model`` also binds the
 decode cache's ``init_cache``, ``prefill`` and ``decode_step`` (full-attention
 layers' static cache, local layers' rings, mamba layers' state and conv
-tail). ``repro``'s
+tail, cross-attention keys and values), and ``forward_hidden``, the
+backbone over a batch with its stub frontend (``frontend``: whisper's
+frames, internvl2's patches). The target functions explain the token
+stream only, as in ``repro``: no encoder output, no patches. ``repro``'s
 dry-run input specs and training loss are not ported here.
 """
 from __future__ import annotations
@@ -38,6 +41,9 @@ class Model:
 
     def hidden_from_embeds(self, params, e: torch.Tensor, **kw) -> torch.Tensor:
         return lm.hidden_from_embeds(self.cfg, params, e, **kw)
+
+    def forward_hidden(self, params, batch: dict) -> torch.Tensor:
+        return lm.forward_hidden(self.cfg, params, batch)
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         return lm.logits(self.cfg, params, h)
@@ -105,7 +111,7 @@ class VitFacade:
 
 def model_for(cfg: Any):
     """Config -> model facade: ArchConfig -> ``Model`` (``NotImplementedError``
-    for an architecture the port's LM cannot build), VitConfig ->
+    for a layer kind the port's LM cannot build), VitConfig ->
     ``VitFacade``."""
     if isinstance(cfg, ArchConfig):
         return Model(cfg)

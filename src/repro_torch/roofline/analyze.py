@@ -11,7 +11,7 @@ any, and the engine reports them on ``BucketStats``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -194,6 +194,12 @@ def hotpath_cost(cfg: Any, bucket: tuple[int, int], m: int, chunk: int, dtype: A
         the layer's kind), the logits the target reads (compute dtype, f32
         upcast, f32 log-softmax) and the stage-2 buffers.
 
+    An explanation runs the decoder over the token stream only (no
+    encoder output, no patches), so an encoder-decoder's encoder and
+    cross-attention and a stub frontend's projection are not counted: the
+    cost is that of the config without them, as ``repro``'s cost analysis
+    of the compiled call counts only what runs.
+
         >>> from repro_torch.configs import ARCHS
         >>> from dataclasses import replace
         >>> cfg = replace(ARCHS["llama3-8b"], num_layers=4)
@@ -201,6 +207,8 @@ def hotpath_cost(cfg: Any, bucket: tuple[int, int], m: int, chunk: int, dtype: A
         >>> c["peak bytes"] > 80e9 > hotpath_cost(cfg, (16, 128), 64, 16, "bfloat16")["peak bytes"]
         True
     """
+    if cfg.is_encdec or cfg.frontend:
+        cfg = replace(cfg, encoder_layers=0, frontend=None)
     B, S = bucket
     chunk = chunk or m
     if m % chunk:

@@ -174,25 +174,29 @@ class ServeEngine:
         generator: Optional[torch.Generator] = None,
         temperature: float = 1.0,
     ) -> torch.Tensor:
-        """batch: prompt dict ({"tokens": (B, S)}) -> (B, num_tokens) int32 ids.
+        """batch: prompt dict ({"tokens": (B, S)}, and ``frontend`` features
+        for a frontend config) -> (B, num_tokens) int32 ids.
 
         Greedy argmax by default; pass ``generator`` (on the engine's
         device) to sample at ``temperature`` > 0 instead, the prefill token
         too. ``num_tokens <= 0`` returns an empty (B, 0) tensor and does not
-        emit the prefill token. Raises ``ValueError`` when S + num_tokens − 1
-        tokens do not fit the cache, where ``repro``'s clamped writes would
-        corrupt it.
+        emit the prefill token. Raises ``ValueError`` before the prefill
+        when P + S + num_tokens − 1 positions do not fit the cache, P the
+        patches a vision batch prepends (0 otherwise), where ``repro``'s
+        clamped writes would corrupt it (``repro.launch.serve`` sizes its
+        cache without the patches).
         """
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        B, S = tokens.shape
+        batch = {k: torch.as_tensor(t, device=self.device) for k, t in batch.items()}
+        B, S = batch["tokens"].shape
         if num_tokens <= 0:
             return torch.zeros((B, 0), dtype=torch.int32, device=self.device)
-        if S + num_tokens - 1 > self.max_len:
-            raise ValueError(f"{S} prompt tokens and {num_tokens} new need {S + num_tokens - 1} "
-                             f"cache slots; the cache holds {self.max_len}")
+        P = batch["frontend"].shape[1] if self.cfg.frontend == "vision" and "frontend" in batch else 0
+        if P + S + num_tokens - 1 > self.max_len:
+            raise ValueError(f"{P} patches, {S} prompt tokens and {num_tokens} new need "
+                             f"{P + S + num_tokens - 1} cache slots; the cache holds {self.max_len}")
         if generator is not None and not temperature > 0:
             raise ValueError(f"sampling needs a temperature > 0, got {temperature}")
-        logits, cache = self._prefill(self.params, {**batch, "tokens": tokens})
+        logits, cache = self._prefill(self.params, batch)
         lg = logits[:, -1]
         if generator is None:
             tok = _greedy(lg)[:, None]

@@ -311,9 +311,15 @@ class MixedScheduler:
         Rejection (full queue, dry tenant bucket) and admission-time
         degradation (a prompt no bucket or the KV cache can hold: a poisoned
         request must not reach, and kill, the dispatch loop) are reported on
-        the ticket, never raised.
+        the ticket, never raised. A ``GenerateRequest`` on an
+        encoder-decoder raises ``ValueError``: it carries no frames for the
+        encoder, and ``repro``'s scheduler fails on it too (``KeyError:
+        'frontend'`` where it builds the prefill, outside its retry).
         """
         is_gen = isinstance(req, GenerateRequest)
+        if is_gen and getattr(self.engine.cfg, "is_encdec", False):
+            raise ValueError(f"{self.engine.cfg.name} is an encoder-decoder: a GenerateRequest carries "
+                             "no frames for its encoder")
         t = Ticket(
             id=self._next_id,
             kind="generate" if is_gen else "explain",

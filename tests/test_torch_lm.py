@@ -30,7 +30,7 @@ from repro.models.registry import Model as JModel
 from repro.serve import batching as jbatch
 from repro.serve.autotune import HotpathConfig as JHotpathConfig, bucket_key as j_bucket_key
 from repro.serve.explain_engine import ExplainRequest as JRequest
-from repro_torch.configs import ARCHS, ArchConfig, LayerSpec, reduced
+from repro_torch.configs import ARCHS, LayerSpec, reduced
 from repro_torch.configs.vit import reduced_vit
 from repro_torch.core.probes import cat_tree, repeat_tree
 from repro_torch.models import layers, lm, vit as tvit
@@ -65,9 +65,9 @@ def _tokens(B=3, S=24, seed=0):
 
 
 def test_configs_are_copies():
-    assert set(ARCHS) == set(J_ARCHS) - {"whisper-tiny", "internvl2-26b"} == {
+    assert set(ARCHS) == set(J_ARCHS) == {
         "gemma3-27b", "llama3-8b", "internlm2-20b", "yi-9b", "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
-        "mamba2-780m", "jamba-v0.1-52b"}
+        "mamba2-780m", "jamba-v0.1-52b", "whisper-tiny", "internvl2-26b"}
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(J_ARCHS[name])
         assert dataclasses.asdict(reduced(cfg)) == dataclasses.asdict(j_reduced(J_ARCHS[name]))
@@ -80,22 +80,10 @@ def test_configs_are_copies():
             cfg.vocab_size) == (2, 64, 4, 2, 16, 512)
 
 
-def _port_config(jcfg):
-    """A ``repro`` config as the port's ``ArchConfig``, field for field."""
-    fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    fields["pattern"] = tuple(LayerSpec(s.mixer, s.ffn) for s in jcfg.pattern)
-    return ArchConfig(**fields)
-
-
-@pytest.mark.parametrize("case", ["vision frontend", "internvl2-26b", "whisper-tiny"])
-def test_model_for_refuses_what_the_lm_cannot_build(case):
-    """A stub frontend (internvl2-26b's vision one) or an encoder
-    (whisper-tiny's, with its audio frontend) is not ported."""
-    if case == "vision frontend":
-        cfg = dataclasses.replace(reduced(ARCHS["llama3-8b"]), frontend="vision")
-    else:
-        cfg = _port_config(j_reduced(J_ARCHS[case]))
-    with pytest.raises(NotImplementedError, match="without frontend or encoder"):
+def test_model_for_refuses_what_the_lm_cannot_build():
+    """A layer kind the LM cannot build: a local layer without a window."""
+    cfg = dataclasses.replace(reduced(ARCHS["llama3-8b"]), pattern=(LayerSpec("local", "dense"),))
+    with pytest.raises(NotImplementedError, match="builds attention, sliding-window and Mamba-2"):
         model_for(cfg)
 
 
