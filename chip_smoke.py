@@ -223,7 +223,27 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      and ``.serve`` run in-process through ``run`` (``LAUNCHES_BY_RUN``):
      each returns 0 with finite δ, launches exactly its path's kernels,
      adds no miss at a seen bucket, and internvl2's classic greedy tokens
-     equal a direct ``ServeEngine`` call's on the same draws.
+     equal a direct ``ServeEngine`` call's on the same draws;
+ 23. training — ``make_train_step`` (remat, AdamW in place) on llama3-8b
+     at full width, 8 of 32 layers (2.80 B parameters; params, gradients,
+     m and v 44.7 GB), bf16, flash, B=8, S=128 of ``SyntheticLM``: six
+     steps timed (finite loss and gradient norm; each step launches the
+     flash forward twice a layer, the recompute's included, each backward
+     kernel once a layer and no other kernel), peak memory beside 16 B a
+     parameter, one step profiled and its gradient and optimizer halves
+     apart (device ms by group); at 2 layers a step repeated from a copy of
+     its state, every leaf bit for bit; ``microbatches=2``'s gradient
+     against the full batch's within 2e-2 of each leaf's largest |value|;
+     the card against the port on CPU copies (f32, 1 layer, B=2, S=64):
+     loss and gradient norm within 1e-4 relative, every updated leaf
+     within 1e-4 of its largest |value|;
+ 24. the training command line — ``repro_torch.launch.train`` in-process on
+     llama3-8b at full width, 1 layer, B=8, S=128, flash: 2 steps with a
+     checkpoint at step 2 (15.2 GB under ``build/train_ckpt``, deleted at
+     the end), 3 steps resumed from it (``resumed from step 2``), and 3
+     steps without one: the resumed run's step-3 loss and final state bit
+     for bit the uninterrupted run's, each run launching the flash trio
+     only.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -249,7 +269,9 @@ internvl2's prefill (16 × 384, 48 on 8, D=128, causal;
 ragged) of whisper (16x128, ``at_whisper_explain``) and internvl2 (16x128
 and 4x512, ``at_vlm_explain`` and ``at_vlm_explain_512``) beside SDPA;
 and the four stage-2 kernels of ``ig`` at internvl2's two buckets (S ·
-6144) under the same two names.
+6144) under the same two names. Then the trio at the train step's
+attention (8 × 128, 32 on 8, D=128, bf16, causal, every key) beside SDPA
+(``at_train_shape``).
 
 Gates of the slices: finite results, every kernel of each path launched
 and no other, fused agrees with unfused, resume (and a replayed
@@ -263,7 +285,8 @@ generate path of the serve slices launches the flash forward and no other
 kernel; their decode chunks launch none; the gemma3 and qwen3-moe engine
 slices launch the flash trio and the four kernels of ``ig`` unfused and
 fused, jamba's the trio and unfused ``ig``'s two; the mamba2 slice launches
-no flash kernel. The mixed slice counts its launches
+no flash kernel; the two training slices launch the trio and nothing
+else. The mixed slice counts its launches
 by work-item kind as well (prefill, decode, ``exp_start``, hop, ``exp_fwd``).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}`` (per
@@ -807,37 +830,52 @@ def _attr_close(name, got, want, rows=None) -> None:
         raise AssertionError(f"{name}: rows {torch.nonzero(~ok).flatten().tolist()} disagree")
 
 
-def _profile(name: str, fn) -> None:
-    """Print the card's busy share of one call of ``fn``, the device time of
-    each group of kernels in ``PROFILE_GROUPS`` and the top kernels by device
-    time (torch.profiler, CUDA activity only); "not measured" if the trace
-    has none."""
+def _trace(fn) -> tuple[float, dict]:
+    """(wall µs of one synchronised call of ``fn``, device µs by kernel
+    name), from torch.profiler tracing CUDA activity only."""
     from torch.profiler import ProfilerActivity, profile
 
     _sync()
-    t_all = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: the trace reads fast
         t0 = time.perf_counter()
         fn()
         _sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {e.key: e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+    return wall_us, {e.key: e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _grouped(kernels: dict) -> dict:
+    """Device µs by ``PROFILE_GROUPS`` group, each kernel in the first group
+    that names it, the rest under "other"."""
+    groups = dict.fromkeys(PROFILE_GROUPS, 0.0)
+    for k, v in kernels.items():
+        g = next((g for g, names in PROFILE_GROUPS.items() if any(n in k for n in names)), None)
+        if g is not None:
+            groups[g] += v
+    groups["other"] = sum(kernels.values()) - sum(groups.values())
+    return groups
+
+
+def _profile(name: str, fn) -> None:
+    """Print the card's busy share of one call of ``fn``, the device time of
+    each group of kernels in ``PROFILE_GROUPS`` and the top kernels by device
+    time (torch.profiler, CUDA activity only); "not measured" if the trace
+    has none."""
+    t_all = time.perf_counter()
+    wall_us, kernels = _trace(fn)
     busy = sum(kernels.values())
     if not busy:
         print(f"  profile {name}: device time not measured")
         return
-    groups = dict.fromkeys(PROFILE_GROUPS, 0.0)
-    for k, v in kernels.items():  # each kernel in the first group that names it
-        g = next((g for g, names in PROFILE_GROUPS.items() if any(n in k for n in names)), None)
-        if g is not None:
-            groups[g] += v
+    groups = _grouped(kernels)
+    other = groups.pop("other")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     print(f"  profile {name}: wall {wall_us / 1e3:.2f} ms (the trace taken and read in "
           f"{time.perf_counter() - t_all:.1f} s), device busy {busy / 1e3:.2f} ms "
           f"({busy / wall_us:.3f}), "
           + ", ".join(f"{g} {v / 1e3:.3f} ms ({v / busy:.3f} of busy)" for g, v in groups.items())
-          + f", other {(busy - sum(groups.values())) / 1e3:.3f} ms, {len(kernels)} kernel names; top: "
+          + f", other {other / 1e3:.3f} ms, {len(kernels)} kernel names; top: "
           + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
 
@@ -1896,12 +1934,13 @@ def _stage2_timed(g, shape, by_name: dict, into: str, what: str, labels=None) ->
     del x, b, acc, carry, grads, steps, diff
 
 
-def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str) -> None:
+def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str, ragged: bool = True) -> None:
     """The flash trio at ``shape`` (B, S, NQ, NKV, D) in bf16, causal, with
-    ragged lengths in (S/2, S], against their plain versions at 3e-2, timed
-    beside their bounds at the bf16 rate and SDPA on the same tensors (K/V
-    repeated to the query heads, the causal ragged mask as a boolean mask);
-    each kernel's record in ``by_name`` gains ``into``."""
+    ragged lengths in (S/2, S] (or every key, without ``ragged``), against
+    their plain versions at 3e-2, timed beside their bounds at the bf16
+    rate and SDPA on the same tensors (K/V repeated to the query heads; the
+    causal ragged mask as a boolean mask, or ``is_causal``); each kernel's
+    record in ``by_name`` gains ``into``."""
     import torch.nn.functional as tnf
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1910,14 +1949,17 @@ def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str) -> None:
     bf = torch.bfloat16
     Bq, S, NQ, NKV, D = shape
     q, k, v, do, _ = _flash_inputs(g, Bq, S, NQ, NKV, D, bf, False)
-    kvlen = torch.randint(S // 2 + 1, S + 1, (Bq,), generator=g, device=DEV, dtype=torch.int32)
+    if ragged:
+        kvlen = torch.randint(S // 2 + 1, S + 1, (Bq,), generator=g, device=DEV, dtype=torch.int32)
+    else:
+        kvlen = torch.full((Bq,), S, device=DEV, dtype=torch.int32)
     tol = FLASH_TOL[bf]
     o_ref, lse_ref = fr.flash_fwd_ref(q, k, v, kvlen, causal=True)
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, do, lse_ref, delta, kvlen)
     dk_ref, dv_ref = fr.flash_bwd_dkv_ref(*args, causal=True)
-    print(f"flash kernels at {what} B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, ragged "
-          f"kvlen in [{int(kvlen.min())}, {int(kvlen.max())}]:")
+    print(f"flash kernels at {what} B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, "
+          + (f"ragged kvlen in [{int(kvlen.min())}, {int(kvlen.max())}]:" if ragged else "every key:"))
     o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
     dk, dv = fk.flash_bwd_dkv_cuda(*args, causal=True)
     errs = {"flash_fwd": max(_flash_close("flash_fwd o", o, o_ref, tol)[0],
@@ -1926,29 +1968,31 @@ def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str) -> None:
                                          fr.flash_bwd_dq_ref(*args, causal=True), tol)[0],
             "flash_bwd_dkv": max(_flash_close("flash_bwd_dkv dk", dk, dk_ref, tol)[0],
                                  _flash_close("flash_bwd_dkv dv", dv, dv_ref, tol)[0])}
-    # SDPA on the same bf16 tensors, K/V expanded to the query heads and the
-    # causal ragged mask as a boolean mask (its memory-efficient backend)
+    # SDPA on the same bf16 tensors, K/V expanded to the query heads: the
+    # causal ragged mask as a boolean mask (its memory-efficient backend),
+    # or with every key ``is_causal`` (its flash backend first)
     ke, ve = (t.repeat_interleave(NQ // NKV, dim=1) for t in (k, v))
     pos = torch.arange(S, device=DEV)
     allowed = (pos[None, :, None] >= pos[None, None, :]) & (pos[None, None, :] < kvlen[:, None, None].long())
-    allowed = allowed[:, None]
+    mask = dict(attn_mask=allowed[:, None]) if ragged else dict(is_causal=True)
     leaves = [t.detach().clone().requires_grad_() for t in (q, ke, ve)]
-    backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
-    for backend in backends:  # the first that takes a boolean mask in bf16, forward and backward
+    backends = ([] if ragged else [SDPBackend.FLASH_ATTENTION]) + [SDPBackend.EFFICIENT_ATTENTION,
+                                                                  SDPBackend.MATH]
+    for backend in backends:  # the first that takes the mask in bf16, forward and backward
         try:
             with sdpa_kernel(backend):
-                o_sdpa = tnf.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+                o_sdpa = tnf.scaled_dot_product_attention(*leaves, **mask)
             torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
             break
         except RuntimeError as e:
             print(f"  SDPA backend {backend.name} refused: {str(e).splitlines()[0][:120]}")
     else:
         raise AssertionError(f"no SDPA backend of {[b.name for b in backends]} takes {what}'s bf16 "
-                             "inputs with a boolean mask, forward and backward")
+                             "inputs with its mask, forward and backward")
 
     def sdpa_fwd():
         with sdpa_kernel(backend):
-            return tnf.scaled_dot_product_attention(q, ke, ve, attn_mask=allowed)
+            return tnf.scaled_dot_product_attention(q, ke, ve, **mask)
 
     sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
     print(f"  SDPA yardstick: backend {backend.name}, backward node {type(o_sdpa.grad_fn).__name__}, "
@@ -4188,6 +4232,236 @@ def launcher_phase() -> dict:
     return _slice(paths_launched)
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_LAYERS = 8  # llama3-8b at full width, 8 of 32 layers: 2.80 B parameters, 16 B each in a step
+TRAIN_SHAPE = (8, 128)  # B, S: repro.launch.train's defaults
+TRAIN_STEPS = 6
+TRAIN_ATTN = (8, 128, 32, 8, 128)  # the step's attention (B, S, NQ, NKV, D), causal, every key
+TRAIN_CPU = (1, 2, 64)  # card vs CPU, f32: layers, B, S
+TRAIN_REPEAT_LAYERS = 2  # the repeated step's depth: two states on the card at once (35.6 GB)
+TRAIN_MB_TOL = 2e-2  # bf16: microbatches=2 against the full batch, of each leaf's largest |gradient|
+TRAIN_LAUNCHER = ["--arch", "llama3-8b", "--layers", "1", "--batch", "8", "--seq", "128", "--attn", "flash"]
+
+
+def _train_config(layers: int, **kw):
+    """llama3-8b at full width, ``layers`` deep, flash attention."""
+    from repro_torch.configs import ARCHS
+
+    return replace(ARCHS["llama3-8b"], num_layers=layers, attn_impl="flash", **kw)
+
+
+def train_kernel_phase(records: list) -> None:
+    """The flash trio at the train step's attention (8 × 128, 32 query heads
+    on 8, D=128, bf16, causal, every key) against its plain versions,
+    beside its bounds and SDPA: ``at_train_shape`` in each record."""
+    g = torch.Generator(device=DEV).manual_seed(13)
+    by_name = {r["name"]: r for r in records}
+    _flash_trio_timed(g, TRAIN_ATTN, by_name, "at_train_shape", "the train step's attention", ragged=False)
+
+
+def _train_batch(cfg, B: int, S: int, step: int, on_cpu: bool = False) -> dict:
+    """``SyntheticLM``'s batch of ``step`` (seed 0) as tensors on the card
+    (on the CPU with ``on_cpu``)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0)).batch_at(step)
+    return {k: torch.from_numpy(v).to("cpu" if on_cpu else DEV) for k, v in batch.items()}
+
+
+def _leaf_ratio(got: list, want: list, tol: float) -> float:
+    """The worst over the leaves of max |got − want| / (tol · the leaf's
+    largest |want|); both lists of tensors (``got`` may lie elsewhere)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a = a.to(b.device)
+        worst = max(worst, float((a.float() - b.float()).abs().max()) / (tol * max(float(b.abs().max()), 1e-30)))
+    return worst
+
+
+def train_phase() -> dict:
+    """The train step (``repro_torch.train.make_train_step``, remat, AdamW)
+    on llama3-8b at full width, 8 layers, bf16, flash attention, weights
+    drawn on the card, over ``SyntheticLM`` batches of 8 × 128: six timed
+    steps (finite losses and gradient norms; each launches the flash
+    forward twice a layer, the recompute included, and each backward
+    kernel once a layer, nothing else), a step profiled and its two halves
+    (the gradient, the optimizer) profiled apart; at 2 layers, where two
+    states fit the card, the third step repeated from a copy of its
+    state, every leaf bit for bit; the gradient at ``microbatches=2``
+    against the full batch's; and
+    in f32 at 1 layer, B=2, S=64, the card against the port on CPU copies
+    (loss, gradient norm, every updated leaf within 1e-4 of its largest
+    |value|)."""
+    from repro_torch.kernels import common
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.models.registry import Model
+    from repro_torch.optim import adamw_update_
+    from repro_torch.train import TrainConfig, TrainState, make_grad_fn, make_train_state, make_train_step
+
+    _free_card()
+    common.reset_launches()
+    paths_launched = {}
+    cfg, tcfg = _train_config(TRAIN_LAYERS), TrainConfig()
+    Bt, St = TRAIN_SHAPE
+    L = cfg.num_layers
+    fresh = lambda c=cfg: make_train_state(c, tcfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    batch = lambda i: _train_batch(cfg, Bt, St, i)
+    step = make_train_step(cfg, tcfg)
+    state = fresh()
+    n = sum(p.numel() for p in tree_leaves(state.params))
+    print(f"train: {cfg.name} at full width, {L} layers, {n / 1e9:.3f} B parameters, bf16, remat, "
+          f"B={Bt} S={St}")
+    _reset_peak()
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS):
+        (state, m), ms, launched = _timed(lambda: step(state, batch(i)))
+        _need(paths_launched, "train step", launched, FLASH)
+        want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        if {k: launched[k] for k in want} != want:
+            raise AssertionError(f"train step {i}: launches {launched}, want {want} (remat: two forwards)")
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+            raise AssertionError(f"train step {i}: loss {loss}, grad norm {gn}")
+        walls.append(ms)
+        losses.append(loss)
+        print(f"  step {i}: {ms:.1f} ms, loss {loss:.5f}, grad norm {gn:.5f}, lr {float(m['lr']):.3g}")
+    peak = _peak_gb()
+    print(f"  walls ms {[round(w, 1) for w in walls]}; peak {peak:.2f} GB against 16 B a parameter "
+          f"(params, gradients, m, v: {16 * n / 1e9:.2f} GB)")
+
+    # device time: a whole step, then its gradient and its optimizer apart
+    grad_fn = make_grad_fn(cfg, tcfg)
+    wall_a, k_a = _trace(lambda: step(state, batch(TRAIN_STEPS)))
+    held = []
+    wall_b, k_b = _trace(lambda: held.append(grad_fn(state.params, batch(TRAIN_STEPS + 1))))
+    opt = []
+    wall_c, k_c = _trace(lambda: opt.append(adamw_update_(tcfg.optimizer, held[0][1], state.opt,
+                                                         state.params)))
+    state = TrainState(opt[0][0], opt[0][1], state.err)
+    del held, opt
+    busy_a, busy_b, busy_c = (sum(k.values()) for k in (k_a, k_b, k_c))
+    if not busy_a:
+        print("  profile train step: device time not measured")
+    else:
+        groups = {g: v / 1e3 for g, v in _grouped(k_b).items()}
+        print(f"  profile train step: wall {wall_a / 1e3:.2f} ms, device busy {busy_a / 1e3:.2f} ms "
+              f"({busy_a / wall_a:.3f}); the gradient alone {wall_b / 1e3:.2f} ms wall, {busy_b / 1e3:.2f} "
+              f"busy; the optimizer alone {wall_c / 1e3:.2f} ms wall, {busy_c / 1e3:.2f} busy")
+        print("  device ms by group: " + ", ".join(f"{g} {v:.2f}" for g, v in groups.items())
+              + f", the optimizer {busy_c / 1e3:.2f} (of the step's {busy_a / 1e3:.2f}: "
+              + ", ".join(f"{g} {v * 1e3 / busy_a:.3f}" for g, v in groups.items())
+              + f", the optimizer {busy_c / busy_a:.3f})")
+        top = sorted(k_c.items(), key=lambda kv: -kv[1])[:4]
+        print("  the optimizer's top kernels: " + "; ".join(f"{k[:60]} {v / 1e3:.2f} ms" for k, v in top))
+
+    # one step repeated from the same (trained) state: every leaf bit for bit
+    del state
+    _free_card()
+    c2 = _train_config(TRAIN_REPEAT_LAYERS)
+    step2 = make_train_step(c2, tcfg)
+    first = fresh(c2)
+    for i in range(2):
+        first, _ = step2(first, batch(i))
+    again = tree_unflatten(first, [x.clone() for x in tree_leaves(first)])
+    first, m1 = step2(first, batch(2))
+    again, m2 = step2(again, batch(2))
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(first), tree_leaves(again))]
+    if not all(same) or any(not torch.equal(m1[k], m2[k]) for k in m1):
+        raise AssertionError(f"train step repeated: {same.count(False)} of {len(same)} leaves differ, "
+                             f"loss {float(m1['loss'])} vs {float(m2['loss'])}")
+    print(f"  one step repeated from the same state (step 2 of a {TRAIN_REPEAT_LAYERS}-layer cut): all "
+          f"{len(same)} leaves (params, step, m, v) and the metrics bit for bit")
+    del first, again
+    _free_card()
+
+    # microbatches=2 against the full batch: the loss and every gradient leaf
+    params = Model(cfg).init(torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    l1, g1 = grad_fn(params, batch(0))
+    l2, g2 = make_grad_fn(cfg, replace(tcfg, microbatches=2))(params, batch(0))
+    ratio = _leaf_ratio(tree_leaves(g2), tree_leaves(g1), TRAIN_MB_TOL)
+    dl = abs(float(l2) - float(l1)) / abs(float(l1))
+    print(f"  microbatches=2 against the full batch (bf16): loss {float(l2):.6f} vs {float(l1):.6f} "
+          f"(rel {dl:.3g}), worst gradient leaf {ratio:.3g} of {TRAIN_MB_TOL} of its largest |value|")
+    if ratio > 1 or dl > TRAIN_MB_TOL:
+        raise AssertionError("microbatches=2 parts from the full batch")
+    del params, g1, g2
+    _free_card()
+
+    # the card against the CPU, f32: one step from the same state
+    layers, Bc, Sc = TRAIN_CPU
+    c32 = _train_config(layers, compute_dtype="float32")
+    card = fresh(c32)
+    cpu = tree_unflatten(card, [x.to("cpu", copy=True) for x in tree_leaves(card)])
+    step32 = make_train_step(c32, tcfg)
+    card, mc = step32(card, _train_batch(c32, Bc, Sc, 0))
+    t0 = time.perf_counter()
+    cpu, mh = step32(cpu, _train_batch(c32, Bc, Sc, 0, on_cpu=True))
+    cpu_s = time.perf_counter() - t0
+    for k in ("loss", "grad_norm"):
+        _check(f"train card vs CPU {k} (relative)", abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k])), 1e-4)
+    ratio = _leaf_ratio(tree_leaves(card.params), tree_leaves(cpu.params), 1e-4)
+    print(f"  card vs CPU (f32, {layers} layer, B={Bc} S={Sc}; the CPU step {cpu_s:.1f} s): worst updated "
+          f"leaf {ratio:.3g} of 1e-4 of its largest |value|")
+    if ratio > 1:
+        raise AssertionError("train card vs CPU: an updated leaf parts")
+    return _slice(paths_launched)
+
+
+def train_launcher_phase() -> dict:
+    """``repro_torch.launch.train`` in this process on llama3-8b at full
+    width, 1 layer, B=8, S=128, flash: 2 steps checkpointed at step 2 into
+    ``build/train_ckpt``, then 3 steps from that directory (it must print
+    ``resumed from step 2``), then 3 steps without a checkpoint: the
+    resumed run's last loss and final state bit for bit those of the run
+    without one; each run launches the flash trio only. The directory is
+    deleted at the end."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+
+    _free_card()
+    from repro_torch.kernels import common
+
+    common.reset_launches()
+    paths_launched = {}
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  disk free beside the checkpoint: {shutil.disk_usage(ROOT).free / 1e9:.1f} GB")
+    runs = {}
+    try:
+        for name, extra in (("checkpointed", ["--steps", "2", "--ckpt-every", "2", "--ckpt-dir", str(ckpt_dir)]),
+                            ("resumed", ["--steps", "3", "--ckpt-dir", str(ckpt_dir)]),
+                            ("uninterrupted", ["--steps", "3"])):
+            argv = TRAIN_LAUNCHER + extra
+            cmd = f"python -m repro_torch.launch.train {' '.join(argv)}"
+            print(f"launcher: {cmd}")
+            _free_card()
+            out, text, wall, launched, _ = _launcher_run(train, argv)
+            _need(paths_launched, cmd, launched, FLASH)
+            if ("resumed from step 2" in text) != (name == "resumed"):
+                raise AssertionError(f"{cmd}: 'resumed from step 2' {'missing' if name == 'resumed' else 'printed'}")
+            if name == "checkpointed":
+                size = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+                print(f"  checkpoint: {size / 1e9:.2f} GB in {len(list(ckpt_dir.glob('*/shard_*')))} shards")
+            runs[name] = out
+            print(f"  {name}: {wall:.1f} s, launches {json.dumps({k: n for k, n in launched.items() if n})}")
+            if name == "checkpointed":
+                del out, runs[name]  # the card holds the next run's state
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    (s_r, h_r), (s_u, h_u) = runs["resumed"], runs["uninterrupted"]
+    if len(h_r) != 1 or h_r[-1]["loss"] != h_u[-1]["loss"]:
+        raise AssertionError(f"resumed step 3's loss {h_r[-1]['loss']} is not {h_u[-1]['loss']}")
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(s_r), tree_leaves(s_u))]
+    if not all(same):
+        raise AssertionError(f"the resumed run's final state parts in {same.count(False)} leaves")
+    print(f"  resumed at step 2: step 3's loss {h_r[-1]['loss']!r} and all {len(same)} leaves of the final "
+          "state bit for bit those of 3 uninterrupted steps")
+    return _slice(paths_launched)
+
+
 def _setup() -> None:
     """The checkout's package on the path and the numerics every run of
     this script takes (the warm-state children too: their bits are held to
@@ -4243,6 +4517,9 @@ def main() -> int:
     t0 = time.perf_counter()
     encdec_kernel_phase(records)
     print(f"whisper- and internvl2-shape flash phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_kernel_phase(records)
+    print(f"train-shape flash phase: {time.perf_counter() - t0:.1f} s")
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
@@ -4252,7 +4529,8 @@ def main() -> int:
                         ("gemma_mixed", gemma_mixed_phase), ("moe_engine", moe_engine_phase),
                         ("moe_serve", moe_serve_phase), ("ssm", ssm_phase), ("hybrid", hybrid_phase),
                         ("whisper", whisper_phase), ("vlm_engine", vlm_engine_phase),
-                        ("vlm_serve", vlm_serve_phase), ("launchers", launcher_phase)):
+                        ("vlm_serve", vlm_serve_phase), ("launchers", launcher_phase),
+                        ("train", train_phase), ("train_launcher", train_launcher_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -4283,6 +4561,10 @@ def main() -> int:
             raise AssertionError(f"slice {name}: kernels not launched {missing}")
     if slices["vit_idgi"]["launches"]["ig_accum"] or slices["vit_idgi"]["launches"]["accum_cot"]:
         raise AssertionError(f"the IDGI slice launched a riemann kernel: {slices['vit_idgi']['launches']}")
+    for name in ("train", "train_launcher"):  # the flash trio and nothing else
+        extra = {k: n for k, n in slices[name]["launches"].items() if n and k not in FLASH}
+        if extra or not all(slices[name]["launches"][k] for k in FLASH):
+            raise AssertionError(f"the {name} slice launched {slices[name]['launches']}")
     for name in ("serve", "gemma_serve", "moe_serve", "vlm_serve"):
         if slices[name]["launches"]["flash_bwd_dq"] or slices[name]["launches"]["flash_bwd_dkv"]:
             raise AssertionError(f"the {name} slice launched a backward kernel: {slices[name]['launches']}")

@@ -1,5 +1,19 @@
-"""Checkpoint helpers of the port: ``repro.checkpoint.manager``'s streaming
-file hash and atomic directory write, which warm-state persistence uses."""
-from repro_torch.checkpoint.manager import atomic_dir, sha256_file
+"""Sharded checkpoints of the port, as ``repro.checkpoint``: the same
+files, so either package restores the other's."""
+from repro_torch.checkpoint.manager import (
+    CheckpointManager,
+    atomic_dir,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+    sha256_file,
+)
 
-__all__ = ["atomic_dir", "sha256_file"]
+__all__ = [
+    "CheckpointManager",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "latest_step",
+    "atomic_dir",
+    "sha256_file",
+]

@@ -22,24 +22,12 @@ cached).
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Iterator
+from typing import Any
 
 import numpy as np
 import torch
 
-
-def _leaves(tree: Any, path: str = "") -> Iterator[tuple[str, Any]]:
-    """(keystr path, leaf) in ``jax.tree_util`` flatten order."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, f"{path}[{i}]")
-    else:
-        yield path, tree
+from repro_torch.models.common import tree_leaves_with_path
 
 
 _CHUNK = 64 << 20  # bytes a leaf on the card moves to the host at a time
@@ -106,7 +94,7 @@ def params_fingerprint(params: Any) -> str:
     """
     h = hashlib.sha256()
     bufs: list = []
-    for path, leaf in _leaves(params):
+    for path, leaf in tree_leaves_with_path(params):
         name, shape = _leaf_meta(leaf)
         h.update(path.encode())
         h.update(name.encode())

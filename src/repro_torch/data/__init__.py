@@ -1,0 +1,4 @@
+"""The synthetic data pipeline of the port, as ``repro.data``."""
+from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_pipeline
+
+__all__ = ["DataConfig", "SyntheticLM", "make_pipeline"]

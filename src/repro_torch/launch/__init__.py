@@ -1,14 +1,16 @@
 """Command lines of the port, as ``repro.launch``: ``explain`` (the
-explain engine under mixed-length traffic) and ``serve`` (generation, or
-generate and explain traffic through one scheduler).
+explain engine under mixed-length traffic), ``serve`` (generation, or
+generate and explain traffic through one scheduler) and ``train`` (the
+training loop).
 
-Both take ``repro``'s flags and print ``repro``'s lines, and add three of
-their own: ``--device {cuda,cpu}`` (default ``cuda``; without a card it
-exits non-zero, it never carries on on the CPU), ``--full`` (the named
-architecture at its published widths, where ``repro`` always takes
-``reduced(...)``) and ``--layers N`` (a depth cut, as ``chip_smoke.py`` cuts
-full-width models to fit one card). The helpers here are the ones both
-command lines share.
+Each takes ``repro``'s flags and prints ``repro``'s lines, and adds its
+own: ``--device {cuda,cpu}`` (default ``cuda``; without a card it exits
+non-zero, it never carries on on the CPU) and ``--layers N`` (a depth cut,
+as ``chip_smoke.py`` cuts full-width models to fit one card); ``explain``
+and ``serve`` also ``--full`` (the named architecture at its published
+widths, where ``repro`` always takes ``reduced(...)``), while ``train``
+keeps ``repro``'s ``--reduced``. The helpers here are the ones the command
+lines share.
 """
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ from dataclasses import replace
 import torch
 
 
-def add_port_args(ap: argparse.ArgumentParser) -> None:
-    """The flags the port adds to ``repro``'s."""
+def add_port_args(ap: argparse.ArgumentParser, *, full: bool = True) -> None:
+    """The flags the port adds to ``repro``'s (``--full`` unless ``full``
+    is False)."""
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the model runs (cuda: the card, and no fallback)")
-    ap.add_argument("--full", action="store_true",
-                    help="the architecture at its published widths, not reduced(...)")
+    if full:
+        ap.add_argument("--full", action="store_true",
+                        help="the architecture at its published widths, not reduced(...)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the model to N layers (0: the config's depth)")
 

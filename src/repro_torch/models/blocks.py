@@ -15,9 +15,10 @@ encoder-decoder (whisper) adds cross-attention between the mixer and the
 FFN: ``norm_x``, then ``cross``'s query over the encoder output's keys and
 values, non-causal and plain PyTorch (``repro`` computes it outside any
 Pallas kernel); its cache holds those keys and values as ``xk``/``xv``,
-written by the prefill and read by every decode step. ``repro``'s MoE
-auxiliary loss is not returned (it only feeds the training loss, not
-ported yet). A layer without a mixer raises ``NotImplementedError``.
+written by the prefill and read by every decode step.
+``apply_layer_with_aux`` also returns ``repro``'s MoE auxiliary loss, which
+feeds the training loss only; ``apply_layer`` drops it. A layer without a
+mixer raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,12 +50,22 @@ def layer_def(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False) -> dict:
     return d
 
 
+def _ffn_aux(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor
+             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x + ffn(norm2(x)) for a dense or MoE FFN, x for none; the MoE's f32
+    auxiliary loss, None for the others)."""
+    if spec.ffn == "none":
+        return x, None
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if spec.ffn == "moe":
+        y, aux = moe_mod.moe(p["ffn"], h, cfg)
+        return x + y, aux
+    return x + mlp(p["ffn"], h), None
+
+
 def _ffn(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x + ffn(norm2(x)) for a dense or MoE FFN; x for none."""
-    if spec.ffn == "none":
-        return x
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + (moe_mod.moe(p["ffn"], h, cfg)[0] if spec.ffn == "moe" else mlp(p["ffn"], h))
+    return _ffn_aux(cfg, spec, p, x)[0]
 
 
 def _cross_kv(p: dict, enc_out: Optional[torch.Tensor], dtype):
@@ -84,7 +95,7 @@ def _attn_in(cfg: ArchConfig, p: dict, x: torch.Tensor, positions: torch.Tensor)
     return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
 
 
-def apply_layer(
+def apply_layer_with_aux(
     cfg: ArchConfig,
     spec: LayerSpec,
     p: dict,
@@ -94,11 +105,12 @@ def apply_layer(
     causal: bool = True,
     enc_out: Optional[torch.Tensor] = None,
     kv_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence layer: x + mixer(norm1(x)), then with ``enc_out`` and
     a cross-attention + cross(norm_x(·)), then + ffn(norm2(·)). ``kv_len``
-    reaches the self-attention only (an SSM is causal). ``repro`` also
-    returns the MoE auxiliary loss, which is not returned here."""
+    reaches the self-attention only (an SSM is causal). Returns (x, the MoE
+    layer's f32 auxiliary loss, or None for a layer without one), as
+    ``repro``'s ``apply_layer`` returns (x, aux)."""
     _check(spec)
     if spec.mixer == "mamba":
         x = x + ssm.ssm_forward(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cfg, cfg.norm_eps)
@@ -106,7 +118,13 @@ def apply_layer(
         q, k, v = _attn_in(cfg, p, x, positions)
         o = attn.dispatch_attention(cfg, q, k, v, mixer=spec.mixer, causal=causal, kv_len=kv_len)
         x = x + attn.out_proj(p["mixer"], o, x.dtype)
-    return _ffn(cfg, spec, p, _cross(cfg, p, x, _cross_kv(p, enc_out, x.dtype)))
+    return _ffn_aux(cfg, spec, p, _cross(cfg, p, x, _cross_kv(p, enc_out, x.dtype)))
+
+
+def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``apply_layer_with_aux`` without the auxiliary loss: the explain and
+    serve paths' layer."""
+    return apply_layer_with_aux(cfg, spec, p, x, **kw)[0]
 
 
 def layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int, dtype,

@@ -8,11 +8,14 @@ leading ``layers`` axis counts, and ``wq`` (d, H, D) has fan-in d·H; an
 ``embed`` tensor is a unit normal (times ``scale``); ``zeros``/``ones`` are
 constant. The logical sharding axes and the abstract (shape-only) trees of
 ``repro`` have no meaning on one card and are not copied.
+``tree_leaves_with_path``, ``tree_leaves`` and ``tree_unflatten`` walk a
+tree in ``jax.tree_util``'s order, as the optimizer, the checkpoints and
+the fingerprints do.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,6 +43,52 @@ def tree_map(fn: Callable, tree: Any, path: tuple = ()) -> Any:
     if isinstance(tree, tuple) and not isinstance(tree, ParamDef):
         return tuple(tree_map(fn, v, path + (i,)) for i, v in enumerate(tree))
     return fn(path, tree)
+
+
+def tree_leaves_with_path(tree: Any, path: str = "") -> Iterator[tuple[str, Any]]:
+    """(path, leaf) of a tree of dicts, tuples (NamedTuples too) and lists
+    in ``jax.tree_util``'s flatten order: dict keys sorted, sequences in
+    order, ``None`` no leaf; each path as ``jax.tree_util.keystr`` writes
+    it, e.g. ``['layers'][0]['wq']``. The order in which checkpoints number
+    their leaves, the optimizer walks them and fingerprints hash them."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of ``tree`` in ``tree_leaves_with_path``'s order."""
+    return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def tree_unflatten(like: Any, leaves: list) -> Any:
+    """``like``'s structure (NamedTuple types and dict key order kept) with
+    ``leaves`` in ``tree_leaves`` order in place of its own."""
+    it = iter(leaves)
+
+    def build(t: Any) -> Any:
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(v) for v in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def stack_defs(defs: Any, n: int) -> Any:

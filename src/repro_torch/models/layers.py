@@ -1,16 +1,18 @@
 """Core layers of ``repro.models.layers``: RMSNorm, RoPE, the SwiGLU MLP,
-the token embeddings and the stub frontend's projection.
+the token embeddings, the stub frontend's projection and the chunked
+softmax cross-entropy of the training loss.
 
 Parameters keep ``repro``'s layouts (``mlp`` weights (d, f) and (f, d) for
 ``x @ w``, ``embedding`` (V, d), ``unembed`` (d, V), ``frontend_proj``
 (frontend_dim, d)). ``repro`` pins the MLP hidden to its tensor-parallel
 axis with ``sharding.context.constrain``; on one card that has no meaning
-and is dropped. Not ported yet: the chunked loss (training).
+and is dropped.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ParamDef
 
@@ -81,3 +83,26 @@ def unembed(p: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ p["embedding"].to(h.dtype).T
     return h @ p["unembed"].to(h.dtype)
+
+
+def softmax_xent_chunked(p_embed: dict, h: torch.Tensor, labels: torch.Tensor, cfg,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy of hidden states h (B, S, d) against
+    ``labels`` (B, S) without the whole (B, S, V) logits: chunks of
+    ``chunk`` positions, then the remainder, as in ``repro``, each chunk's
+    f32 logits recomputed in the backward (``torch.utils.checkpoint``), so
+    none outlives its chunk. Returns the f32 () mean over B·S."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+
+    def part(hc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
+        logits = unembed(p_embed, hc, cfg).float()  # (B, c, V)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)] + ([(n * chunk, S)] if S % chunk else [])
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for a, b in bounds:
+        total = total + checkpoint(part, h[:, a:b], labels[:, a:b], use_reentrant=False)
+    return total / (B * S)

@@ -19,10 +19,11 @@ Entry points: ``param_defs`` / ``init_params`` (parameters),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
 differentiates through), ``encode`` (the encoder over stub frames),
 ``forward_hidden`` (the backbone over a batch with its frontend),
-``logits``, and serving: ``init_cache``, ``prefill``, ``decode_step`` and
-``decode_snapshot`` (what a retried decode chunk restores). ``repro``'s
-MoE auxiliary loss is not returned: it feeds only the training loss
-(``loss``), which is not ported yet.
+``logits``, serving: ``init_cache``, ``prefill``, ``decode_step`` and
+``decode_snapshot`` (what a retried decode chunk restores), and training:
+``forward_hidden_train`` (the backbone with ``repro``'s summed MoE
+auxiliary loss, each period optionally recomputed in the backward) and
+``loss``. The explain and serve entry points leave the auxiliary loss out.
 
 The decode cache is ``repro``'s tree: ``layers`` (per pattern entry, k and
 v stacked over the periods, (P, B, slots, NKV, D): ``max_len`` slots for a
@@ -41,6 +42,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import blocks
@@ -48,7 +50,7 @@ from repro_torch.models import blocks
 from repro_torch.models.common import init_params as init_tree, params_from_numpy  # noqa: F401
 from repro_torch.models.common import stack_defs, tree_map
 from repro_torch.models.layers import (embed, embed_def, project_frontend, rmsnorm, rmsnorm_def,
-                                       unembed)
+                                       softmax_xent_chunked, unembed)
 
 ENC_SPEC = LayerSpec("attn", "dense")  # every encoder layer
 
@@ -143,6 +145,66 @@ def forward_hidden(cfg: ArchConfig, params: Any, batch: dict) -> torch.Tensor:
 
 def logits(cfg: ArchConfig, params: Any, h: torch.Tensor) -> torch.Tensor:
     return unembed(params["embed"], h, cfg)
+
+
+# ----------------------------------------------------------------- training
+
+
+def _unbound_periods(cfg: ArchConfig, layers: tuple) -> list:
+    """The stacked pattern entries split into one tuple a period, each leaf
+    ``unbind`` once: its backward writes the stacked gradient once, where a
+    ``select`` a period would write a zero stack a period and sum them."""
+    cols: dict = {}
+
+    def split(path, x):
+        cols[path] = x.unbind(0)
+
+    tree_map(split, layers)
+    return [tree_map(lambda path, _: cols[path][i], layers) for i in range(cfg.num_periods)]
+
+
+def forward_hidden_train(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = False
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backbone over a batch for training -> (final-normed hidden states
+    (B, S, d), the f32 () MoE auxiliary loss summed over the layers as in
+    ``repro``: within a period, then over the periods, then the remainder).
+    With ``remat`` each period runs under ``torch.utils.checkpoint``
+    (non-reentrant), ``repro``'s ``jax.checkpoint`` of a period: its
+    activations are recomputed in the backward, so its flash forward runs
+    twice a step."""
+    enc_out = encode(cfg, params, batch["frontend"]) if cfg.is_encdec else None
+    e = embed_inputs(cfg, params, batch)
+    pos = torch.arange(e.shape[1], device=e.device).expand(e.shape[:2])
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=e.device)
+
+    def layer(spec, lp, x, aux):
+        x, a = blocks.apply_layer_with_aux(cfg, spec, lp, x, positions=pos, enc_out=enc_out)
+        return x, aux if a is None else aux + a
+
+    def period(x, lps):
+        aux = zero()
+        for spec, lp in zip(cfg.pattern, lps):
+            x, aux = layer(spec, lp, x, aux)
+        return x, aux
+
+    x, auxs = e, []
+    for lps in _unbound_periods(cfg, params["layers"]):
+        x, a = checkpoint(period, x, lps, use_reentrant=False) if remat else period(x, lps)
+        auxs.append(a)
+    aux = torch.sum(torch.stack(auxs)) if auxs else zero()
+    for spec, lp in zip(cfg.remainder_specs, params["rem"]):
+        x, aux = layer(spec, lp, x, aux)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def loss(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = False) -> torch.Tensor:
+    """Next-token cross-entropy (``softmax_xent_chunked``) + the MoE
+    auxiliary loss; f32 (). ``batch["labels"]`` (B, S_text): a vision
+    config labels only the text positions, after its patches."""
+    h, aux = forward_hidden_train(cfg, params, batch, remat=remat)
+    if cfg.frontend == "vision":  # only text positions carry labels
+        h = h[:, -batch["labels"].shape[1]:]
+    return softmax_xent_chunked(params["embed"], h, batch["labels"], cfg) + aux
 
 
 # ----------------------------------------------------------------- serving

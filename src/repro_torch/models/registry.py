@@ -10,8 +10,9 @@ layers' static cache, local layers' rings, mamba layers' state and conv
 tail, cross-attention keys and values), and ``forward_hidden``, the
 backbone over a batch with its stub frontend (``frontend``: whisper's
 frames, internvl2's patches). The target functions explain the token
-stream only, as in ``repro``: no encoder output, no patches. ``repro``'s
-dry-run input specs and training loss are not ported here.
+stream only, as in ``repro``: no encoder output, no patches. ``loss`` is
+the training loss (``lm.loss``). ``repro``'s dry-run input specs are not
+ported here.
 """
 from __future__ import annotations
 
@@ -47,6 +48,9 @@ class Model:
 
     def logits(self, params, h: torch.Tensor) -> torch.Tensor:
         return lm.logits(self.cfg, params, h)
+
+    def loss(self, params, batch: dict, *, remat: bool = False) -> torch.Tensor:
+        return lm.loss(self.cfg, params, batch, remat=remat)
 
     def prefill(self, params, batch: dict, max_len: int):
         return lm.prefill(self.cfg, params, batch, max_len)

@@ -1,20 +1,24 @@
-"""Retry and straggler detection of ``repro.runtime.fault``, which hold no JAX.
+"""Retry, straggler detection and the recovering training loop of
+``repro.runtime.fault``, which hold no JAX.
 
   RetryPolicy       — bounded exponential backoff for transient failures of
                       one work item.
   StragglerMonitor  — wall-time EWMA per item; flags items slower than
                       ``straggler_threshold`` × the running mean.
+  run_with_recovery — the training loop: step, checkpoint, and on a failure
+                      restore from the checkpoint manager and replay.
+  StateSpoiled      — what a step raises when it failed after it began to
+                      overwrite its state in place.
 
-``MixedScheduler`` runs every model-executing work item under both. Not
-ported yet: ``ElasticMesh`` (it builds a ``jax.sharding.Mesh``) and
-``run_with_recovery`` (a training driver over a checkpoint manager) wait
-on the mesh and the training modules (ROADMAP.md queue 1, item 7).
+``MixedScheduler`` runs every model-executing work item under the first
+two. Not ported yet: ``ElasticMesh`` (it builds a ``jax.sharding.Mesh``)
+waits on the mesh (ROADMAP.md queue 1, item 7).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -31,6 +35,15 @@ class FaultConfig:
     # stragglers never update the mean, a first-item seed would leave the
     # monitor blind for the whole run
     straggler_warmup: int = 3
+
+
+class StateSpoiled(RuntimeError):
+    """A step failed after it began to update its state in place (the
+    port's train step overwrites the parameters and moments leaf by leaf):
+    the state it was given is neither the old one nor the new one, so a
+    retry on it would replay the step on half-updated values.
+    ``run_with_recovery`` resumes from it only through a checkpoint
+    restore. ``repro``'s step is functional and never spoils its input."""
 
 
 class RetryPolicy:
@@ -80,3 +93,66 @@ class StragglerMonitor:
             a = self.cfg.straggler_ewma
             self.mean = a * self.mean + (1 - a) * wall_s
         return is_straggler
+
+
+def run_with_recovery(
+    step_fn: Callable[[Any, Any], tuple[Any, dict]],
+    state: Any,
+    batches: Any,
+    *,
+    num_steps: int,
+    ckpt_manager=None,
+    ckpt_every: int = 0,
+    fault_cfg: FaultConfig = FaultConfig(),
+    monitor: Optional[StragglerMonitor] = None,
+    start_step: int = 0,
+) -> tuple[Any, list[dict]]:
+    """The training loop: step, checkpoint, and on failure restore + replay.
+
+    ``batches`` is indexable by global step (the deterministic pipeline
+    contract: ``batch_at(step)`` or ``[step]``), so replay after a restore
+    is exact. A failed step backs off exponentially and, with a checkpoint
+    manager, rolls the state and the history back to its newest valid
+    checkpoint; more than ``max_retries`` failures in a row raise. A
+    ``StateSpoiled`` failure with no checkpoint to restore raises at once.
+    """
+    history: list[dict] = []
+    step = start_step
+    failures = 0
+    while step < num_steps:
+        batch = batches.batch_at(step) if hasattr(batches, "batch_at") else batches[step]
+        t0 = time.perf_counter()
+        try:
+            state, metrics = step_fn(state, batch)
+        except Exception as e:  # noqa: BLE001 — transient-fault boundary
+            failures += 1
+            spoiled = isinstance(e, StateSpoiled)
+            if failures > fault_cfg.max_retries or (spoiled and ckpt_manager is None):
+                raise
+            time.sleep(min(fault_cfg.backoff_base_s * 2 ** (failures - 1), fault_cfg.backoff_cap_s))
+            if ckpt_manager is not None:
+                restored_step, restored = ckpt_manager.restore_latest(state)
+                if restored_step is not None:
+                    # roll back and REPLAY: the deterministic pipeline
+                    # re-serves identical batches for the replayed steps.
+                    # The checkpoint may predate start_step (a manager shared
+                    # across runs): clamp the history cut to 0 — a negative
+                    # slice would silently KEEP the wrong suffix.
+                    state = restored
+                    history = history[: max(restored_step - start_step, 0)]
+                    step = restored_step
+                elif spoiled:
+                    raise
+            continue
+        failures = 0
+        wall = time.perf_counter() - t0
+        if monitor is not None:
+            metrics = dict(metrics)
+            metrics["straggler"] = monitor.observe(wall)
+        history.append(metrics)
+        step += 1
+        if ckpt_manager is not None and ckpt_every and step % ckpt_every == 0:
+            ckpt_manager.save(step, state)
+    if ckpt_manager is not None:
+        ckpt_manager.wait()
+    return state, history

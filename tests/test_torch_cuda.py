@@ -215,6 +215,7 @@ FLASH_SHAPES = [
     (2, 256, 48, 8, 128, True, True),  # internlm2-20b's GQA group (6 query heads a KV head)
     (2, 256, 32, 4, 128, True, True),  # yi-9b's (8 a KV head)
     (2, 2048, 32, 16, 128, True, True),  # gemma3-27b's (2 a KV head) at its 2048-token bucket
+    (8, 128, 32, 8, 128, True, False),  # the train step's attention (llama3-8b, B=8, S=128, every key)
 ]
 
 
@@ -664,6 +665,92 @@ def test_warm_state_restores_on_the_card(nvcc_card, tmp_path):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a["raw_token_scores"], b["raw_token_scores"])
         assert (a["delta"], a["m_used"]) == (b["delta"], b["m_used"])
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_step_and_batch(cfg, gen):
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import TrainConfig, make_train_state, make_train_step
+
+    tcfg = TrainConfig()
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4)).batch_at(0)
+    return (make_train_state(cfg, tcfg, gen, device="cuda"), make_train_step(cfg, tcfg),
+            {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-moe-30b-a3b"])
+def test_train_step_repeats_bit_for_bit_on_the_card(nvcc_card, name):
+    """One train step (bf16, flash, remat) twice from copies of one state:
+    every leaf (params, step, m, v) and the metrics bit for bit; the
+    step launches the flash forward twice a layer (the remat's recompute)
+    and each backward kernel once."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    cfg = replace(reduced(ARCHS[name]), attn_impl="flash")
+    state, step, batch = _train_step_and_batch(cfg, nvcc_card)
+    copy = tree_unflatten(state, [x.clone() for x in tree_leaves(state)])
+    common.reset_launches()
+    a, ma = step(state, batch)
+    L = cfg.num_layers
+    assert {k: common.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        "flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    b, mb = step(copy, batch)
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x, y)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma) and torch.isfinite(ma["loss"])
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(nvcc_card):
+    """Two f32 train steps (TF32 off) of the reduced llama3-8b on the flash
+    path, the card against the CPU: loss and gradient norm within 1e-5
+    relative, every leaf within 1e-4 of its largest |value|."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(reduced(ARCHS["llama3-8b"]), attn_impl="flash", compute_dtype="float32")
+    card, step, batch = _train_step_and_batch(cfg, nvcc_card)
+    cpu = tree_unflatten(card, [x.cpu() for x in tree_leaves(card)])
+    for _ in range(2):
+        card, mc = step(card, batch)
+        cpu, mh = step(cpu, {k: v.cpu() for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            assert abs(float(mc[k]) - float(mh[k])) <= 1e-5 * abs(float(mh[k])), k
+    for x, y in zip(tree_leaves(card), tree_leaves(cpu)):
+        assert float((x.cpu().float() - y.float()).abs().max()) <= 1e-4 * max(float(y.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_card_state_restores_on_the_card(tmp_path):
+    """A state on the card (f32, int32 and bf16 leaves) saved and restored
+    onto the card bit for bit, the async save's host copy taken before the
+    next in-place update."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(1024, 1024, generator=g, device="cuda"),
+            "b": torch.randn(1024, generator=g, device="cuda").to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device="cuda")}
+    want = {k: v.clone() for k, v in tree.items()}
+    cm = CheckpointManager(str(tmp_path), save_async=True)
+    cm.save(1, tree)
+    tree["w"].add_(1.0)
+    cm.wait()
+    step, got = cm.restore_latest({k: torch.zeros_like(v) for k, v in tree.items()})
+    assert step == 1
+    for k in want:
+        assert got[k].device.type == "cuda" and torch.equal(got[k], want[k])
 
 
 @pytest.fixture
