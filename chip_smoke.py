@@ -243,7 +243,29 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      the end), 3 steps resumed from it (``resumed from step 2``), and 3
      steps without one: the resumed run's step-3 loss and final state bit
      for bit the uninterrupted run's, each run launching the flash trio
-     only.
+     only;
+ 25. the mesh — child processes started together (``chip_smoke.py
+     --mesh-child WORLD RANK PORT BACKEND``), on llama3-8b at full width, 2
+     layers, bf16, flash, the engine phase's first 8 requests (at most 4 a
+     bucket): two gloo ranks sharing the card on a (data=2, model=1) mesh,
+     rank 0 serving ``ig`` m=16 unfused and fused, ``idgi`` adaptive 4 →
+     16 (tol 0) and 64-mask ``lime`` while rank 1 serves its rows, each
+     path twice (no new miss, the same bits) and against the same engine
+     without the mesh (scores within 2e-2, traces equal, every B even, no
+     fallback), and the ladder at tol 1e-2 (traces equal, scores within
+     2e-2); one NCCL rank on a 1×1 mesh, the same paths bit for bit those
+     of the engine without it; and the explain command line at 1 layer,
+     bf16, ``paper`` (with its ``uniform`` leg), under
+     ``torch.distributed.run`` with ``--mesh 2,1 --dist-backend gloo``
+     beside ``--mesh 1,1`` (each through ``--cli-child``, which runs the
+     command line's own ``run`` and keeps every request's δ and token
+     scores at full precision): per request, the 2,1 run bit for bit an
+     engine without a mesh serving each request alone (``max_batch=1``,
+     the rows each rank holds), and its token scores within 2e-2 of the
+     1,1 run's (δ and the printed lines are shown: in bf16 a request's δ
+     moves with the rows its process computes, mesh or not).
+     Each child's wall, peak, and rank 0's send, wait and gather ms a
+     stage-2 call; the slice's launches are every rank's.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -3404,6 +3426,7 @@ def ssm_phase() -> dict:
     from repro_torch.models.registry import Model
     from repro_torch.models.ssm import chunk_len
     from repro_torch.serve import ExplainEngine, GenerateRequest, MixedScheduler, ServeEngine, make_decode_chunk
+    from repro_torch.serve.autotune import AutotuneCache, bucket_key, device_kind
     from repro_torch.serve.batching import plan_buckets
 
     _free_card()
@@ -3463,11 +3486,20 @@ def ssm_phase() -> dict:
     reqs = _lm_traffic(cfg, (LM_SHORT, LM_LONG), seed=0)
     plan = plan_buckets(reqs)
     chunk = _fitting_chunk(cfg, plan)
+    # the engine is host-bound (~6 ms a layer a stage-2 call): each bucket takes the largest chunk
+    # whose predicted peak fits, through the engine's per-bucket tuned chunks
+    tuned_dir = ROOT / "build" / "ssm_phase"
+    chunks = {bb.bucket: _fitting_chunk(cfg, [bb]) for bb in plan}
+    AutotuneCache(device_kind(torch.device(DEV)), {
+        bucket_key(b, "riemann", "paper", M, N_INT, False): {"chunk": c} for b, c in chunks.items()}).save(
+        str(tuned_dir))
     print(f"  engine: {len(reqs)} requests in buckets (B×S) {[f'{bb.bucket[0]}x{bb.bucket[1]}' for bb in plan]} "
           f"(SSD chunks {[chunk_len(bb.bucket[1], cfg.ssm_chunk) for bb in plan]}); m={M}, n_int={N_INT}, "
-          f"chunk {chunk} (the largest whose predicted peak fits {PEAK_BUDGET / 1e9:.0f} GB)")
+          f"chunk by bucket {dict((f'{b[0]}x{b[1]}', c) for b, c in chunks.items())} (each the largest whose "
+          f"predicted peak fits {PEAK_BUDGET / 1e9:.0f} GB; {chunk} at every bucket)")
     riemann = PATH_KERNELS["riemann"][0]
-    eng = ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=chunk, device=DEV)
+    eng = ExplainEngine(cfg, params, method="ig", schedule="paper", m=M, n_int=N_INT, chunk=chunk, autotune=True,
+                        autotune_dir=str(tuned_dir), device=DEV)
     out, _ = _served_twice("ssm ig unfused", eng, reqs, paths_launched, riemann)
     n_long = sum(len(bb.indices) for bb in plan if bb.bucket[1] >= 128)
     print(f"  every score finite, at buckets 128 and 512 too ({n_long} requests, SSD chunks of 128 and 256, "
@@ -4462,6 +4494,333 @@ def train_launcher_phase() -> dict:
     return _slice(paths_launched)
 
 
+# ------------------------------------------------------------------ the mesh
+
+MESH_LAYERS = 2  # llama3-8b at full width, 2 of 32 layers, in each rank
+MESH_REQUESTS = 8  # the engine phase's first short requests, at most 4 a bucket
+MESH_MAX_BATCH = 4
+MESH_M, MESH_LADDER = 16, (4, 16)  # fixed m; the adaptive ladder's base and top
+MESH_CHILD_S = 600  # each mesh child's time limit
+# the command line at the config's own dtype (bf16) and schedule (paper, then uniform); no --m:
+# torch.distributed.run reads it as an abbreviation of its own options
+MESH_CLI = ["--arch", "llama3-8b", "--full", "--layers", "1", "--attn", "flash", "--requests", "4",
+            "--rounds", "1", "--max-seq", "48"]
+
+
+def _mesh_config():
+    from repro_torch.configs import ARCHS
+
+    return replace(ARCHS["llama3-8b"], num_layers=MESH_LAYERS, attn_impl="flash")
+
+
+def _mesh_paths() -> dict:
+    """The mesh phase's paths: (engine arguments, the kernels a rank launches)."""
+    return {
+        "ig unfused": (dict(method="ig", m=MESH_M), PATH_KERNELS["riemann"][0] + FLASH),
+        "ig fused": (dict(method="ig", m=MESH_M, fused=True), PATH_KERNELS["riemann"][1] + FLASH),
+        "idgi adaptive": (dict(method="idgi", m=MESH_LADDER[0], m_max=MESH_LADDER[1], adaptive=True,
+                               tol=TOL_LADDER), PATH_KERNELS["idgi"][0] + FLASH),
+        "lime": (dict(method="lime", n_masks=N_MASKS), ("flash_fwd", "wls_solve")),
+    }
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _counts() -> tuple:
+    from repro_torch.kernels import common
+
+    return dict(common.LAUNCHES), dict(common.CARRY_RANKS)
+
+
+def _mesh_controller(cfg, params, mesh, world: int) -> dict:
+    """Rank 0 of a mesh child: each path served by an engine on the mesh
+    (twice: the replay adds no miss and gives the same bits) and by the same
+    engine without it, with the gates; the launches of the sharded calls
+    only, per path."""
+    import numpy as np
+
+    from repro_torch.serve import ExplainEngine
+    from repro_torch.sharding import dispatch, mesh_cache_key
+
+    reqs = _lm_traffic(cfg, (LM_SHORT,), seed=0)[:MESH_REQUESTS]
+    kw = dict(schedule="paper", n_int=N_INT, attn="flash", max_batch=MESH_MAX_BATCH, device=DEV)
+    per_path, carry, stats = {}, {2: 0, 3: 0}, {}
+    for name, (pkw, kernels) in _mesh_paths().items():
+        sharded = ExplainEngine(cfg, params, mesh=mesh, **kw, **pkw)
+        plain = ExplainEngine(cfg, params, **kw, **pkw)
+        if sharded._mesh_key != mesh_cache_key(mesh) or sharded._mesh_key != (("data", world), ("model", 1)):
+            raise AssertionError(f"mesh {name}: key {sharded._mesh_key}")
+        dispatch.STATS.reset()
+        l0, c0 = _counts()
+        out, ms0, _ = _timed(lambda: sharded.explain(reqs, return_raw=True))
+        misses = sharded.stats.misses
+        again, ms, _ = _timed(lambda: sharded.explain(reqs, return_raw=True))
+        l1, c1 = _counts()
+        launched = _launched(l0, l1)
+        _need(per_path, f"mesh {name}", launched, kernels)
+        for r in (2, 3):
+            carry[r] += c1[r] - c0[r]
+        st = dispatch.STATS
+        stats[name] = {"calls": st.calls, "send_ms": 1e3 * st.send_s / max(st.calls, 1),
+                       "run_ms": 1e3 * st.run_s / max(st.calls, 1),
+                       "wait_ms": 1e3 * st.wait_s / max(st.calls, 1),
+                       "gather_ms": 1e3 * st.gather_s / max(st.calls, 1),
+                       "bytes_sent": st.bytes_sent, "bytes_gathered": st.bytes_gathered}
+        if sharded.stats.misses != misses:
+            raise AssertionError(f"mesh {name}: the replay added {sharded.stats.misses - misses} misses")
+        if sharded.stats.mesh_fallbacks:
+            raise AssertionError(f"mesh {name}: {sharded.stats.mesh_fallbacks} fallbacks")
+        buckets = sorted(set(sharded.stats.buckets) | set(sharded.stats.hop_buckets))
+        if any(b[0] % world for b in buckets):
+            raise AssertionError(f"mesh {name}: a bucket's B does not divide {world}: {buckets}")
+        for i, (a, b) in enumerate(zip(again, out)):
+            if not all(np.array_equal(a[k], b[k]) for k in a):
+                raise AssertionError(f"mesh {name} replay: request {i} not bit-identical")
+        _served_ok(f"mesh {name}", out, reqs)
+        want = plain.explain(reqs, return_raw=True)
+        if world == 1:  # dp = 1: the engine serves as without the mesh, bit for bit
+            for i, (a, b) in enumerate(zip(out, want)):
+                if not all(np.array_equal(a[k], b[k]) for k in a):
+                    raise AssertionError(f"mesh 1x1 {name}: request {i} differs from the engine without a mesh")
+        elif "adaptive" in name:
+            traces = [(r["m_used"], r["hops"], r["converged"]) for r in out]
+            if traces != [(r["m_used"], r["hops"], r["converged"]) for r in want]:
+                raise AssertionError(f"mesh {name}: adaptive traces differ from the engine without the mesh")
+            _scores_close(f"mesh {name} vs no mesh", out, want)
+        else:
+            _scores_close(f"mesh {name} vs no mesh", out, want)
+        print(f"  world {world} {name}: round 0 {ms0:.1f} ms, warm {ms:.1f} ms for {len(reqs)} requests; "
+              f"buckets {[f'{b[0]}x{b[1]}' for b in buckets]}; misses {misses}; " + (
+                  f"{st.calls} sharded calls, send {stats[name]['send_ms']:.2f} ms, rank 0's rows "
+                  f"{stats[name]['run_ms']:.2f} ms, the wait for the other rank {stats[name]['wait_ms']:.2f} ms, "
+                  f"gather {stats[name]['gather_ms']:.2f} ms a call, {st.bytes_sent / 2**20:.1f} MiB sent, "
+                  f"{st.bytes_gathered / 2**20:.1f} MiB gathered" if st.calls else "no sharded call (dp = 1)"))
+        del sharded, plain
+    if world > 1:  # the ladder at tol 1e-2, where rows stop at different rungs: the same decisions
+        pkw = dict(method="idgi", m=MESH_LADDER[0], m_max=MESH_LADDER[1], adaptive=True, tol=TOL)
+        l0, c0 = _counts()
+        out = ExplainEngine(cfg, params, mesh=mesh, **kw, **pkw).explain(reqs)
+        l1, c1 = _counts()
+        want = ExplainEngine(cfg, params, **kw, **pkw).explain(reqs)
+        traces = [[(r["m_used"], r["hops"], r["converged"]) for r in o] for o in (out, want)]
+        print(f"  world {world} idgi adaptive at tol {TOL}: m_used {[r['m_used'] for r in out]} against "
+              f"{[r['m_used'] for r in want]} without the mesh")
+        if traces[0] != traces[1]:
+            raise AssertionError(f"mesh idgi adaptive at tol {TOL}: traces {traces[0]} against {traces[1]}")
+        if len({t[0] for t in traces[0]}) < 2:
+            raise AssertionError(f"mesh idgi adaptive at tol {TOL}: every row stopped at one rung {traces[0]}")
+        _scores_close(f"mesh idgi adaptive at tol {TOL} vs no mesh", out, want)
+        per_path["mesh idgi adaptive tol"] = _launched(l0, l1)
+        for r in (2, 3):
+            carry[r] += c1[r] - c0[r]
+    launches = {k: sum(p[k] for p in per_path.values()) for k in _counts()[0]}
+    return {"per_path": per_path, "launches": launches, "carry_ranks": carry, "dispatch": stats}
+
+
+def mesh_child(world: int, rank: int, port: int, backend: str) -> int:
+    """One rank of a mesh world (``--mesh-child WORLD RANK PORT BACKEND``):
+    the process group from the environment, the model from seed 0 on the
+    card, the (data=WORLD, model=1) mesh; rank 0 serves the paths inside
+    ``dispatch.controller()``, the others run ``serve_worker``. Prints one
+    JSON line: launches, carry ranks, peak and walls."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import init_distributed
+    from repro_torch.launch.mesh import make_explain_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.explain_engine import serve_worker
+    from repro_torch.sharding import dispatch
+
+    t_start = time.perf_counter()
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    init_distributed(backend)
+    cfg = _mesh_config()
+    params = lm.init_params(cfg, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+    mesh = make_explain_mesh(world, 1, device=DEV)
+    _sync()
+    t_ready = time.perf_counter()
+    _reset_peak()
+    if rank:
+        l0, c0 = _counts()
+        served = serve_worker(cfg, params, device=DEV)
+        l1, c1 = _counts()
+        res = {"launches": _launched(l0, l1), "carry_ranks": _launched(c0, c1), "served": served}
+    else:
+        with dispatch.controller():
+            res = _mesh_controller(cfg, params, mesh, world)
+    dist.destroy_process_group()
+    res.update(rank=rank, world=world, backend=backend, peak_gb=_peak_gb(), ready_s=t_ready - t_start,
+               wall_s=time.perf_counter() - t_start)
+    print(json.dumps(res))
+    return 0
+
+
+def _kept(out: list) -> list:
+    """Each request's δ and token scores at full precision (JSON floats
+    round-trip)."""
+    return [{"delta": float(o["delta"]), "scores": [float(v) for v in o["token_scores"]]} for o in out]
+
+
+def cli_child(path: str, argv: list) -> int:
+    """The explain command line as a user runs it (``--cli-child PATH
+    [--alone] ARGS``: ``repro_torch.launch.explain``'s own parser and
+    ``run``, at its own numerics), with every ``ExplainEngine.explain``
+    call's results kept; rank 0 writes them to ``PATH`` as JSON, one entry
+    a schedule leg. ``--alone`` then serves each leg's traffic again on an
+    engine without a mesh taking one request a bucket (``max_batch=1``):
+    the rows a rank of a 2,1 mesh holds of each 2-row bucket."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import explain
+    from repro_torch.serve import ExplainEngine
+
+    alone = "--alone" in argv
+    calls, served = [], ExplainEngine.explain
+
+    def keep(self, reqs, **kw):
+        out = served(self, reqs, **kw)
+        calls.append((self, list(reqs), out))
+        return out
+
+    ExplainEngine.explain = keep
+    engines = explain.run(explain.parser().parse_args([a for a in argv if a != "--alone"]))
+    ExplainEngine.explain = served
+    if not engines:  # a worker rank: rank 0 reports
+        return 0
+    legs = []
+    for eng, reqs, out in calls:
+        leg = {"schedule": eng.schedule, "buckets": sorted(eng.stats.buckets), "results": _kept(out)}
+        if alone:
+            recipe = {k: v for k, v in eng._recipe.items() if k != "cfg"}
+            one = ExplainEngine(eng.cfg, eng.params, max_batch=1, device=eng.device, **recipe)
+            leg["alone"] = _kept(one.explain(reqs))
+        legs.append(leg)
+    with open(path, "w") as fh:
+        json.dump(legs, fh)
+    return 0
+
+
+def _children(cmds: list, env=None) -> list:
+    """Run the commands at once; each one's (stdout, wall s). Any that fails
+    or outlives ``MESH_CHILD_S`` fails the phase, and every one still
+    running is killed first."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+             for c in cmds]
+    outs = []
+    try:
+        for c, p in zip(cmds, procs):
+            out, err = p.communicate(timeout=max(1.0, MESH_CHILD_S - (time.perf_counter() - t0)))
+            if p.returncode:
+                print(out[-4000:] + err[-8000:])
+                raise AssertionError(f"{' '.join(c[1:4])}… exited {p.returncode}")
+            outs.append((out, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _mesh_cli_gates(text2: str, text1: str, two: list, one: list) -> None:
+    """The command line's gates: the 2,1 run printed the mesh line and its
+    workers nothing; per leg and request, its results bit for bit those of
+    the engine serving each request alone (the rows a rank holds) and its
+    token scores within ENGINE_TOL of the 1,1 run's. δ against the 1,1
+    run and the printed mean and max δ are shown, not gated: a bf16 δ (a
+    small difference of sums) moves with the rows its process computes,
+    as the engine without a mesh serving each request alone shows."""
+    import re
+
+    import numpy as np
+
+    if "mesh: data=2 model=1 over 2 ranks sharing 1 card(s)" not in text2:
+        raise AssertionError("the --mesh 2,1 run printed no mesh line")
+    if text2.count("method=") != len(two) or [g["schedule"] for g in two] != [g["schedule"] for g in one]:
+        raise AssertionError(f"the --mesh 2,1 run printed {text2.count('method=')} legs for {len(two)}")
+    d2, d1 = (re.findall(r"(?:mean|max)_delta=(\S+)", t) for t in (text2, text1))
+    print(f"  command line: printed mean and max δ, --mesh 2,1 (gloo) {d2}, --mesh 1,1 (nccl) {d1}")
+    failed = []
+    for g2, g1 in zip(two, one):
+        name = f"command line {g2['schedule']}"
+        print(f"  {name}: buckets {g2['buckets']} at 2,1 (B padded to even), {g1['buckets']} at 1,1")
+        got, alone, want = ([{"delta": r["delta"], "token_scores": np.asarray(r["scores"])} for r in rows]
+                            for rows in (g2["results"], g1["alone"], g1["results"]))
+        same = [a["delta"] == b["delta"] and np.array_equal(a["token_scores"], b["token_scores"])
+                for a, b in zip(got, alone)]
+        rel = [abs(a["delta"] - b["delta"]) / max(abs(b["delta"]), 1e-30) for a, b in zip(got, want)]
+        print(f"  {name}: δ per request at 2,1 {[a['delta'] for a in got]}, alone {[a['delta'] for a in alone]}, "
+              f"at 1,1 {[a['delta'] for a in want]}; 2,1 bit for bit alone {same}; |Δδ|/δ against 1,1 "
+              f"{[f'{x:.3g}' for x in rel]} (printed, not gated)")
+        _scores_close(f"{name} 2,1 vs alone", got, alone, gate=False)
+        try:
+            _scores_close(f"{name} 2,1 vs 1,1", got, want)
+        except AssertionError as e:
+            failed.append(str(e))
+        if not all(same):
+            failed.append(f"{name}: the 2,1 run is not the requests served alone, bit for bit: {same}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def mesh_phase() -> dict:
+    """The device mesh in child processes (no process group outlives it),
+    all started at once: a world of 2 gloo ranks sharing the card on a
+    (data=2, model=1) mesh, a world of 1 NCCL rank on a 1×1 mesh, and two
+    runs of the explain command line through ``--cli-child``, ``--mesh
+    2,1`` under ``torch.distributed.run`` (gloo) and ``--mesh 1,1`` with the
+    requests served alone after it; the slice's launches are every rank's.
+    The children share the card, so each one's walls and transfer times
+    include the others' load."""
+    import os
+
+    _free_card()
+    me = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child"]
+    port = _free_port()
+    kept = [ROOT / "build" / f"mesh_cli_{n}.json" for n in (2, 1)]
+    kept[0].parent.mkdir(exist_ok=True)
+    for k in kept:
+        k.unlink(missing_ok=True)
+    cli = [str(ROOT / "chip_smoke.py"), "--cli-child"]
+    two = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2", f"--master-port={_free_port()}"] \
+        + cli + [str(kept[0])] + MESH_CLI + ["--mesh", "2,1", "--dist-backend", "gloo"]
+    one = [sys.executable] + cli + [str(kept[1]), "--alone"] + MESH_CLI + ["--mesh", "1,1"]
+    outs = _children([me + ["2", "0", str(port), "gloo"], me + ["2", "1", str(port), "gloo"],
+                      me + ["1", "0", str(_free_port()), "nccl"], two, one],
+                     env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    for i in (0, 2):  # the controllers' gates
+        print(outs[i][0].rstrip().rsplit("\n", 1)[0])
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs[:3]]
+    for r in ranks:
+        print(f"  mesh child world {r['world']} rank {r['rank']} ({r['backend']}): {r['wall_s']:.1f} s from its "
+              f"imports to its end ({r['ready_s']:.1f} s to the model and the mesh), peak {r['peak_gb']:.2f} GB"
+              + (f", {r['served']} calls served" if r["rank"] else ""))
+    print("  | " + outs[3][0].rstrip().replace("\n", "\n  | "))
+    _mesh_cli_gates(outs[3][0], outs[4][0], *(json.loads(k.read_text()) for k in kept))
+    print(f"  the phase's children all ended in {outs[-1][1]:.1f} s")
+    per_path = {}
+    launches = {k: 0 for k in ranks[0]["launches"]}
+    carry = {2: 0, 3: 0}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] += n
+        for k, n in r["carry_ranks"].items():
+            carry[int(k)] += n
+        if r["rank"] == 0:
+            per_path.update({f"world {r['world']} {p}": v for p, v in r["per_path"].items()})
+    print(f"  launches by rank: {[{k: n for k, n in r['launches'].items() if n} for r in ranks]}")
+    return {"launches": launches, "carry_ranks": carry, "per_path": per_path}
+
+
 def _setup() -> None:
     """The checkout's package on the path and the numerics every run of
     this script takes (the warm-state children too: their bits are held to
@@ -4480,12 +4839,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cli-child"]:  # the command line's own numerics, not this script's
+        return cli_child(sys.argv[2], sys.argv[3:])
     _setup()
     from repro_torch.kernels import common  # fails, printing nothing, outside a checkout
 
     if sys.argv[1:2] == ["--warm-child"]:
         mode, directory = sys.argv[2:4]
         return warm_child(mode, directory)
+    if sys.argv[1:2] == ["--mesh-child"]:
+        world, rank, port = (int(a) for a in sys.argv[2:5])
+        return mesh_child(world, rank, port, sys.argv[5])
     print(_card())
     triton, _ = common.import_triton()  # sets the compile cache first
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}")
@@ -4530,7 +4894,8 @@ def main() -> int:
                         ("moe_serve", moe_serve_phase), ("ssm", ssm_phase), ("hybrid", hybrid_phase),
                         ("whisper", whisper_phase), ("vlm_engine", vlm_engine_phase),
                         ("vlm_serve", vlm_serve_phase), ("launchers", launcher_phase),
-                        ("train", train_phase), ("train_launcher", train_launcher_phase)):
+                        ("train", train_phase), ("train_launcher", train_launcher_phase),
+                        ("mesh", mesh_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")

@@ -22,6 +22,14 @@ tensors they launch the Triton kernels, on CPU tensors they take the plain
 versions. Entry points run on ``device="cuda"`` unless the caller passes
 another device.
 
+Under a device mesh (``mesh=``, ``mesh_rules=``), ``attribute_adaptive``'s
+rung calls run data-parallel over the mesh's ranks (``sharding.dispatch``):
+survivors are padded up to a multiple of the data-parallel extent so every
+hop shards, the cache keys carry the mesh's (axis, size) pairs, and a call
+whose batch does not divide dp runs on this rank alone and is counted in
+``info["mesh_fallbacks"]``. ``repro``'s ``jitted``/``aot`` have no
+counterpart: there is no XLA program to compile.
+
 A quick end-to-end example (the quadratic has a linear path integrand, so
 the midpoint rule is exact and the completeness gap δ is ~0):
 
@@ -36,7 +44,7 @@ the midpoint rule is exact and the completeness gap δ is ~0):
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
@@ -44,6 +52,7 @@ import torch
 
 from repro_torch.core import ig, methods as methods_mod, probes
 from repro_torch.core import schedule as schedules
+from repro_torch.core.fingerprint import params_digest, reachable_tensors
 from repro_torch.core.ig import IGResult, IGState
 from repro_torch.core.methods import MethodSpec
 from repro_torch.core.probes import ScalarFn, map_tree, repeat_tree
@@ -78,6 +87,10 @@ class Explainer:
             draws the same paths (adaptive runs can be bit-compared with
             fixed runs).
         device: where inputs are placed and the explanation runs.
+        mesh / mesh_rules: an optional ``DeviceMesh`` and the rules of its
+            data axes: ``attribute_adaptive`` shards its rung calls' rows
+            over the mesh's ranks, whose workers serve an ``Explainer`` of
+            their own (``sharding.dispatch.worker_loop``).
 
     Example (paper schedule on a tiny quadratic):
 
@@ -107,6 +120,8 @@ class Explainer:
     sigma: float = 0.0
     sample_seed: int = 0
     device: Union[str, torch.device] = "cuda"
+    mesh: Any = None
+    mesh_rules: Any = None
 
     @property
     def spec(self) -> MethodSpec:
@@ -287,6 +302,21 @@ class Explainer:
             **self.ig_kwargs(),
         )
 
+    def _build(self, key: tuple) -> Callable:
+        """The rung callable of an ``attribute_adaptive`` cache key: ``start``
+        for a ``("start", ...)`` key, ``resume`` for a ``("hop", ...)`` one
+        (what a mesh's worker rebuilds from the key)."""
+        return self.start if key[0] == "start" else self.resume
+
+    def _recipe(self) -> dict:
+        """The fields a worker rank builds its own Explainer from: all but
+        the model function, the device and the mesh; and the digest of the
+        tensors ``f`` reaches, which the worker holds its own ``f``'s to."""
+        recipe = {f.name: getattr(self, f.name) for f in fields(self)
+                  if f.name not in ("f", "device", "mesh", "mesh_rules")}
+        recipe["model_digest"] = params_digest(reachable_tensors(self.f))
+        return recipe
+
     def attribute_adaptive(
         self,
         x: torch.Tensor,
@@ -297,6 +327,7 @@ class Explainer:
         m_max: int = 0,
         mask: Optional[torch.Tensor] = None,
         draw: Optional[torch.Tensor] = None,
+        cache: Optional[dict] = None,
     ) -> tuple[IGResult, dict]:
         """δ-feedback early-exit attribution up the m-ladder.
 
@@ -305,24 +336,57 @@ class Explainer:
         resumes accumulation for the rows whose completeness gap still
         exceeds ``tol · |f(x) − f(x′)|``, until all converge or the ladder
         tops out at ``m_max`` (default ``8·m``). Converged rows exit with the
-        rung they converged at; later hops run on the surviving rows only.
+        rung they converged at; later hops run on the surviving rows only,
+        padded under a mesh up to a multiple of the data-parallel extent by
+        repeating the last survivor.
 
         Path ensembles expand each example to ``ensemble_size`` sample rows
         first (``draw`` as in ``expand_inputs``); the ladder then runs per
         row (each sample converges on its own δ) and the final IGResult is
         reduced to per-example means. The ``info`` arrays stay per row.
 
+        ``cache``: a dict of rung callables shared across calls (and across
+        explainers, meshes included: its keys carry the configuration, the
+        input signature and ``mesh_cache_key``); ``info["compiles"]`` counts
+        the entries this call added.
+
         Returns ``(IGResult, info)``: per-example final attributions/δ, and
         ``info`` with per-row ``m_used``/``hops``/``delta``/``threshold``/
         ``converged`` plus aggregate ``total_steps`` (Σ m_used),
-        ``probe_forwards``, the ``ladder``, the ``chunk`` and ``n_samples``
-        (the expansion factor).
+        ``probe_forwards``, ``compiles``, ``mesh_fallbacks``, the
+        ``ladder``, the ``chunk`` and ``n_samples`` (the expansion factor).
         """
+        from repro_torch.sharding import DEFAULT_RULES, dispatch, dp_size, explain_arg_shardings, mesh_cache_key
+
         x, baseline, target, mask, n_samples = self.expand_inputs(x, baseline, target, mask, draw)
         fam = schedules.family(self.schedule)
         ladder = schedules.m_ladder(self.m, m_max if m_max else 8 * self.m)
+        cache = cache if cache is not None else {}
+        rules = self.mesh_rules or DEFAULT_RULES
+        dp = dp_size(self.mesh, rules)
+        compiles = mesh_fallbacks = 0
+
+        recipe = self._recipe() if dp > 1 else None
+
+        def run(key, args):
+            nonlocal compiles, mesh_fallbacks
+            sharded = dp > 1 and explain_arg_shardings(self.mesh, args, rules) is not None
+            if key not in cache:
+                cache[key] = self._build(key)
+                compiles += 1
+                mesh_fallbacks += dp > 1 and not sharded
+            if sharded:
+                return dispatch.call("explainer", recipe, key, args, self.mesh, cache[key], rules)
+            return cache[key](*args)
+
+        # the keys carry the configuration and the input signature (dtype,
+        # target structure, mesh axis sizes): a shared cache never hands back
+        # a callable for another problem
+        cfg_key = (self.spec.name, self.schedule, self.m, self.n_int, self.adaptive_chunk, self.fused,
+                   str(x.dtype), _structure(target), mesh_cache_key(self.mesh))
+        has_mask = mask is not None
         B = x.shape[0]
-        res, state, sched = self.start(x, baseline, target, mask)
+        res, state, sched = run(("start", cfg_key, tuple(x.shape), has_mask), (x, baseline, target, mask))
 
         delta = res.delta.cpu().numpy().copy()
         f_x, f_b = res.f_x.cpu().numpy(), res.f_baseline.cpu().numpy()
@@ -344,22 +408,29 @@ class Explainer:
             if act.size == 0:
                 break
             n_new = rung // 2
+            n_act = act.size
             refined = fam.refine(Schedule(a_act, w_act))
-            new_nodes = Schedule(refined.alphas[:, n_new:], refined.weights[:, n_new:])
-            res2, st2 = self.resume(
-                x[rows], baseline[rows], map_tree(lambda t: t[rows], target), new_nodes,
-                IGState(acc_act, res.f_x[rows], res.f_baseline[rows]),
+            # mesh-divisible padding: the last survivor repeats into the pad
+            # slots, whose results are dropped; sel indexes survivor-aligned
+            # tensors, rows the whole batch (sel is arange(n_act) when dp is 1)
+            sel_np = np.concatenate([np.arange(n_act), np.full((-n_act) % dp, n_act - 1, np.int64)])
+            sel = torch.as_tensor(sel_np, device=x.device)
+            rows = torch.as_tensor(act[sel_np], device=x.device)
+            hop_args = (
+                x[rows], baseline[rows], map_tree(lambda t: t[rows], target),
+                Schedule(refined.alphas[sel, n_new:], refined.weights[sel, n_new:]),
+                IGState(acc_act[sel], res.f_x[rows], res.f_baseline[rows]),
                 None if mask is None else mask[rows],
             )
-            total_steps += act.size * n_new
-            d2 = res2.delta.cpu().numpy()
-            out_attr[rows] = res2.attributions
+            res2, st2 = run(("hop", cfg_key, sel_np.size, n_new, tuple(x.shape[1:]), has_mask), hop_args)
+            total_steps += n_act * n_new
+            d2 = res2.delta[:n_act].cpu().numpy()
+            out_attr[rows[:n_act]] = res2.attributions[:n_act]
             delta[act] = d2
             m_used[act] = rung
             hops[act] += 1
             keep = d2 > threshold[act]
             act = act[keep]
-            rows = torch.as_tensor(act, device=x.device)
             kept = torch.as_tensor(np.flatnonzero(keep), device=x.device)
             a_act, w_act, acc_act = refined.alphas[kept], refined.weights[kept], st2.acc[kept]
 
@@ -375,8 +446,20 @@ class Explainer:
             "total_steps": int(total_steps),
             "probe_forwards": B * probes.probe_cost(fam.probe, n_int=self.n_int,
                                                     rounds=self.refine_rounds),
+            "compiles": compiles,
+            "mesh_fallbacks": mesh_fallbacks,
             "ladder": ladder,
             "chunk": self.adaptive_chunk,
             "n_samples": n_samples,
         }
         return final, info
+
+
+def _structure(tree: Any) -> Any:
+    """A hashable outline of a target tree (its containers and keys; each
+    tensor as ``"T"``), for the cache keys."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in sorted(tree.items()))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_structure(v) for v in tree)
+    return None if tree is None else "T"

@@ -17,12 +17,15 @@ hashes, so the same weights give the same fingerprint in both packages:
 
 sha256 runs on one host core, so for the real weights it costs seconds;
 callers compute it once (``ExplainEngine.model_fingerprint`` is lazy and
-cached).
+cached). ``params_digest`` is the cheap check that two processes hold the
+same weights (a mesh's ranks): integer sums over each leaf's bytes, taken
+where the leaf lives, in one pass over memory.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -109,3 +112,83 @@ def model_fingerprint(cfg: Any, params: Any) -> str:
     h.update(config_fingerprint(cfg).encode())
     h.update(params_fingerprint(params).encode())
     return h.hexdigest()
+
+
+_DIGEST_CHUNK = 1 << 24  # bytes a chunk: its weighted sum stays below 2**63
+_DIGEST_MOD = 65521  # the position weights run 1 … 65521
+
+
+def params_digest(params: Any) -> str:
+    """sha256 hex over every leaf's (tree path, dtype, shape) and two sums
+    of its raw bytes: a plain one and one weighted by position (1 + the
+    byte's index mod 65521), each taken in int64 chunks on the leaf's own
+    device (exact, so equal weights give equal digests on any device) and
+    added up in Python. Weights drawn from another seed or read from another
+    file give another digest; unlike ``params_fingerprint`` no byte crosses
+    to the host.
+
+        >>> import torch
+        >>> params_digest({"w": torch.ones(3)}) == params_digest({"w": torch.ones(3)})
+        True
+        >>> params_digest({"w": torch.ones(3)}) == params_digest({"w": torch.tensor([1.0, 1.0, 1.5])})
+        False
+    """
+    h = hashlib.sha256()
+    for path, leaf in tree_leaves_with_path(params):
+        name, shape = _leaf_meta(leaf)
+        t = leaf.detach() if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        flat = t.contiguous().reshape(-1).view(torch.uint8)
+        plain = weighted = 0
+        for start in range(0, flat.numel(), _DIGEST_CHUNK):
+            c = flat[start:start + _DIGEST_CHUNK].to(torch.int64)
+            pos = torch.arange(start, start + c.numel(), device=c.device) % _DIGEST_MOD + 1
+            plain += int(c.sum())
+            weighted += int((c * pos).sum())
+        h.update(f"{path} {name} {shape} {plain} {weighted};".encode())
+    return h.hexdigest()
+
+
+def reachable_tensors(f: Callable, depth: int = 6) -> list:
+    """The tensors a model function closes over, in a fixed order: through
+    its closure cells, defaults, ``functools.partial`` arguments, a bound
+    method's ``nn.Module``, a module's ``state_dict`` and containers of
+    these, to ``depth`` levels. What ``params_digest`` of a function
+    (``Explainer(f)``) reads: ``Model.target_logprob_fn(params)`` reaches
+    ``params``."""
+    out: list = []
+    seen: set = set()
+
+    def walk(x: Any, d: int) -> None:
+        if d < 0 or id(x) in seen:
+            return
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, torch.nn.Module):
+            walk(dict(x.state_dict()), d - 1)
+        elif isinstance(x, dict):
+            for k in sorted(x, key=repr):
+                walk(x[k], d - 1)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v, d - 1)
+        elif isinstance(x, functools.partial):
+            walk((x.func, x.args, x.keywords), d - 1)
+        elif callable(x):
+            self_ = getattr(x, "__self__", None)
+            if isinstance(self_, torch.nn.Module):
+                walk(self_, d - 1)
+            cells = getattr(x, "__closure__", None) or ()
+            walk([c.cell_contents for c in cells if _filled(c)], d - 1)
+            walk(getattr(x, "__defaults__", None) or (), d - 1)
+
+    walk(f, depth)
+    return out
+
+
+def _filled(cell: Any) -> bool:
+    try:
+        cell.cell_contents
+    except ValueError:  # a cell not yet assigned
+        return False
+    return True

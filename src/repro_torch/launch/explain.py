@@ -8,6 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.explain --arch internvl2-26b \
         --full --layers 4 --attn flash --rounds 2
 
+    # a data-parallel mesh of 4 processes on the CPU
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.explain \
+        --device cpu --dist-backend gloo --mesh 4,1 --requests 6
+
 Drives the shape-bucketed ``ExplainEngine`` with mixed-length request
 traffic (prompt lengths in [--min-seq, --max-seq]): round 1 builds each
 bucket's callables, later rounds at seen buckets reuse them. Prints
@@ -21,9 +25,12 @@ whisper-tiny and internvl2-26b are explained over their token stream only
 The flags and the printed lines are ``repro``'s, with these differences:
 ``--device``, ``--full`` and ``--layers`` are the port's (``launch``);
 ``--use-kernels`` only matters on the CPU, since the card always serves
-stage 2 through the kernels; ``--mesh`` takes ``1,1`` (one card) or nothing
-until the mesh is ported (ROADMAP.md queue 1, item 7), and
-``--host-devices`` (JAX's virtual CPU devices) is not offered. The seeded
+stage 2 through the kernels; ``--mesh dp,tp`` runs under ``torchrun
+--nproc-per-node dp·tp`` (``--dist-backend``: ``nccl`` by default on the
+card, ``gloo`` on the CPU and where ranks share a card): rank 0 serves and
+prints ``repro``'s lines, the other ranks compute their rows of each
+stage-2 call and print nothing; ``--host-devices`` (JAX's virtual CPU
+devices) has no counterpart, a device of the mesh being a process. The seeded
 draws (weights, the ViT's image) are ``draw``'s: torch generators on the
 chosen device, so their numbers are not ``repro``'s; the traffic comes from
 ``numpy.random.default_rng(seed)`` as in ``repro``, request for request.
@@ -31,6 +38,7 @@ chosen device, so their numbers are not ``repro``'s; the traffic comes from
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -39,15 +47,20 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.configs.vit import CONFIG as VIT_CONFIG, VitConfig, reduced_vit
 from repro_torch.core.methods import METHODS
 from repro_torch.core.schedule import SCHEDULES
 from repro_torch.launch import add_port_args, device_of, sized, use_kernels
+from repro_torch.launch.distributed import init_distributed, world_from_env
+from repro_torch.launch.mesh import make_explain_mesh, parse_mesh_arg
 from repro_torch.models import vit
 from repro_torch.models.registry import Model
 from repro_torch.serve import ExplainEngine, ExplainRequest
+from repro_torch.serve.explain_engine import serve_worker
+from repro_torch.sharding import dispatch
 
 
 def make_traffic(cfg, n: int, lo: int, hi: int, rng) -> list[ExplainRequest]:
@@ -177,7 +190,11 @@ def parser() -> argparse.ArgumentParser:
                     help="with --adaptive: start each bucket at the δ-history quantile "
                     "rung instead of the base rung (repeat traffic skips known hops)")
     ap.add_argument("--mesh", default="",
-                    help="'dp,tp' device mesh: only 1,1 (one card) until the mesh is ported")
+                    help="'dp,tp' device mesh for sharded serving (e.g. 4,1) under torchrun "
+                    "--nproc-per-node dp·tp; empty = this process alone")
+    ap.add_argument("--dist-backend", default="", choices=("", "nccl", "gloo"),
+                    help="the process group's backend with --mesh (default: nccl with --device "
+                    "cuda, gloo with --device cpu; gloo where ranks share a card)")
     ap.add_argument("--scheduler", action="store_true",
                     help="route traffic through the MixedScheduler admission queue "
                     "(bounded, per-tenant rate limits); prints backpressure/rate "
@@ -191,15 +208,45 @@ def parser() -> argparse.ArgumentParser:
 
 def run(args: argparse.Namespace) -> list[ExplainEngine]:
     """Serve the traffic ``args`` describe and print ``repro``'s lines;
-    returns the engines, one per schedule leg."""
-    if args.mesh not in ("", "1,1"):
-        print(f"--mesh {args.mesh}: the port serves on one card (dp = tp = 1) until the mesh is "
-              "ported (ROADMAP.md queue 1, item 7)", file=sys.stderr)
-        raise SystemExit(2)
+    returns the engines, one per schedule leg. Under ``--mesh`` every rank
+    calls it: rank 0 serves, the others serve its stage-2 rows and return
+    ``[]``; the process group this call started ends with it."""
     device = device_of(args)
-    if args.mesh:
-        print("mesh: data=1 model=1 over 1 devices")
+    if not args.mesh:
+        return _serve(args, device, None)
+    dp, tp = parse_mesh_arg(args.mesh)
+    _, world, _, _ = world_from_env()
+    if world != dp * tp:
+        print(f"--mesh {args.mesh} needs {dp * tp} processes, one a mesh device: run it under "
+              f"torchrun --nproc-per-node {dp * tp} (this world has {world})", file=sys.stderr)
+        raise SystemExit(2)
+    started = not dist.is_initialized()
+    init_distributed(args.dist_backend or ("nccl" if device.type == "cuda" else "gloo"))
+    try:
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_explain_mesh(dp, tp, device=device)
+        return _serve(args, device, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _mesh_line(dp: int, tp: int, device: torch.device) -> str:
+    """``repro``'s mesh line; "ranks" where ranks share a card."""
+    world = dist.get_world_size()
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        return f"mesh: data={dp} model={tp} over {world} ranks sharing {torch.cuda.device_count()} card(s)"
+    return f"mesh: data={dp} model={tp} over {world} devices"
+
+
+def _serve(args: argparse.Namespace, device: torch.device, mesh) -> list[ExplainEngine]:
+    """``run``'s body: rank 0 (or the only process) serves and prints, a
+    worker rank serves rank 0's rows."""
+    rank = dist.get_rank() if mesh is not None else 0
+    if rank == 0 and mesh is not None:
+        print(_mesh_line(*mesh.mesh.shape, device))
+    say = print if rank == 0 else (lambda *a, **k: None)
     engine_kwargs: dict = {}
     fixed_reqs = None
     if args.workload == "vit":
@@ -211,17 +258,26 @@ def run(args: argparse.Namespace) -> list[ExplainEngine]:
         fixed_reqs = [ExplainRequest(tokens=np.arange(cfg.num_patches, dtype=np.int32), target=target,
                                      features=feats)]
         engine_kwargs["seq_buckets"] = (cfg.num_patches,)
-        print(f"vit workload: {cfg.num_patches} patches, predicted class {target}")
+        say(f"vit workload: {cfg.num_patches} patches, predicted class {target}")
     else:
         cfg = sized(get_config(args.arch), reduced, args)
         if cfg.frontend or cfg.is_encdec:
-            print(f"note: {cfg.name} frontend is stubbed; explaining token stream only")
+            say(f"note: {cfg.name} frontend is stubbed; explaining token stream only")
         params, _ = draw(cfg, args.seed, device)
         if args.workload == "prompt":
             # one deterministic prompt: the same tokens every run, the target fixed
             prompt = (np.arange(1, 13, dtype=np.int32) * 7) % (cfg.vocab_size - 1) + 1
             fixed_reqs = [ExplainRequest(tokens=prompt, target=int(prompt[-1]))]
-            print(f"prompt workload: tokens={prompt.tolist()} target={prompt[-1]}")
+            say(f"prompt workload: tokens={prompt.tolist()} target={prompt[-1]}")
+    if rank:
+        serve_worker(cfg, params, device=device)
+        return []
+    with dispatch.controller() if mesh is not None else contextlib.nullcontext():
+        return _rounds(args, device, mesh, cfg, params, fixed_reqs, engine_kwargs)
+
+
+def _rounds(args, device, mesh, cfg, params, fixed_reqs, engine_kwargs) -> list[ExplainEngine]:
+    """The traffic rounds of every schedule leg, and the closing lines."""
     rng = np.random.default_rng(args.seed)
 
     out, engines = None, []
@@ -250,6 +306,7 @@ def run(args: argparse.Namespace) -> list[ExplainEngine]:
             autotune=args.autotune,
             result_cache=args.result_cache * (1 << 20),
             hop_zero=args.hop_zero,
+            mesh=mesh,
             device=device,
             **engine_kwargs,
         )

@@ -38,10 +38,10 @@ def attn_def(cfg, *, cross: bool = False) -> dict:
     output."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     return {
-        "wq": ParamDef((d, cfg.num_heads, hd)),
-        "wk": ParamDef((d, cfg.num_kv_heads, hd)),
-        "wv": ParamDef((d, cfg.num_kv_heads, hd)),
-        "wo": ParamDef((cfg.num_heads, hd, d)),
+        "wq": ParamDef((d, cfg.num_heads, hd), axes=("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, cfg.num_kv_heads, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, cfg.num_kv_heads, hd), axes=("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((cfg.num_heads, hd, d), axes=("heads", "head_dim", "embed")),
     }
 
 

@@ -128,18 +128,22 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor, **kw
 
 
 def layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int, dtype,
-                device="cuda") -> dict:
-    """The layer's empty decode cache: k and v, (B, slots, NKV, D) zeros, with
-    ``max_len`` slots, or for a local layer the ring's min(w, max_len); for
-    a mamba layer ``ssm.ssm_init_cache``'s state and conv tail. A decoder
-    layer of an encoder-decoder adds ``xk``/``xv``, (B, encoder_seq, NKV,
-    D), for its cross-attention."""
+                device="cuda", *, kv_slots: int = 0) -> dict:
+    """The layer's empty decode cache: k and v, (B, slots, KH, D) zeros, with
+    ``max_len`` slots, or for a local layer the ring's min(w, max_len); KH is
+    ``repro``'s TP-expanded head count max(NKV, ``kv_slots``) (each KV head
+    repeated KH/NKV times, so a tensor-parallel shard holds the heads its
+    query heads read), NKV when ``kv_slots`` is 0. For a mamba layer
+    ``ssm.ssm_init_cache``'s state and conv tail. A decoder layer of an
+    encoder-decoder adds ``xk``/``xv``, (B, encoder_seq, NKV, D), for its
+    cross-attention."""
     _check(spec)
     if spec.mixer == "mamba":
         cache = ssm.ssm_init_cache(cfg, batch, dtype, device)
     else:
         slots = min(cfg.sliding_window or max_len, max_len) if spec.mixer == "local" else max_len
-        shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+        kh = max(cfg.num_kv_heads, kv_slots or cfg.num_kv_heads)
+        shape = (batch, slots, kh, cfg.resolved_head_dim)
         cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
     if cfg.is_encdec:
@@ -175,6 +179,7 @@ def apply_layer_prefill(
     else:
         q, k, v = _attn_in(cfg, p, x, positions)
         o = attn.dispatch_attention(cfg, q, k, v, mixer=spec.mixer, causal=True)
+        k, v = _to_slots(k, cache), _to_slots(v, cache)
         S, w = k.shape[1], cache["k"].shape[1]
         if spec.mixer == "local" and S >= w:
             shift = S % w  # position S − w, the oldest kept, belongs at slot (S − w) mod w
@@ -189,6 +194,14 @@ def apply_layer_prefill(
         cache["xk"].copy_(kv[0])
         cache["xv"].copy_(kv[1])
     return _ffn(cfg, spec, p, _cross(cfg, p, x, kv)), cache
+
+
+def _to_slots(t: torch.Tensor, cache: dict) -> torch.Tensor:
+    """Keys or values (B, S, NKV, D) repeated to the cache's head count (a
+    ``kv_slots`` cache holds each KV head KH/NKV times; ``repro``'s
+    ``expand_kv``)."""
+    slots = cache["k"].shape[2]
+    return t if t.shape[2] == slots else attn.expand_kv(t, slots)
 
 
 def _slot(spec: LayerSpec, cache: dict, pos):
@@ -250,8 +263,8 @@ def apply_layer_decode(
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
         q, k, v = _attn_in(cfg, p, x, positions)
         slot = _slot(spec, cache, pos)
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
+        cache["k"][:, slot] = _to_slots(k, cache)[:, 0]
+        cache["v"][:, slot] = _to_slots(v, cache)[:, 0]
         o = attn.decode_attention(q, cache["k"], cache["v"], pos + 1, ring=spec.mixer == "local")
         x = x + attn.out_proj(p["mixer"], o, x.dtype)
     kv = (cache["xk"], cache["xv"]) if "xk" in cache else None

@@ -6,8 +6,9 @@ included: a normal tensor's std is its ``scale`` or 1/√fan_in, where the
 fan-in is the product of every axis but the last — so a stacked weight's
 leading ``layers`` axis counts, and ``wq`` (d, H, D) has fan-in d·H; an
 ``embed`` tensor is a unit normal (times ``scale``); ``zeros``/``ones`` are
-constant. The logical sharding axes and the abstract (shape-only) trees of
-``repro`` have no meaning on one card and are not copied.
+constant. Each definition carries ``repro``'s logical axis names, which
+``sharding.param_specs`` maps onto a mesh; ``repro``'s abstract
+(shape-only) trees are not copied.
 ``tree_leaves_with_path``, ``tree_leaves`` and ``tree_unflatten`` walk a
 tree in ``jax.tree_util``'s order, as the optimizer, the checkpoints and
 the fingerprints do.
@@ -22,11 +23,12 @@ import torch
 
 
 class ParamDef(NamedTuple):
-    """One parameter tensor: shape and init rule."""
+    """One parameter tensor: shape, init rule and logical axis names."""
 
     shape: tuple
     init: str = "normal"  # normal | zeros | ones | embed
     scale: Optional[float] = None  # std override (normal, embed); None: the rule's
+    axes: tuple = ()  # one logical axis name (or None) per dimension, as repro's
 
 
 def fan_in(shape: tuple) -> int:
@@ -94,7 +96,8 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
 def stack_defs(defs: Any, n: int) -> Any:
     """The tree with a leading axis of ``n`` on every tensor (the stacked
     ``layers`` axis, which ``repro`` scans)."""
-    return tree_map(lambda _, d: d._replace(shape=(n,) + tuple(d.shape)), defs)
+    return tree_map(lambda _, d: d._replace(shape=(n,) + tuple(d.shape), axes=("layers",) + tuple(d.axes)),
+                    defs)
 
 
 def init_params(defs: Any, generator: torch.Generator, *, dtype: torch.dtype = torch.float32,

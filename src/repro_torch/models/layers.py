@@ -25,7 +25,7 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def rmsnorm_def(d: int) -> dict:
-    return {"scale": ParamDef((d,), "ones")}
+    return {"scale": ParamDef((d,), "ones", axes=(None,))}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -41,7 +41,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 def mlp_def(d: int, f: int) -> dict:
-    return {"wi_gate": ParamDef((d, f)), "wi_up": ParamDef((d, f)), "wo": ParamDef((f, d))}
+    return {"wi_gate": ParamDef((d, f), axes=("embed", "mlp")), "wi_up": ParamDef((d, f), axes=("embed", "mlp")),
+            "wo": ParamDef((f, d), axes=("mlp", "embed"))}
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -55,11 +56,11 @@ def embed_def(cfg) -> dict:
     """The token embedding (V, d), unit normal, unless tied the unembedding
     (d, V), and with a stub frontend its projection (frontend_dim, d), both
     at fan-in scale."""
-    d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), "embed")}
+    d = {"embedding": ParamDef((cfg.vocab_size, cfg.d_model), "embed", axes=("vocab", "embed"))}
     if not cfg.tie_embeddings:
-        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        d["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size), axes=("embed", "vocab"))
     if cfg.frontend:
-        d["frontend_proj"] = ParamDef((cfg.frontend_dim or cfg.d_model, cfg.d_model))
+        d["frontend_proj"] = ParamDef((cfg.frontend_dim or cfg.d_model, cfg.d_model), axes=("frontend", "embed"))
     return d
 
 

@@ -210,10 +210,11 @@ def loss(cfg: ArchConfig, params: Any, batch: dict, *, remat: bool = False) -> t
 # ----------------------------------------------------------------- serving
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> dict:
-    """The empty decode cache, in the compute dtype, on ``device``."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", *, kv_slots: int = 0) -> dict:
+    """The empty decode cache, in the compute dtype, on ``device``; with
+    ``kv_slots``, ``repro``'s TP-expanded KV head count (``blocks.layer_cache``)."""
     dt = getattr(torch, cfg.compute_dtype)
-    one = lambda spec: blocks.layer_cache(cfg, spec, batch, max_len, dt, device)
+    one = lambda spec: blocks.layer_cache(cfg, spec, batch, max_len, dt, device, kv_slots=kv_slots)
     stack = lambda _, t: t.new_zeros((cfg.num_periods,) + tuple(t.shape))
     return {
         "layers": tuple(tree_map(stack, one(spec)) for spec in cfg.pattern),
@@ -240,9 +241,10 @@ def _layers(cfg: ArchConfig, params: Any, cache: dict):
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
-    """Run the prompt, fill a new cache, return the last position's logits
-    (B, 1, V). The sequence counts a vision config's prepended patches; an
+def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int, *, kv_slots: int = 0
+            ) -> tuple[torch.Tensor, dict]:
+    """Run the prompt, fill a new cache (of ``kv_slots`` expanded KV heads,
+    see ``init_cache``), return the last position's logits (B, 1, V). The sequence counts a vision config's prepended patches; an
     encoder-decoder encodes ``batch["frontend"]`` first and caches each
     decoder layer's cross keys and values of it. Raises ``ValueError`` when
     the sequence is longer than the cache (``repro`` asserts it) or the
@@ -255,7 +257,7 @@ def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int) -> tuple[to
     if S > max_len:
         raise ValueError(f"prefill length {S} exceeds cache max_len {max_len}")
     pos = torch.arange(S, device=e.device).expand(B, S)
-    cache = init_cache(cfg, B, max_len, device=e.device)
+    cache = init_cache(cfg, B, max_len, device=e.device, kv_slots=kv_slots)
     x = e
     for spec, lp, lc in _layers(cfg, params, cache):
         x, _ = blocks.apply_layer_prefill(cfg, spec, lp, x, lc, positions=pos, enc_out=enc_out)

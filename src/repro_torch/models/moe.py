@@ -34,10 +34,10 @@ from repro_torch.models.common import ParamDef
 def moe_def(cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
     return {
-        "router": ParamDef((d, e), scale=0.02),
-        "wi_gate": ParamDef((e, d, f)),
-        "wi_up": ParamDef((e, d, f)),
-        "wo": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), scale=0.02, axes=("embed", None)),
+        "wi_gate": ParamDef((e, d, f), axes=("experts", "embed", "mlp")),
+        "wi_up": ParamDef((e, d, f), axes=("experts", "embed", "mlp")),
+        "wo": ParamDef((e, f, d), axes=("experts", "mlp", "embed")),
     }
 
 

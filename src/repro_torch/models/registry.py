@@ -52,8 +52,8 @@ class Model:
     def loss(self, params, batch: dict, *, remat: bool = False) -> torch.Tensor:
         return lm.loss(self.cfg, params, batch, remat=remat)
 
-    def prefill(self, params, batch: dict, max_len: int):
-        return lm.prefill(self.cfg, params, batch, max_len)
+    def prefill(self, params, batch: dict, max_len: int, *, kv_slots: int = 0):
+        return lm.prefill(self.cfg, params, batch, max_len, kv_slots=kv_slots)
 
     def decode_step(self, params, cache: dict, token: torch.Tensor):
         return lm.decode_step(self.cfg, params, cache, token)
@@ -61,8 +61,8 @@ class Model:
     def decode_snapshot(self, cache: dict, n: int):
         return lm.decode_snapshot(self.cfg, cache, n)
 
-    def init_cache(self, batch: int, max_len: int, device="cuda") -> dict:
-        return lm.init_cache(self.cfg, batch, max_len, device=device)
+    def init_cache(self, batch: int, max_len: int, device="cuda", *, kv_slots: int = 0) -> dict:
+        return lm.init_cache(self.cfg, batch, max_len, device=device, kv_slots=kv_slots)
 
     def target_logprob_fn(self, params, *, target_pos: int = -1):
         """f(embeds, target ids) -> (B,) next-token log-prob at ``target_pos``."""

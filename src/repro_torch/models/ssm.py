@@ -41,19 +41,19 @@ def ssm_def(cfg: ArchConfig) -> dict:
     d, di = cfg.d_model, cfg.d_inner
     G, N, H, W = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
     return {
-        "in_z": ParamDef((d, di)),
-        "in_x": ParamDef((d, di)),
-        "in_B": ParamDef((d, G * N)),
-        "in_C": ParamDef((d, G * N)),
-        "in_dt": ParamDef((d, H)),
-        "conv_x": ParamDef((W, di), scale=0.5),
-        "conv_B": ParamDef((W, G * N), scale=0.5),
-        "conv_C": ParamDef((W, G * N), scale=0.5),
-        "A_log": ParamDef((H,), "zeros"),
-        "D": ParamDef((H,), "ones"),
-        "dt_bias": ParamDef((H,), "zeros"),
-        "norm": ParamDef((di,), "ones"),
-        "out": ParamDef((di, d)),
+        "in_z": ParamDef((d, di), axes=("embed", "inner")),
+        "in_x": ParamDef((d, di), axes=("embed", "inner")),
+        "in_B": ParamDef((d, G * N), axes=("embed", None)),
+        "in_C": ParamDef((d, G * N), axes=("embed", None)),
+        "in_dt": ParamDef((d, H), axes=("embed", "ssm_heads")),
+        "conv_x": ParamDef((W, di), scale=0.5, axes=(None, "inner")),
+        "conv_B": ParamDef((W, G * N), scale=0.5, axes=(None, None)),
+        "conv_C": ParamDef((W, G * N), scale=0.5, axes=(None, None)),
+        "A_log": ParamDef((H,), "zeros", axes=("ssm_heads",)),
+        "D": ParamDef((H,), "ones", axes=("ssm_heads",)),
+        "dt_bias": ParamDef((H,), "zeros", axes=("ssm_heads",)),
+        "norm": ParamDef((di,), "ones", axes=("inner",)),
+        "out": ParamDef((di, d), axes=("inner", "embed")),
     }
 
 

@@ -41,12 +41,13 @@ def param_specs(cfg: VitConfig) -> dict:
     (the LM's ``(attn, dense)`` layer)."""
     d = cfg.d_model
     return {
-        "patch_proj": ParamDef((cfg.patch_dim, d)),
-        "patch_bias": ParamDef((d,), "zeros"),
-        "pos_embed": ParamDef((cfg.num_patches, d), scale=0.02),
+        "patch_proj": ParamDef((cfg.patch_dim, d), axes=("frontend", "embed")),
+        "patch_bias": ParamDef((d,), "zeros", axes=(None,)),
+        "pos_embed": ParamDef((cfg.num_patches, d), scale=0.02, axes=(None, "embed")),
         "layers": stack_defs(blocks.layer_def(cfg, LayerSpec()), cfg.num_layers),
         "final_norm": rmsnorm_def(d),
-        "head": {"w": ParamDef((d, cfg.num_classes)), "b": ParamDef((cfg.num_classes,), "zeros")},
+        "head": {"w": ParamDef((d, cfg.num_classes), axes=("embed", None)),
+                 "b": ParamDef((cfg.num_classes,), "zeros", axes=(None,))},
     }
 
 

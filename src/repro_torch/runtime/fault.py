@@ -1,18 +1,21 @@
-"""Retry, straggler detection and the recovering training loop of
-``repro.runtime.fault``, which hold no JAX.
+"""Retry, straggler detection, elastic remeshing and the recovering
+training loop of ``repro.runtime.fault``.
 
   RetryPolicy       — bounded exponential backoff for transient failures of
                       one work item.
   StragglerMonitor  — wall-time EWMA per item; flags items slower than
                       ``straggler_threshold`` × the running mean.
+  ElasticMesh       — rebuilds a (pod, data, model) mesh after losing
+                      ranks: the data axis shrinks to the largest size the
+                      survivors support with model parallelism intact; the
+                      batch is rescaled checkpoint-consistently.
   run_with_recovery — the training loop: step, checkpoint, and on a failure
                       restore from the checkpoint manager and replay.
   StateSpoiled      — what a step raises when it failed after it began to
                       overwrite its state in place.
 
 ``MixedScheduler`` runs every model-executing work item under the first
-two. Not ported yet: ``ElasticMesh`` (it builds a ``jax.sharding.Mesh``)
-waits on the mesh (ROADMAP.md queue 1, item 7).
+two.
 """
 from __future__ import annotations
 
@@ -93,6 +96,69 @@ class StragglerMonitor:
             a = self.cfg.straggler_ewma
             self.mean = a * self.mean + (1 - a) * wall_s
         return is_straggler
+
+
+@dataclass
+class ElasticMesh:
+    """Elastic remeshing after losing ranks.
+
+    ``model_size`` is preserved (TP groups cannot shrink without resharding
+    weights); the data axis absorbs the loss. The global batch is rescaled
+    to keep the batch a rank constant, and the caller replays data from the
+    last checkpoint step so the sample order stays deterministic.
+    """
+
+    model_size: int
+    data_size: int
+    pod_size: int = 1
+
+    @property
+    def device_count(self) -> int:
+        return self.model_size * self.data_size * self.pod_size
+
+    def after_loss(self, surviving_devices: int) -> "ElasticMesh":
+        if surviving_devices >= self.device_count:
+            return self
+        per_pod = surviving_devices // max(self.pod_size, 1)
+        new_data = per_pod // self.model_size
+        # drop pods before starving the data axis entirely
+        pods = self.pod_size
+        while new_data < 1 and pods > 1:
+            pods -= 1
+            per_pod = surviving_devices // pods
+            new_data = per_pod // self.model_size
+        if new_data < 1:
+            raise RuntimeError(f"cannot rebuild mesh: {surviving_devices} devices < model_size {self.model_size}")
+        return ElasticMesh(self.model_size, new_data, pods)
+
+    def rescale_batch(self, global_batch: int, old: "ElasticMesh") -> int:
+        """Keep the batch a data rank fixed; round to a multiple of the new DP size."""
+        dp_old = old.data_size * old.pod_size
+        dp_new = self.data_size * self.pod_size
+        per_dp = global_batch // dp_old
+        return max(per_dp * dp_new, dp_new)
+
+    def make_mesh(self, devices=None, device_type: str = "cuda"):
+        """A ``DeviceMesh`` over the first ``device_count`` ranks of
+        ``devices`` (default: every rank of the world), (pod, data, model) or
+        (data, model). Every rank of the world takes part in building it: on
+        a mesh's controller (rank 0 while its workers serve) the workers are
+        brought in through ``sharding.dispatch.run_everywhere``."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import mesh_over
+        from repro_torch.sharding import dispatch
+
+        ranks = list(devices) if devices is not None else list(range(dist.get_world_size()))
+        n = self.device_count
+        if len(ranks) < n:
+            raise RuntimeError(f"mesh of {n} needs {n} ranks; {len(ranks)} given")
+        if self.pod_size > 1:
+            shape, names = (self.pod_size, self.data_size, self.model_size), ("pod", "data", "model")
+        else:
+            shape, names = (self.data_size, self.model_size), ("data", "model")
+        build = dispatch.run_everywhere if dispatch.active() else (lambda fn, *a: fn(*a))
+        return build(mesh_over, ranks[:n], shape, names, device_type)
 
 
 def run_with_recovery(

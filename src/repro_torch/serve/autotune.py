@@ -231,7 +231,7 @@ def autotune_engine(
     n = engine.n_samples
     expanded = list(requests) if n == 1 else [r for r in requests for _ in range(n)]
     plan = plan_buckets(expanded, seq_buckets=engine.seq_buckets, batch_buckets=engine.batch_buckets,
-                        max_batch=engine.max_batch, pad_id=engine.pad_id)
+                        max_batch=engine.max_batch, pad_id=engine.pad_id, batch_multiple=engine.dp)
     report = {"device": kind, "hw": hw.name, "buckets": {}}
     seen: set[tuple[int, int]] = set()
     for bb in plan:

@@ -34,12 +34,13 @@ from repro_torch.models.common import tree_map
 from repro_torch.models.registry import Model
 
 
-def make_prefill_step(cfg: ArchConfig, max_len: int) -> Callable:
-    """(params, batch) -> (last-position logits (B, 1, V), cache)."""
+def make_prefill_step(cfg: ArchConfig, max_len: int, *, kv_slots: int = 0) -> Callable:
+    """(params, batch) -> (last-position logits (B, 1, V), cache); the
+    cache holds ``kv_slots`` expanded KV heads (``lm.init_cache``)."""
     model = Model(cfg)
 
     def prefill_step(params: Any, batch: dict) -> tuple[torch.Tensor, dict]:
-        return model.prefill(params, batch, max_len)
+        return model.prefill(params, batch, max_len, kv_slots=kv_slots)
 
     return prefill_step
 
@@ -152,17 +153,19 @@ def make_decode_chunk(cfg: ArchConfig) -> Callable:
 @dataclass
 class ServeEngine:
     """Batched generation over a static cache (greedy or sampled), on the
-    card unless ``device`` says otherwise; ``params`` are moved there."""
+    card unless ``device`` says otherwise; ``params`` are moved there.
+    ``kv_slots``: the cache's TP-expanded KV head count (0: the config's)."""
 
     cfg: ArchConfig
     params: Any
     max_len: int
     device: Any = "cuda"
+    kv_slots: int = 0
 
     def __post_init__(self):
         self.device = torch.device(self.device)
         self.params = tree_map(lambda _, t: t.to(self.device), self.params)
-        self._prefill = make_prefill_step(self.cfg, self.max_len)
+        self._prefill = make_prefill_step(self.cfg, self.max_len, kv_slots=self.kv_slots)
         self._decode = make_decode_loop(self.cfg)
         self._decode_sampled = make_decode_loop(self.cfg, greedy=False)
 

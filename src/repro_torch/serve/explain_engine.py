@@ -44,24 +44,36 @@ request's own bytes); ``autotune`` loads per-bucket chunks tuned by
 recorded when it is built, so ``serve.warm_state`` can rebuild and replay
 the key set in a new process. ``BucketStats.bytes_accessed`` and
 ``peak_bytes`` of the gradient class come from ``roofline.hotpath_cost``
-on an LM. Not ported yet: the device mesh (ROADMAP.md queue 1, item 7);
-``_mesh_key`` is ``()``, as ``repro``'s without a mesh.
+on an LM.
+
+**The mesh** (``mesh=``, a ``DeviceMesh`` with dims ``("data", "model")``):
+every bucket is padded up to a multiple of the data-parallel extent
+(``dp_size``) at plan time and at each hop, every cache key carries the
+mesh's (axis, size) pairs (``mesh_cache_key``), and each stage-2 call runs
+data-parallel through ``sharding.dispatch``: this process (rank 0) plans,
+every rank computes its rows of the batch-leading arguments, rank 0 gathers
+them. δ and IDGI's inner products reduce over feature axes only, so the
+adaptive ladder takes the same decisions on any mesh. A bucket that reaches
+a call without a dp-divisible batch is served on rank 0 alone, with a
+warning, and counted in ``EngineStats.mesh_fallbacks``.
 """
 from __future__ import annotations
 
 import hashlib
 import time
+import warnings
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import methods as methods_mod, perturb
 from repro_torch.core.api import Explainer
 from repro_torch.core.baselines import pad_embedding
-from repro_torch.core.fingerprint import model_fingerprint
+from repro_torch.core.fingerprint import model_fingerprint, params_digest, reachable_tensors
 from repro_torch.core.ig import IGState
 from repro_torch.core.probes import map_tree, probe_cost
 from repro_torch.core.schedule import Schedule, family, m_ladder
@@ -82,6 +94,7 @@ from repro_torch.serve.batching import (
 )
 from repro_torch.serve.result_cache import ResultCache
 from repro_torch.serve.warm_state import arg_spec
+from repro_torch.sharding import DEFAULT_RULES, MeshRules, dispatch, dp_size, explain_arg_shardings, mesh_cache_key
 
 # draw(s_bucket, row indices, feature shape) -> (rows, *shape) standard normals
 NormalDraw = Callable[[int, Sequence[int], tuple], Any]
@@ -142,8 +155,8 @@ class AdaptiveStats:
 
 @dataclass
 class EngineStats:
-    """Cache counters, per-bucket latency, the scheduler's counters and the
-    result cache's (``repro``'s mesh counter waits on the mesh)."""
+    """Cache counters, per-bucket latency, the scheduler's counters, the
+    result cache's and the mesh's."""
 
     hits: int = 0  # callable-cache hits
     misses: int = 0  # callable-cache misses == builds
@@ -164,6 +177,9 @@ class EngineStats:
     result_misses: int = 0
     result_evictions: int = 0
     result_bytes: int = 0
+    # callables built for a bucket whose batch does not divide dp, served on
+    # rank 0 alone — plan-time padding makes this unreachable in serving
+    mesh_fallbacks: int = 0
 
     @property
     def hit_rate(self) -> float:
@@ -209,6 +225,10 @@ class ExplainEngine:
         result_cache: an int byte budget (``True``: 256 MiB) or a shared
             ``ResultCache``; None serves every request afresh.
         device: where the parameters live and the explanations run.
+        mesh / mesh_rules: a ``DeviceMesh`` (``launch.mesh.make_explain_mesh``)
+            and the rules of its data axes; stage 2 runs data-parallel over
+            the mesh's ranks (``sharding.dispatch``), whose workers run
+            ``serve_worker``. None: this process alone.
         draw / draw_masks: the random draws (``NormalDraw``, ``MaskDraw``);
             by default a row's draw comes from a CPU ``torch.Generator``
             seeded with ``perturb.request_seed(sample_seed, S, row index)``,
@@ -266,6 +286,8 @@ class ExplainEngine:
         hop_zero_min: int = 8,
         draw: Optional[NormalDraw] = None,
         draw_masks: Optional[MaskDraw] = None,
+        mesh: Any = None,
+        mesh_rules: MeshRules = DEFAULT_RULES,
         device="cuda",
     ):
         if attn not in ("auto", "flash"):
@@ -325,7 +347,21 @@ class ExplainEngine:
         # key -> its arguments' shapes and dtypes (``warm_state.arg_spec``),
         # what serve.warm_state replays the key set from
         self._arg_specs: dict[tuple, Any] = {}
-        self._mesh_key: tuple = ()  # repro's mesh_cache_key(None): no mesh yet
+        self.mesh = mesh
+        self.mesh_rules = mesh_rules
+        # every bucket batch is padded up to a multiple of this at plan time
+        self.dp = dp_size(mesh, mesh_rules)
+        # cache keys carry the mesh axis sizes: single-device and sharded
+        # entries coexist
+        self._mesh_key = mesh_cache_key(mesh)
+        # what a worker rank builds its own engine from (sharding.dispatch):
+        # every constructor argument that shapes a callable
+        self._recipe = dict(cfg=cfg, method=method, schedule=schedule, m=m, n_int=n_int, chunk=chunk,
+                            refine_rounds=refine_rounds, power=power, pad_id=pad_id, adaptive=adaptive,
+                            tol=tol, m_max=m_max, n_samples=n_samples, sigma=sigma, n_masks=n_masks,
+                            sample_seed=sample_seed, fused=fused, use_kernels=use_kernels, attn=attn)
+        if self.dp > 1:  # a worker serves only with the weights this process holds
+            self._recipe["params_digest"] = params_digest(self.params)
         self._model_fp: Optional[str] = None
         if isinstance(result_cache, ResultCache):
             self.result_cache: Optional[ResultCache] = result_cache
@@ -410,14 +446,14 @@ class ExplainEngine:
         """Keyed by accumulator CLASS, not method name: methods sharing an
         accumulator share the callables."""
         return (bucket, self._spec.accum, self.schedule, self.m, self.n_int,
-                self._cfg_for(bucket), self.fused, self.use_kernels, self.attn, with_fx)
+                self._cfg_for(bucket), self.fused, self.use_kernels, self.attn, self._mesh_key, with_fx)
 
     def _build(self, key: tuple) -> Callable:
         """The callable of one cache key, built from the key alone (so a
         restored key set rebuilds in a new process):
 
           * ``(bucket, accum, schedule, m, n_int, config, fused, use_kernels,
-            attn, with_fx)`` — the fixed-m unit at ``config``;
+            attn, mesh, with_fx)`` — the fixed-m unit at ``config``;
           * ``("start", bucket, accum, schedule, m0, n_int, chunk, ...)`` —
             adaptive rung 0 at rung m0;
           * ``("hop", (B', S), accum, n_new, chunk, ...)`` — one hop; it
@@ -461,12 +497,18 @@ class ExplainEngine:
     def _executable(self, key: tuple, bs: BucketStats, args: tuple) -> Callable:
         """The cached callable for ``key``; a miss builds it, records the
         arguments' spec and the key's cost, and charges the build to the
-        stats row ``bs``."""
+        stats row ``bs``. Under a mesh, a miss whose arguments do not divide
+        dp is counted in ``mesh_fallbacks`` and warned of: ``_timed_call``
+        serves it on this rank alone."""
         if key in self._cache:
             self.stats.hits += 1
             return self._cache[key]
         self.stats.misses += 1
         bs.compiles += 1
+        if self.dp > 1 and explain_arg_shardings(self.mesh, args, self.mesh_rules) is None:
+            self.stats.mesh_fallbacks += 1
+            warnings.warn(f"ExplainEngine: bucket batch {args[0].shape[0]} does not divide dp={self.dp}; "
+                          f"serving replicated (key={key[:2]})", stacklevel=3)
         t0 = time.perf_counter()
         self._cache[key] = self._build(key)
         self._arg_specs[key] = arg_spec(args)
@@ -496,7 +538,7 @@ class ExplainEngine:
                 continue
             new_key = ("start", bucket, self._spec.accum, self.schedule, m0, self.n_int,
                        self._explainer_for_m(m0).adaptive_chunk, self.fused, self.use_kernels,
-                       self.attn, with_fx)
+                       self.attn, self._mesh_key, with_fx)
             if new_key in self._cache:
                 continue
             self._cache[new_key] = self._build(new_key)
@@ -563,10 +605,16 @@ class ExplainEngine:
             st.result_hits, st.result_misses = rc.hits, rc.misses
             st.result_evictions, st.result_bytes = rc.evictions, rc.bytes
 
-    def _timed_call(self, bs: BucketStats, fn: Callable, args: tuple) -> Any:
-        """Run one cached callable, synchronised, and charge its wall time."""
+    def _timed_call(self, bs: BucketStats, key: tuple, fn: Callable, args: tuple) -> Any:
+        """Run one cached callable, synchronised, and charge its wall time;
+        under a mesh, data-parallel over its ranks (the rows' trip out and
+        back is part of the serving latency, so it stays inside the timer),
+        or on this rank alone where the arguments do not divide dp."""
         t0 = time.perf_counter()
-        out = fn(*args)
+        if self.dp > 1 and explain_arg_shardings(self.mesh, args, self.mesh_rules) is not None:
+            out = dispatch.call("engine", self._recipe, key, args, self.mesh, fn, self.mesh_rules)
+        else:
+            out = fn(*args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         bs.total_s += time.perf_counter() - t0
@@ -683,8 +731,8 @@ class ExplainEngine:
         args = self._bucket_inputs(bb)
         with_fx = bb.f_x is not None
         bs = self.stats.bucket(bb.bucket)
-        fn = self._executable(self._key(bb.bucket, with_fx=with_fx), bs, args)
-        res = self._timed_call(bs, fn, args)
+        key = self._key(bb.bucket, with_fx=with_fx)
+        res = self._timed_call(bs, key, self._executable(key, bs, args), args)
         bs.requests += len(bb.indices)
         return res
 
@@ -746,9 +794,8 @@ class ExplainEngine:
         args = self._fwd_bucket_inputs(bb)
         bs = self.stats.bucket(bb.bucket)
         key = ("fwd", bb.bucket, self._spec.accum, self.n_masks, self._fwd_chunk(),
-               self.use_kernels, self.attn)
-        fn = self._executable(key, bs, args)
-        res = self._timed_call(bs, fn, args)
+               self.use_kernels, self.attn, self._mesh_key)
+        res = self._timed_call(bs, key, self._executable(key, bs, args), args)
         bs.requests += len(bb.indices)
         return res
 
@@ -833,6 +880,7 @@ class ExplainEngine:
             batch_buckets=self.batch_buckets,
             max_batch=self.max_batch,
             pad_id=self.pad_id,
+            batch_multiple=self.dp,
         )
         out: list[Optional[dict]] = [None] * len(expanded)
         for bb in plan:
@@ -911,10 +959,9 @@ class AdaptiveBucketRun:
         with_fx = bb.f_x is not None
         args = eng._bucket_inputs(bb)
         key = ("start", bb.bucket, eng._spec.accum, eng.schedule, self.m0, eng.n_int,
-               self.chunk, eng.fused, eng.use_kernels, eng.attn, with_fx)
+               self.chunk, eng.fused, eng.use_kernels, eng.attn, eng._mesh_key, with_fx)
         bs = eng.stats.bucket(bb.bucket)
-        fn = eng._executable(key, bs, args)
-        res, state, sched = eng._timed_call(bs, fn, args)
+        res, state, sched = eng._timed_call(bs, key, eng._executable(key, bs, args), args)
         self._started = True
         bs.requests += len(bb.indices)
 
@@ -958,7 +1005,7 @@ class AdaptiveBucketRun:
         rung = eng.m_ladder[self._rung_i]
         n_new = rung // 2
         refined = family(eng.schedule).refine(Schedule(self.a_act, self.w_act))
-        rows, B2 = pad_rows(act, eng.batch_buckets)
+        rows, B2 = pad_rows(act, eng.batch_buckets, multiple=eng.dp)
         # schedule/state slot per padded row: act is a prefix of rows and
         # the pad slots repeat the last survivor
         r_t = self._rows(rows)
@@ -973,10 +1020,9 @@ class AdaptiveBucketRun:
             IGState(self.acc_act[s_t], self.f_x_t[r_t], self.f_b_t[r_t]),
         )
         hop_key = ("hop", hop_bucket, eng._spec.accum, n_new, self.chunk,
-                   eng.fused, eng.use_kernels, eng.attn)
+                   eng.fused, eng.use_kernels, eng.attn, eng._mesh_key)
         hbs = eng.stats.hop_bucket(hop_bucket)
-        fn = eng._executable(hop_key, hbs, hop_args)
-        res2, st2 = eng._timed_call(hbs, fn, hop_args)
+        res2, st2 = eng._timed_call(hbs, hop_key, eng._executable(hop_key, hbs, hop_args), hop_args)
         self._rung_i += 1  # only now: a hop that raised is retried at the same rung
         ast = eng.stats.adaptive
         ast.hop_calls += 1
@@ -1045,3 +1091,38 @@ class AdaptiveBucketRun:
             eng._record_m_used(bb.bucket[1], [r["m_used"] for r in out if not r["degraded"]])
         self._results = out
         return out
+
+
+def serve_worker(cfg: Any, params: Any, *, device="cuda", f: Optional[Callable] = None) -> int:
+    """A worker rank of a mesh (every rank but 0): serve rank 0's sharded
+    calls until it stops them, with engines built on this rank's own
+    ``params`` from each call's recipe (``sharding.dispatch.worker_loop``);
+    ``f`` serves ``Explainer.attribute_adaptive`` calls on ``f``. Each
+    engine or explainer it builds first holds this rank's weights
+    (``params_digest``; of ``f``, the tensors it reaches) to the digest of
+    rank 0's in the recipe, and raises, failing rank 0's call, where they
+    differ. Returns the number of calls served."""
+    params = tree_map(lambda _, t: t.to(device), params)
+    digests: dict[str, str] = {}
+
+    def check(recipe: dict, field: str, weights: Callable[[], Any]) -> None:
+        want = recipe.pop(field)
+        if field not in digests:
+            digests[field] = params_digest(weights())
+        if digests[field] != want:
+            raise ValueError(f"rank {dist.get_rank()} holds other weights than rank 0 ({field} "
+                             f"{digests[field][:16]} against {want[:16]}): every rank of a mesh must "
+                             "serve the same model")
+
+    def engine(recipe: dict) -> ExplainEngine:
+        check(recipe, "params_digest", lambda: params)
+        return ExplainEngine(recipe.pop("cfg"), params, device=device, **recipe)
+
+    def explainer(recipe: dict) -> Explainer:
+        check(recipe, "model_digest", lambda: reachable_tensors(f))
+        return Explainer(f, device=device, **recipe)
+
+    targets = {"engine": engine}
+    if f is not None:
+        targets["explainer"] = explainer
+    return dispatch.worker_loop(targets, torch.device(device))

@@ -50,8 +50,11 @@ and rate checks (no queue slot, no tenant budget), and a streamed
 position's hit never reaches the explain queue; every finished result is
 cached but a degraded one (``_cached_result``/``_cache_result``).
 
-Not ported yet: buckets are padded to no multiple of a data-parallel
-extent until the mesh (ROADMAP.md queue 1, item 7).
+**The mesh** — explain buckets are padded up to a multiple of the
+engine's data-parallel extent (``engine.dp``), as ``repro``'s are; the
+scheduler runs on rank 0 only, and the engine sends each stage-2 call's
+rows to the mesh's ranks. Generation groups run on rank 0 and are padded up
+the batch ladder alone, as in ``repro``.
 
 The dispatch loop is synchronous and cooperative: ``step()`` runs exactly
 one work item, so preemption happens between items.
@@ -445,6 +448,7 @@ class MixedScheduler:
             batch_buckets=self.engine.batch_buckets,
             max_batch=self.engine.max_batch,
             pad_id=self.engine.pad_id,
+            batch_multiple=self.engine.dp,
         )
         for bb in plan:
             reqmap = [pending[i] for i in bb.indices]

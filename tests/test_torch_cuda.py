@@ -854,6 +854,86 @@ def test_ssd_on_the_card_matches_the_cpu(cuda_gen, S):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()), rtol=0)
 
 
+_MESH_WORKER = """
+import sys
+from datetime import timedelta
+import torch, torch.distributed as dist
+from dataclasses import replace
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.launch.mesh import make_explain_mesh
+from repro_torch.models import lm
+from repro_torch.serve.explain_engine import serve_worker
+dist.init_process_group("gloo", store=dist.FileStore(sys.argv[1], 2), rank=1, world_size=2,
+                        timeout=timedelta(seconds=120))
+cfg = replace(reduced(ARCHS["llama3-8b"]), compute_dtype="float32", attn_impl="flash")
+params = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+make_explain_mesh(2, 1, device="cuda")
+serve_worker(cfg, params, device="cuda")
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(method="ig"), dict(method="ig", fused=True),
+                                dict(method="idgi", adaptive=True, tol=1e-3, m_max=32),
+                                dict(method="lime", n_masks=16)], ids=["ig", "ig-fused", "idgi-adaptive", "lime"])
+def test_mesh_on_the_card(nvcc_card, tmp_path, kw):
+    """The reduced LM (flash, f32) on a 1×1 NCCL mesh gives the bits of the
+    engine without one; on a (data=2, model=1) mesh of two gloo ranks
+    sharing the card, within 1e-4 of each request's largest |score| of it,
+    with equal adaptive traces, buckets of even B and no fallback."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.launch.distributed import init_distributed
+    from repro_torch.launch.mesh import make_explain_mesh
+    from repro_torch.serve import ExplainEngine, ExplainRequest
+    from repro_torch.sharding import dispatch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, p_card = _lm_cpu_and_card("flash")
+    rng = np.random.default_rng(0)
+    reqs = [ExplainRequest(rng.integers(1, 512, s).astype(np.int32), int(rng.integers(0, 512)))
+            for s in (9, 17, 24)]
+    kw = dict(kw, m=8, n_int=4, device="cuda")
+    want = ExplainEngine(cfg, p_card, **kw).explain(reqs)
+    os.environ.pop("WORLD_SIZE", None)
+    init_distributed("nccl")
+    try:
+        got = ExplainEngine(cfg, p_card, mesh=make_explain_mesh(1, 1, device="cuda"), **kw).explain(reqs)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    worker = subprocess.Popen([sys.executable, "-c", _MESH_WORKER, str(tmp_path / "store")], env=env)
+    try:
+        from datetime import timedelta
+
+        dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 2), rank=0, world_size=2,
+                                timeout=timedelta(seconds=120))
+        mesh = make_explain_mesh(2, 1, device="cuda")
+        common.reset_launches()
+        with dispatch.controller():
+            eng = ExplainEngine(cfg, p_card, mesh=mesh, **kw)
+            got = eng.explain(reqs)
+        dist.destroy_process_group()
+        assert worker.wait(timeout=60) == 0
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert dispatch.STATS.calls and common.LAUNCHES["flash_fwd"]
+    assert eng.stats.mesh_fallbacks == 0 and all(b[0] % 2 == 0 for b in eng.stats.buckets)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a["token_scores"], b["token_scores"], rtol=0,
+                                   atol=1e-4 * np.abs(b["token_scores"]).max())
+        if "m_used" in a:
+            assert (a["m_used"], a["hops"], a["converged"]) == (b["m_used"], b["hops"], b["converged"])
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
     the flash op and the solve op run on CPU tensors, no library is loaded,

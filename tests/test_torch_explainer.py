@@ -136,7 +136,7 @@ def test_adaptive_traces_match_jax(tol):
         np.testing.assert_array_equal(it[key], ij[key])
     for key in ("total_steps", "probe_forwards", "ladder", "chunk", "n_samples"):
         assert it[key] == ij[key], key
-    assert set(it) == set(ij) - {"compiles", "mesh_fallbacks"}
+    assert set(it) == set(ij) and it["mesh_fallbacks"] == ij["mesh_fallbacks"] == 0
     _assert_result_close(rt, tuple(np.asarray(a) for a in rj))
 
 

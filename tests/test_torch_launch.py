@@ -234,9 +234,12 @@ def test_cuda_without_a_card_exits_non_zero(main, monkeypatch):
 
 @pytest.mark.parametrize("mesh, code", [("2,1", 2), ("1,4", 2)])
 def test_mesh_is_one_card_only(mesh, code, capsys):
+    """A mesh of more than one device needs as many processes (torchrun):
+    a lone process exits 2 and says how to run it, before any group starts."""
     with pytest.raises(SystemExit) as e:
         explain.main(["--mesh", mesh, "--device", "cpu"])
-    assert e.value.code == code and "item 7" in capsys.readouterr().err
+    assert e.value.code == code and "torchrun --nproc-per-node" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
 
 
 def test_sizing_flags():
