@@ -266,6 +266,22 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      moves with the rows its process computes, mesh or not).
      Each child's wall, peak, and rank 0's send, wait and gather ms a
      stage-2 call; the slice's launches are every rank's.
+ 26. the dry run on the card (``dryrun_card_phase``, after the slices'
+     gates; it launches no kernel of the port) — the train phase's cell
+     (llama3-8b at full width, 8 layers, B=8, S=128, remat,
+     ``attn_impl="auto"``) and one decode step at B=16, 8 layers, against
+     4096 cache slots (bf16 weights), built by ``launch.cells`` on a 1×1
+     mesh and counted by ``count_cell`` once on ``meta`` and once on the
+     card. Gates: total and matrix-product FLOPs equal, argument bytes
+     equal (and equal to the card tensors'), every op's bytes equal but for
+     ``DRYRUN_OP_DIFFS``; printed: the predicted peak over
+     ``max_memory_allocated`` and one step's device time against the
+     roofline's ``step_time_s`` at ``HW_H100``;
+ 27. the dry run's command line — ``python -m repro_torch.launch.dryrun
+     --arch llama3-8b --shape decode_32k`` in a child on the CPU, started
+     before phase 26 (pod16x16: a fake process group of 256 ranks). Gates:
+     exit 0, ``status`` ok, collectives above 0 bytes, a per-chip peak
+     below 80 GB.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -4821,6 +4837,149 @@ def mesh_phase() -> dict:
     return {"launches": launches, "carry_ranks": carry, "per_path": per_path}
 
 
+# ---------------------------------------------------------------- the dry run
+
+DRYRUN_TRAIN = (8, 8, 128)  # llama3-8b at full width: layers, B, S (the train phase's cell), remat
+DRYRUN_DECODE = (8, 16, 4096)  # layers, B, cache slots of one decode step, bf16 weights
+DRYRUN_OP_DIFFS = ()  # ops whose bytes may part between the meta count and the card's
+DRYRUN_CLI = ["--arch", "llama3-8b", "--shape", "decode_32k"]
+DRYRUN_CLI_S = 300  # the command line's time limit
+HBM_BYTES = 80e9
+
+
+def _dryrun_cells() -> list:
+    """(name, config, shape, cell) of the card's two cells, on a 1×1 mesh."""
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.launch.cells import ShapeMesh, build_cell
+
+    layers, Bt, St = DRYRUN_TRAIN
+    train_cfg, train = replace(ARCHS["llama3-8b"], num_layers=layers), ShapeConfig("train", St, Bt, "train")
+    layers, Bd, Sd = DRYRUN_DECODE
+    decode_cfg, decode = replace(ARCHS["llama3-8b"], num_layers=layers), ShapeConfig("decode", Sd, Bd, "decode")
+    return [("train", train_cfg, train, build_cell(train_cfg, train, ShapeMesh(), microbatches=1)),
+            ("decode", decode_cfg, decode, build_cell(decode_cfg, decode, ShapeMesh()))]
+
+
+def _tensor_bytes(tree) -> int:
+    """The bytes of a tree's tensors, each storage once."""
+    from repro_torch.models.common import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        seen[t.untyped_storage()._cdata] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def dryrun_card_phase() -> None:
+    """The dry run's count held to the card: the train step on llama3-8b at
+    full width, 8 layers, B=8, S=128, remat, and one decode step at B=16, 8
+    layers, against a cache of 4096 slots (bf16 weights), each built as the
+    dry run builds its cells (``launch.cells``, ``attn_impl="auto"``) on a
+    1×1 mesh, counted once on ``meta`` and once on the card
+    (``count_cell`` on card tensors of the same shapes). Gates: total and
+    matrix-product FLOPs equal; argument bytes equal, and equal to the card
+    tensors' bytes; every op's bytes equal but for ``DRYRUN_OP_DIFFS``.
+    Printed: the predicted peak over ``torch.cuda.max_memory_allocated``,
+    and one step's device time (torch.profiler) against the roofline's
+    ``step_time_s`` at ``HW_H100``."""
+    from repro_torch.launch.cells import count_cell, materialize
+    from repro_torch.roofline import HW_H100, model_flops, roofline_report
+
+    for name, cfg, shape, cell in _dryrun_cells():
+        _free_card()
+        t0 = time.perf_counter()
+        meta = count_cell(cell)
+        meta_s = time.perf_counter() - t0
+        args = materialize(cell.args, cfg.vocab_size, torch.Generator(device=DEV).manual_seed(0), device=DEV)
+        held = _tensor_bytes(args)
+        _sync()
+        _reset_peak()
+        t0 = time.perf_counter()
+        card = count_cell(cell, args)
+        _sync()
+        card_s, peak = time.perf_counter() - t0, _peak_gb() * 1e9
+        rep = roofline_report(arch=cfg.name, shape=name, mesh_name="1x1", chips=1,
+                              cost={"flops": meta["flops"], "bytes accessed": meta["bytes accessed"]},
+                              coll_bytes_per_chip=0.0, mflops=model_flops(cfg, shape), hw=HW_H100,
+                              peak_bytes_per_chip=float(meta["peak_bytes"]))
+        what = f"dry run {name} ({cfg.num_layers} layers, B={shape.global_batch}, S={shape.seq_len})"
+        print(f"{what}: {meta['ops']} ops counted on meta in {meta_s:.1f} s and {card['ops']} on the card in "
+              f"{card_s:.1f} s; FLOPs {meta['flops']:.6g} (matrix products {meta['dots']['total_dot_flops']:.6g}, "
+              f"{meta['dots']['num_dots']}), card {card['flops']:.6g} ({card['dots']['total_dot_flops']:.6g}, "
+              f"{card['dots']['num_dots']}); op bytes {meta['bytes accessed']:.6g}, card {card['bytes accessed']:.6g}; "
+              f"argument bytes {meta['argument_bytes']}, card {card['argument_bytes']}, the card tensors {held}")
+        row = rep.row()
+        print(f"  roofline at HW_H100: compute {row['compute_s'] * 1e3:.3f} ms, memory {row['memory_s'] * 1e3:.3f} ms, "
+              f"dominant {row['dominant']}, model FLOPs {row['model_flops']:.6g}, useful ratio "
+              f"{row['useful_ratio']:.4f}; predicted peak {meta['peak_bytes'] / 1e9:.3f} GB over measured "
+              f"{peak / 1e9:.3f} GB: {meta['peak_bytes'] / peak:.4f}")
+        mine, theirs = ({r["op"]: r["bytes"] for r in c["bytes_by_op"]} for c in (meta, card))
+        apart = sorted(k for k in set(mine) | set(theirs) if mine.get(k) != theirs.get(k))
+        for k in apart:
+            print(f"  op bytes apart: {k}: meta {mine.get(k)}, card {theirs.get(k)}")
+        top = sorted(mine.items(), key=lambda kv: -kv[1])[:5]
+        print("  the most op bytes: " + "; ".join(f"{k} {v / 1e9:.3f} GB" for k, v in top))
+        cell.fn(*args)  # warm, outside the count
+        _sync()
+        wall_us, kernels = _trace(lambda: cell.fn(*args))
+        busy = sum(kernels.values()) / 1e6
+        print(f"  one step: wall {wall_us / 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms against step_time_s "
+              f"{rep.step_time_s * 1e3:.3f} ms: {rep.step_time_s / busy if busy else float('nan'):.4f} of its bound")
+        failed = []
+        if (meta["flops"], meta["dots"]["total_dot_flops"]) != (card["flops"], card["dots"]["total_dot_flops"]):
+            failed.append("FLOPs")
+        if not meta["argument_bytes"] == card["argument_bytes"] == held:
+            failed.append("argument bytes")
+        if [k for k in apart if not any(k.startswith(op) for op in DRYRUN_OP_DIFFS)]:
+            failed.append("op bytes")
+        if failed:
+            raise AssertionError(f"{what}: the meta count and the card's part in {failed}")
+        del args, card
+    _free_card()
+
+
+def dryrun_cli_start() -> tuple:
+    """Start ``python -m repro_torch.launch.dryrun`` on llama3-8b decode_32k
+    (pod16x16, the CPU only) in a child; returns (process, results path,
+    start time)."""
+    import os
+
+    out = ROOT / "build" / "dryrun_cli.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"] + DRYRUN_CLI + ["--out", str(out)]
+    print("dry run command line: " + " ".join(cmd[1:]))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_cli_finish(started: tuple) -> None:
+    """The command line's gates: exit 0, ``status`` ok, a collective total
+    above 0 and a per-chip peak below the card's 80 GB."""
+    proc, out, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_CLI_S - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("  | " + stdout.rstrip().replace("\n", "\n  | "))
+    if proc.returncode:
+        print(stderr[-4000:])
+        raise AssertionError(f"the dry run command line exited {proc.returncode}")
+    rec = json.loads(out.read_text())["llama3-8b:decode_32k"]
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run llama3-8b:decode_32k: {rec['status']} {rec.get('error')}")
+    coll, peak = rec["collectives"]["total"], rec["memory"]["peak_bytes"]
+    print(f"  the command line ended in {time.perf_counter() - t0:.1f} s: {rec['chips']} chips, FLOPs "
+          f"{rec['cost']['flops']:.6g} and op bytes {rec['cost']['bytes accessed']:.6g} a chip, collectives "
+          f"{coll} bytes ({', '.join(f'{k} {v}' for k, v in rec['collectives'].items() if v and k != 'total')}), "
+          f"peak {peak / 1e9:.3f} GB a chip, dominant {rec['roofline']['dominant']}")
+    if not (coll > 0 and peak < HBM_BYTES):
+        raise AssertionError(f"dry run llama3-8b:decode_32k: collectives {coll}, peak {peak}")
+
+
 def _setup() -> None:
     """The checkout's package on the path and the numerics every run of
     this script takes (the warm-state children too: their bits are held to
@@ -4947,6 +5106,11 @@ def main() -> int:
     for r in records:
         if not r["launches"]:
             raise AssertionError(f"kernel {r['name']} not launched on any slice: {r['launches_by_slice']}")
+    t0 = time.perf_counter()
+    cli = dryrun_cli_start()  # the CPU, beside the card's cells
+    dryrun_card_phase()
+    dryrun_cli_finish(cli)
+    print(f"dry-run phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,6 +8,8 @@ mamba2-780m (attention-free Mamba-2 SSD), jamba-v0.1-52b (Mamba, attention
 and MoE interleaved), whisper-tiny (an encoder-decoder over stub audio
 frames) and internvl2-26b (stub vision patches prepended to an
 internlm2-style backbone). ``get_config`` resolves a name among them.
+``LM_SHAPES`` are the dry run's four input shapes; ``shape_applicable``
+says which of them an architecture runs.
 """
 from repro_torch.configs import (
     gemma3_27b,
@@ -21,7 +23,8 @@ from repro_torch.configs import (
     whisper_tiny,
     yi_9b,
 )
-from repro_torch.configs.base import ArchConfig, LayerSpec, reduced
+from repro_torch.configs.base import (DECODE_32K, LM_SHAPES, LONG_500K, PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
+                                     ArchConfig, LayerSpec, ShapeConfig, reduced, shape_applicable)
 
 ARCHS: dict[str, ArchConfig] = {
     c.name: c
@@ -47,4 +50,5 @@ def get_config(name: str) -> ArchConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
 
 
-__all__ = ["ARCHS", "ArchConfig", "LayerSpec", "get_config", "reduced"]
+__all__ = ["ARCHS", "ArchConfig", "DECODE_32K", "LM_SHAPES", "LONG_500K", "LayerSpec", "PREFILL_32K",
+           "SHAPES_BY_NAME", "ShapeConfig", "TRAIN_4K", "get_config", "reduced", "shape_applicable"]

@@ -2,8 +2,8 @@
 
 ``LayerSpec``, ``ArchConfig`` and ``reduced`` are copies of ``repro``'s, field
 for field, so ``dataclasses.asdict`` of a config is the same in both
-packages. The dry-run's ``ShapeConfig`` cells are not copied: they describe
-XLA lowerings, which have no PyTorch meaning. ``attn_block_q``/
+packages, and so are the dry run's ``ShapeConfig`` cells (``LM_SHAPES``)
+and ``shape_applicable``. ``attn_block_q``/
 ``attn_block_k`` are TPU tile sizes, which the CUDA flash kernels accept and
 do not use.
 """
@@ -154,6 +154,40 @@ class ArchConfig:
         inactive = sum((self.num_experts - self.experts_per_tok) * 3 * self.d_model * eff
                        for s in self.layer_specs if s.ffn == "moe")
         return self.param_count() - inactive
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what the dry run counts."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+LM_SHAPES: tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in LM_SHAPES}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """(runs?, reason).
+
+    ``long_500k`` needs sub-quadratic attention: it runs for SSM / hybrid
+    archs and for predominantly-local archs (gemma3 5:1); it is skipped for
+    pure full-attention archs.
+    """
+    if shape.name == "long_500k":
+        mostly_local = any(s.mixer in ("mamba", "local") for s in cfg.pattern)
+        if cfg.family in ("ssm", "hybrid") or mostly_local:
+            return True, ""
+        return False, "skipped: pure full-attention arch (quadratic at 524k)"
+    return True, ""
 
 
 def reduced(cfg: ArchConfig, *, seq: int = 64) -> ArchConfig:

@@ -15,8 +15,11 @@ tokens and above that attends each w-block to itself and the block before
 it. ``decode_attention`` takes one query token against the static decode
 cache, or with ``ring`` against a local layer's ring of w slots (slot =
 position mod w). ``repro`` computes all but the flash op outside any
-Pallas kernel, so they are plain PyTorch here, on the card too; the
-costing-mode branch has no PyTorch meaning.
+Pallas kernel, so they are plain PyTorch here, on the card too.
+``repro``'s costing-mode branch (which unrolls scans for XLA's cost
+analysis) has no counterpart: the port's loops are Python loops, which the
+dry run counts op by op. ``qkv`` pins the heads to the tensor-parallel
+axis (``sharding.context.constrain``; a no-op off the dry run's meshes).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import ParamDef
+from repro_torch.sharding.context import constrain, per_head
 
 NEG_INF = -1e30
 BLOCK_THRESHOLD = 4096  # longer unmasked sequences take blocked_attention, as in repro
@@ -46,20 +50,29 @@ def attn_def(cfg, *, cross: bool = False) -> dict:
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) · (d, H, D) -> (B, S, H, D), one matrix product."""
+    """(B, S, d) · (d, H, D) -> (B, S, H, D), one matrix product. Its
+    flat (H·D) output is pinned whole heads to a rank before it is split
+    (``constrain`` by the head count; DTensor cannot unflatten a head
+    divided across ranks, where XLA's reshape relayouts)."""
     d, H, D = w.shape
-    return (x @ w.reshape(d, H * D)).unflatten(-1, (H, D))
+    y = constrain(x @ w.reshape(d, H * D), "batch", "seq", "model", sizes=(*x.shape[:-1], H))
+    return y.unflatten(-1, (H, D))
 
 
 def qkv(p: dict, x: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B, S, NQ, D), k and v (B, S, NKV, D) in ``dtype``."""
-    return tuple(_project(x, p[n].to(dtype)) for n in ("wq", "wk", "wv"))
+    """q (B, S, NQ, D), k and v (B, S, NKV, D) in ``dtype``, heads pinned
+    to the tensor-parallel axis (KV heads replicated when indivisible)."""
+    q, k, v = (_project(x, p[n].to(dtype)) for n in ("wq", "wk", "wv"))
+    q = constrain(q, "batch", "seq", "model", None)
+    k = constrain(k, "batch", "seq", "model", None)
+    v = constrain(v, "batch", "seq", "model", None)
+    return q, k, v
 
 
 def out_proj(p: dict, o: torch.Tensor, dtype) -> torch.Tensor:
     """(B, S, NQ, D) -> (B, S, d)."""
     H, D, d = p["wo"].shape
-    return o.flatten(-2) @ p["wo"].to(dtype).reshape(H * D, d)
+    return constrain(o.flatten(-2) @ p["wo"].to(dtype).reshape(H * D, d), "batch", "seq", None)
 
 
 def expand_kv(k: torch.Tensor, target_heads: int) -> torch.Tensor:
@@ -228,12 +241,15 @@ def dispatch_attention(
     in ``repro``: right padding is exact for the real rows under the causal
     mask), the flash op when ``cfg.attn_impl == "flash"``,
     ``blocked_attention`` above ``BLOCK_THRESHOLD`` tokens with no
-    ``kv_len``, else ``full_attention``."""
+    ``kv_len``, else ``full_attention``; on the dry run's DTensors each
+    rank attends with its own rows and heads (``sharding.context.per_head``)."""
     if mixer == "local" and getattr(cfg, "sliding_window", 0):
-        return local_attention(q, k, v, window=cfg.sliding_window)
-    if getattr(cfg, "attn_impl", "auto") == "flash":
-        return flash_attention(q, k, v, causal=causal, lengths=kv_len,
-                               block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-    if q.shape[1] > BLOCK_THRESHOLD and kv_len is None:
-        return blocked_attention(q, k, v, causal=causal)
-    return full_attention(q, k, v, causal=causal, kv_len=kv_len)
+        fn = lambda q, k, v: local_attention(q, k, v, window=cfg.sliding_window)
+    elif getattr(cfg, "attn_impl", "auto") == "flash":
+        fn = lambda q, k, v: flash_attention(q, k, v, causal=causal, lengths=kv_len,
+                                             block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    elif q.shape[1] > BLOCK_THRESHOLD and kv_len is None:
+        fn = lambda q, k, v: blocked_attention(q, k, v, causal=causal)
+    else:
+        fn = lambda q, k, v: full_attention(q, k, v, causal=causal, kv_len=kv_len)
+    return per_head(fn, q, k, v)

@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn, moe as moe_mod, ssm
 from repro_torch.models.layers import mlp, mlp_def, rmsnorm, rmsnorm_def, rope
+from repro_torch.sharding.context import gathered, per_head
 
 
 def _check(spec: LayerSpec) -> None:
@@ -112,6 +113,7 @@ def apply_layer_with_aux(
     layer's f32 auxiliary loss, or None for a layer without one), as
     ``repro``'s ``apply_layer`` returns (x, aux)."""
     _check(spec)
+    p = gathered(p)
     if spec.mixer == "mamba":
         x = x + ssm.ssm_forward(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cfg, cfg.norm_eps)
     else:
@@ -170,6 +172,7 @@ def apply_layer_prefill(
     conv tail; a cross-attention writes the keys and values of ``enc_out``
     into ``xk``/``xv``. Returns (x, cache)."""
     _check(spec)
+    p = gathered(p)
     if spec.mixer == "mamba":
         y, st = ssm.ssm_forward_with_state(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cfg,
                                            cfg.norm_eps)
@@ -255,6 +258,7 @@ def apply_layer_decode(
     mamba layer advances its state and conv tail in place; a
     cross-attention reads the prefill's ``xk``/``xv``."""
     _check(spec)
+    p = gathered(p)
     if spec.mixer == "mamba":
         y, cache = ssm.ssm_decode_step(p["mixer"], rmsnorm(p["norm1"], x, cfg.norm_eps), cache, cfg,
                                        cfg.norm_eps)
@@ -265,7 +269,8 @@ def apply_layer_decode(
         slot = _slot(spec, cache, pos)
         cache["k"][:, slot] = _to_slots(k, cache)[:, 0]
         cache["v"][:, slot] = _to_slots(v, cache)[:, 0]
-        o = attn.decode_attention(q, cache["k"], cache["v"], pos + 1, ring=spec.mixer == "local")
+        o = per_head(lambda q, k, v: attn.decode_attention(q, k, v, pos + 1, ring=spec.mixer == "local"),
+                     q, cache["k"], cache["v"])
         x = x + attn.out_proj(p["mixer"], o, x.dtype)
     kv = (cache["xk"], cache["xv"]) if "xk" in cache else None
     return _ffn(cfg, spec, p, _cross(cfg, p, x, kv)), cache

@@ -7,8 +7,8 @@ fan-in is the product of every axis but the last — so a stacked weight's
 leading ``layers`` axis counts, and ``wq`` (d, H, D) has fan-in d·H; an
 ``embed`` tensor is a unit normal (times ``scale``); ``zeros``/``ones`` are
 constant. Each definition carries ``repro``'s logical axis names, which
-``sharding.param_specs`` maps onto a mesh; ``repro``'s abstract
-(shape-only) trees are not copied.
+``sharding.param_specs`` maps onto a mesh; ``abstract_params`` makes the
+shape-only tree of the dry run (``meta`` tensors, nothing allocated).
 ``tree_leaves_with_path``, ``tree_leaves`` and ``tree_unflatten`` walk a
 tree in ``jax.tree_util``'s order, as the optimizer, the checkpoints and
 the fingerprints do.
@@ -119,6 +119,13 @@ def init_params(defs: Any, generator: torch.Generator, *, dtype: torch.dtype = t
         return w.mul_(std).to(device=device, dtype=dtype)
 
     return tree_map(draw, defs)
+
+
+def abstract_params(defs: Any, *, dtype: torch.dtype = torch.float32) -> Any:
+    """The tree of ``meta`` tensors of a ``ParamDef`` tree (``repro``'s
+    ``ShapeDtypeStruct`` tree): each definition's shape in ``dtype``, no
+    storage allocated — what the dry run counts with."""
+    return tree_map(lambda _, d: torch.empty(d.shape, dtype=dtype, device="meta"), defs)
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

@@ -4,9 +4,9 @@ softmax cross-entropy of the training loss.
 
 Parameters keep ``repro``'s layouts (``mlp`` weights (d, f) and (f, d) for
 ``x @ w``, ``embedding`` (V, d), ``unembed`` (d, V), ``frontend_proj``
-(frontend_dim, d)). ``repro`` pins the MLP hidden to its tensor-parallel
-axis with ``sharding.context.constrain``; on one card that has no meaning
-and is dropped.
+(frontend_dim, d)). As in ``repro``, the MLP hidden and the loss's logits
+stay on the tensor-parallel axis (``sharding.context.constrain``, which the
+dry run's sharded cells act on and which leaves a plain tensor as it is).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ParamDef
+from repro_torch.sharding.context import constrain, gathered
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -49,7 +50,8 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: (silu(x W_gate) ∘ x W_up) W_o."""
     dt = x.dtype
     h = F.silu(x @ p["wi_gate"].to(dt)) * (x @ p["wi_up"].to(dt))
-    return h @ p["wo"].to(dt)
+    h = constrain(h, "batch", "seq", "model")  # keep hidden TP-sharded
+    return constrain(h @ p["wo"].to(dt), "batch", "seq", None)  # the partial sums over the hidden, reduced
 
 
 def embed_def(cfg) -> dict:
@@ -75,15 +77,15 @@ def embed(p: dict, tokens: torch.Tensor, cfg, dtype: torch.dtype) -> torch.Tenso
 def project_frontend(p: dict, feats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Stub frontend features (…, frontend_dim) — audio frames or vision
     patches — -> embeddings (…, d) in ``dtype``."""
-    return feats.to(dtype) @ p["frontend_proj"].to(dtype)
+    return feats.to(dtype) @ gathered(p["frontend_proj"]).to(dtype)
 
 
 def unembed(p: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     """(…, d) -> (…, V) logits in h.dtype, through the tied embedding or
     the unembedding."""
     if cfg.tie_embeddings:
-        return h @ p["embedding"].to(h.dtype).T
-    return h @ p["unembed"].to(h.dtype)
+        return h @ gathered(p["embedding"]).to(h.dtype).T
+    return h @ gathered(p["unembed"]).to(h.dtype)
 
 
 def softmax_xent_chunked(p_embed: dict, h: torch.Tensor, labels: torch.Tensor, cfg,
@@ -92,15 +94,18 @@ def softmax_xent_chunked(p_embed: dict, h: torch.Tensor, labels: torch.Tensor, c
     ``labels`` (B, S) without the whole (B, S, V) logits: chunks of
     ``chunk`` positions, then the remainder, as in ``repro``, each chunk's
     f32 logits recomputed in the backward (``torch.utils.checkpoint``), so
-    none outlives its chunk. Returns the f32 () mean over B·S."""
+    none outlives its chunk. Returns the f32 () mean over B·S. A chunk's
+    sum is ``F.cross_entropy``'s (``repro``'s logsumexp less the gold logit,
+    within rounding), which DTensor computes vocab-parallel under
+    ``loss_parallel`` (the dry run's sharded cells)."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     n = S // chunk
 
     def part(hc: torch.Tensor, lc: torch.Tensor) -> torch.Tensor:
         logits = unembed(p_embed, hc, cfg).float()  # (B, c, V)
-        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
-        return torch.sum(torch.logsumexp(logits, dim=-1) - gold)
+        logits = constrain(logits, "batch", None, "model")  # vocab stays TP
+        return F.cross_entropy(logits.flatten(0, 1), lc.flatten().long(), reduction="sum")
 
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)] + ([(n * chunk, S)] if S % chunk else [])
     total = torch.zeros((), dtype=torch.float32, device=h.device)

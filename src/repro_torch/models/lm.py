@@ -15,7 +15,8 @@ decoder layer its ``norm_x`` and ``cross``; a stub frontend adds
 ``repro``'s ``lax.scan``, so ``params_from_numpy`` (``models.common``)
 maps ``repro``'s tree as it is.
 
-Entry points: ``param_defs`` / ``init_params`` (parameters),
+Entry points: ``param_defs`` / ``init_params`` / ``abstract_params``
+(parameters; the last as ``meta`` tensors for the dry run),
 ``embed_inputs`` / ``hidden_from_embeds`` (the embedding-space hooks IG
 differentiates through), ``encode`` (the encoder over stub frames),
 ``forward_hidden`` (the backbone over a batch with its frontend),
@@ -36,6 +37,11 @@ port's counterpart of ``repro``'s donated cache: no step copies the cache,
 and a cache passed to ``decode_step`` is the one it returns. ``len`` is a
 () int32 tensor on the CPU: the host drives the loop and indexes the cache
 with it, so reading it waits for no device work.
+
+As in ``repro``, the embeddings and the residual stream after each layer of
+a period stay batch- (or sequence-) sharded and replicated over the
+tensor-parallel axis (``sharding.context.constrain``, which acts on the dry
+run's sharded cells only).
 """
 from __future__ import annotations
 
@@ -48,9 +54,10 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import blocks
 # params_from_numpy is re-exported: the bridge that carries repro's weights across
 from repro_torch.models.common import init_params as init_tree, params_from_numpy  # noqa: F401
-from repro_torch.models.common import stack_defs, tree_map
+from repro_torch.models.common import abstract_params as abstract_tree, stack_defs, tree_map
 from repro_torch.models.layers import (embed, embed_def, project_frontend, rmsnorm, rmsnorm_def,
                                        softmax_xent_chunked, unembed)
+from repro_torch.sharding.context import constrain
 
 ENC_SPEC = LayerSpec("attn", "dense")  # every encoder layer
 
@@ -90,6 +97,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device="cuda") -> d
                      device=device)
 
 
+def abstract_params(cfg: ArchConfig) -> dict:
+    """``param_defs``' tree of ``meta`` tensors in ``cfg.param_dtype``: the
+    dry run's parameters."""
+    return abstract_tree(param_defs(cfg), dtype=getattr(torch, cfg.param_dtype))
+
+
 def embed_inputs(cfg: ArchConfig, params: Any, batch: dict) -> torch.Tensor:
     """Token (+ stub frontend) inputs -> backbone embeddings (B, S, d) in the
     compute dtype. A vision config prepends the projected patches of
@@ -99,7 +112,13 @@ def embed_inputs(cfg: ArchConfig, params: Any, batch: dict) -> torch.Tensor:
     e = embed(params["embed"], batch["tokens"], cfg, dt)
     if cfg.frontend == "vision" and "frontend" in batch:
         e = torch.cat([project_frontend(params["embed"], batch["frontend"], dt), e], dim=1)
-    return e
+    return constrain(e, "batch", "seq", None)
+
+
+def _residual(cfg: ArchConfig, i: int, x: torch.Tensor) -> torch.Tensor:
+    """``repro``'s pin of the residual stream after layer ``i`` when it is a
+    period's layer (not a remainder layer's)."""
+    return constrain(x, "batch", "seq", None) if i < cfg.num_periods * len(cfg.pattern) else x
 
 
 def encode(cfg: ArchConfig, params: Any, frontend: torch.Tensor) -> torch.Tensor:
@@ -130,8 +149,9 @@ def hidden_from_embeds(
     without it they skip their cross-attention, as in ``repro``."""
     pos = torch.arange(e.shape[1], device=e.device).expand(e.shape[:2])
     x = e
-    for spec, lp in _per_layer(cfg, params):
-        x = blocks.apply_layer(cfg, spec, lp, x, positions=pos, enc_out=enc_out, kv_len=lengths)
+    for i, (spec, lp) in enumerate(_per_layer(cfg, params)):
+        x = _residual(cfg, i, blocks.apply_layer(cfg, spec, lp, x, positions=pos, enc_out=enc_out,
+                                                 kv_len=lengths))
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -185,6 +205,7 @@ def forward_hidden_train(cfg: ArchConfig, params: Any, batch: dict, *, remat: bo
         aux = zero()
         for spec, lp in zip(cfg.pattern, lps):
             x, aux = layer(spec, lp, x, aux)
+            x = constrain(x, "batch", "seq", None)  # residual stays DP/SP
         return x, aux
 
     x, auxs = e, []
@@ -241,10 +262,11 @@ def _layers(cfg: ArchConfig, params: Any, cache: dict):
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int, *, kv_slots: int = 0
-            ) -> tuple[torch.Tensor, dict]:
+def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int, *, kv_slots: int = 0,
+            cache: Optional[dict] = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt, fill a new cache (of ``kv_slots`` expanded KV heads,
-    see ``init_cache``), return the last position's logits (B, 1, V). The sequence counts a vision config's prepended patches; an
+    see ``init_cache``; or ``cache``, an empty one the caller made, as the
+    dry run's sharded cells do), return the last position's logits (B, 1, V). The sequence counts a vision config's prepended patches; an
     encoder-decoder encodes ``batch["frontend"]`` first and caches each
     decoder layer's cross keys and values of it. Raises ``ValueError`` when
     the sequence is longer than the cache (``repro`` asserts it) or the
@@ -257,10 +279,12 @@ def prefill(cfg: ArchConfig, params: Any, batch: dict, max_len: int, *, kv_slots
     if S > max_len:
         raise ValueError(f"prefill length {S} exceeds cache max_len {max_len}")
     pos = torch.arange(S, device=e.device).expand(B, S)
-    cache = init_cache(cfg, B, max_len, device=e.device, kv_slots=kv_slots)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, device=e.device, kv_slots=kv_slots)
     x = e
-    for spec, lp, lc in _layers(cfg, params, cache):
+    for i, (spec, lp, lc) in enumerate(_layers(cfg, params, cache)):
         x, _ = blocks.apply_layer_prefill(cfg, spec, lp, x, lc, positions=pos, enc_out=enc_out)
+        x = _residual(cfg, i, x)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["len"] = torch.tensor(S, dtype=torch.int32)
     return logits(cfg, params, x[:, -1:]), cache
@@ -279,8 +303,9 @@ def decode_step(cfg: ArchConfig, params: Any, cache: dict, token: torch.Tensor
     if cap is not None and pos >= cap:
         raise ValueError(f"decode at position {pos}: the cache holds {cap} tokens")
     x = embed(params["embed"], token, cfg, getattr(torch, cfg.compute_dtype))
-    for spec, lp, lc in _layers(cfg, params, cache):
+    for i, (spec, lp, lc) in enumerate(_layers(cfg, params, cache)):
         x, _ = blocks.apply_layer_decode(cfg, spec, lp, x, lc, pos)
+        x = _residual(cfg, i, x)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_cache = {"layers": cache["layers"], "rem": cache["rem"],
                  "len": torch.tensor(pos + 1, dtype=torch.int32)}

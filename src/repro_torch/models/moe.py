@@ -16,9 +16,10 @@ starts[e] + c, a token's k choices read their slots back, and each
 backward gathers the cotangents the same way and sums a token's k of them
 in a fixed order (``_gather_rows``). Two calls on the same inputs give the
 same bits, forward and gradient. The expert products are ``torch.bmm`` over
-the expert axis, with ``repro``'s casts to the compute dtype. ``repro``
-pins the buffer to its expert-parallel mesh axis; on one card that has no
-meaning and is dropped.
+the expert axis, with ``repro``'s casts to the compute dtype. As in
+``repro``, the buffer and the experts' outputs are pinned to the
+expert-parallel axis (``sharding.context.constrain``; a no-op off the dry
+run's meshes).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamDef
+from repro_torch.sharding.context import constrain
 
 
 def moe_def(cfg: ArchConfig) -> dict:
@@ -124,12 +126,13 @@ def moe(p: dict, x: torch.Tensor, cfg: ArchConfig) -> tuple[torch.Tensor, torch.
 
     # dispatch: slot (e, c) holds its token; a token's k slots carry its gradient back
     buf = _gather_rows(xt, r.slot_token, r.filled, r.slot, r.keep).view(E, r.C, d)
+    buf = constrain(buf, "model", None, None)  # EP: experts stay sharded
     g = torch.bmm(buf, p["wi_gate"].to(dt))
     u = torch.bmm(buf, p["wi_up"].to(dt))
-    out = torch.bmm(F.silu(g) * u, p["wo"].to(dt)).view(E * r.C, d)
+    out = constrain(torch.bmm(F.silu(g) * u, p["wo"].to(dt)), "model", None, None).view(E * r.C, d)
 
     # combine: each choice reads its slot back; each slot's one choice carries it
     gathered = _gather_rows(out, r.slot.reshape(-1), r.keep.reshape(-1),
                             r.slot_choice[:, None], r.filled[:, None]).view(T, k, d)
     y = (gathered * r.gate.to(dt)[..., None]).sum(1)
-    return y.view(B, S, d), aux
+    return constrain(y.view(B, S, d), "batch", "seq", None), aux

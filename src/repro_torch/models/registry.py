@@ -11,8 +11,8 @@ tail, cross-attention keys and values), and ``forward_hidden``, the
 backbone over a batch with its stub frontend (``frontend``: whisper's
 frames, internvl2's patches). The target functions explain the token
 stream only, as in ``repro``: no encoder output, no patches. ``loss`` is
-the training loss (``lm.loss``). ``repro``'s dry-run input specs are not
-ported here.
+the training loss (``lm.loss``). ``input_specs`` gives the dry run's
+inputs of a (config, shape) cell as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import lm, vit
 
 
@@ -37,6 +37,9 @@ class Model:
     def init(self, generator: torch.Generator, device="cuda") -> dict:
         return lm.init_params(self.cfg, generator, device=device)
 
+    def abstract_params(self) -> dict:
+        return lm.abstract_params(self.cfg)
+
     def embed_inputs(self, params, batch: dict) -> torch.Tensor:
         return lm.embed_inputs(self.cfg, params, batch)
 
@@ -52,8 +55,8 @@ class Model:
     def loss(self, params, batch: dict, *, remat: bool = False) -> torch.Tensor:
         return lm.loss(self.cfg, params, batch, remat=remat)
 
-    def prefill(self, params, batch: dict, max_len: int, *, kv_slots: int = 0):
-        return lm.prefill(self.cfg, params, batch, max_len, kv_slots=kv_slots)
+    def prefill(self, params, batch: dict, max_len: int, *, kv_slots: int = 0, cache=None):
+        return lm.prefill(self.cfg, params, batch, max_len, kv_slots=kv_slots, cache=cache)
 
     def decode_step(self, params, cache: dict, token: torch.Tensor):
         return lm.decode_step(self.cfg, params, cache, token)
@@ -122,3 +125,32 @@ def model_for(cfg: Any):
     if getattr(cfg, "patch_size", 0):
         return VitFacade(cfg)
     raise TypeError(f"no model facade for config type {type(cfg).__name__}")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, kv_slots: int = 0) -> dict:
+    """The inputs of the step the dry run counts for one cell, as ``meta``
+    tensors (``repro``'s ``ShapeDtypeStruct`` stand-ins): a train batch
+    (``tokens``, ``labels``, and a frontend's ``frontend`` features), a
+    prefill batch, or a decode step's ``token`` (B, 1) and its cache of
+    ``seq_len`` slots (``lm.init_cache`` on ``meta``, with ``kv_slots``
+    expanded KV heads; an encoder-decoder's holds its cross-attention's
+    ``xk``/``xv``; its ``len`` is the CPU scalar the host reads)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, cdt = torch.int32, getattr(torch, cfg.compute_dtype)
+    sds = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+
+    def frontend_spec():
+        if cfg.frontend == "audio":
+            return sds((B, cfg.encoder_seq, cfg.frontend_dim), cdt)
+        return sds((B, cfg.frontend_tokens, cfg.frontend_dim or cfg.d_model), cdt)
+
+    s_text = S - cfg.frontend_tokens if cfg.frontend == "vision" else S
+    if shape.kind == "train":
+        batch = {"tokens": sds((B, s_text), i32), "labels": sds((B, s_text), i32)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": sds((B, s_text), i32)}
+    else:  # decode: one new token against a cache of seq_len
+        return {"token": sds((B, 1), i32), "cache": lm.init_cache(cfg, B, S, device="meta", kv_slots=kv_slots)}
+    if cfg.frontend:
+        batch["frontend"] = frontend_spec()
+    return batch

@@ -25,8 +25,8 @@ Differences in form, none in the function:
     (Hillis–Steele) scan of ceil(log2 nc) tensor steps in place of
     ``lax.associative_scan``: the same recurrence, summed in another order;
     with one chunk no state enters, and its term is not formed.
-``repro`` pins the heads to its mesh axis; on one card that has no meaning
-and is dropped.
+As in ``repro``, the heads of x are pinned to the tensor-parallel axis
+(``sharding.context.constrain``; a no-op off the dry run's meshes).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import ParamDef
+from repro_torch.sharding.context import constrain
 
 
 def ssm_def(cfg: ArchConfig) -> dict:
@@ -119,7 +120,7 @@ def _ssd(p: dict, u: torch.Tensor, cfg: ArchConfig, eps: float, return_state: bo
     di = cfg.d_inner
     x, Bm, Cm = F.silu(_causal_conv(raw_xbc, _conv_weight(p, cdt))).split([di, G * N, G * N], dim=-1)
 
-    xh = x.reshape(Bb, S, H, P)
+    xh = constrain(x.reshape(Bb, S, H, P), "batch", "seq", "model", None)
     A = -torch.exp(p["A_log"].float())  # (H,)
     dt = F.softplus(dt.float() + p["dt_bias"].float())  # (B, S, H)
 
@@ -156,7 +157,7 @@ def _ssd(p: dict, u: torch.Tensor, cfg: ArchConfig, eps: float, return_state: bo
     y = y.to(cdt).permute(1, 0, 3, 2, 4).reshape(Bb, S, H, P)
     y = y + xh * p["D"].to(cdt)[None, None, :, None]
     y = _gated_norm(p["norm"], y.reshape(Bb, S, H * P), z, eps)
-    out = y @ p["out"].to(y.dtype)
+    out = constrain(y @ p["out"].to(y.dtype), "batch", "seq", None)  # the partial sums over heads, reduced
     if not return_state:
         return out
     W = cfg.ssm_conv
@@ -214,7 +215,7 @@ def ssm_decode_step(p: dict, u: torch.Tensor, cache: dict, cfg: ArchConfig, eps:
     y = (state @ Ch[..., None])[..., 0]  # (B, H, P)
     y = y + xh * p["D"].float()[None, :, None]
     y = _gated_norm(p["norm"], y.reshape(Bb, 1, H * P).to(u.dtype), z, eps)
-    out = y @ p["out"].to(y.dtype)
+    out = constrain(y @ p["out"].to(y.dtype), "batch", "seq", None)  # the partial sums over heads, reduced
     cache["state"].copy_(state)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

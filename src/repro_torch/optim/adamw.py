@@ -76,7 +76,7 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
 def adamw_init(params: Any) -> OptState:
     """Zero f32 moments shaped like ``params`` and a () int32 step 0 on
     the device of the first leaf."""
-    zeros = lambda _, p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda _, p: torch.zeros_like(p, dtype=torch.float32)
     device = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     m=tree_map(zeros, params), v=tree_map(zeros, params))

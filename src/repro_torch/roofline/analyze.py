@@ -1,4 +1,5 @@
-"""Hardware models and the stage-2 cost model: ``repro.roofline.analyze``.
+"""Hardware models, the stage-2 cost model and the dry run's roofline
+report: ``repro.roofline.analyze``.
 
 ``Hardware``, the ``HW_*`` rows, ``hardware_for`` and ``hotpath_terms`` are
 ``repro``'s, plus ``HW_H100``, matched by ``"h100"`` ahead of the generic
@@ -7,7 +8,11 @@ candidate from the compiled program's ``cost_analysis``; the port has no
 compiler to ask, so ``hotpath_cost`` counts one fixed-m bucket call of the
 LM from its config and shapes instead. The autotuner
 (``serve.autotune``) ranks candidates with these numbers before it measures
-any, and the engine reports them on ``BucketStats``.
+any, and the engine reports them on ``BucketStats``. The dry run
+(``launch.dryrun``) takes ``RooflineReport``, ``model_flops`` and
+``roofline_report`` as ``repro`` has them, with ``collective_bytes`` in
+place of ``parse_collective_bytes`` (the bytes are counted as the ops run,
+``roofline.op_counts``, not parsed from HLO text).
 """
 from __future__ import annotations
 
@@ -253,5 +258,133 @@ def hotpath_cost(cfg: Any, bucket: tuple[int, int], m: int, chunk: int, dtype: A
     return {"flops": float(flops), "bytes accessed": float(nbytes), "peak bytes": float(peak)}
 
 
-__all__ = ["Hardware", "HW_V5E", "HW_GENERIC_GPU", "HW_CPU_HOST", "HW_H100", "HW_BY_KIND",
-           "hardware_for", "hotpath_terms", "hotpath_cost"]
+# ------------------------------------------------------------ the dry run
+
+COLLECTIVE_OPS = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+)
+
+
+def collective_bytes(counts: dict) -> dict[str, int]:
+    """``repro``'s ``parse_collective_bytes`` record from counted operand
+    bytes by kind (``op_counts.OpCounter.collectives``): every kind of
+    ``COLLECTIVE_OPS`` (0 when absent) and ``total``."""
+    out = {c: int(counts.get(c, 0)) for c in COLLECTIVE_OPS}
+    out["total"] = sum(out[c] for c in COLLECTIVE_OPS)
+    return out
+
+
+@dataclass
+class RooflineReport:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    flops_per_chip: float
+    hbm_bytes_per_chip: float
+    coll_bytes_per_chip: float
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    model_flops: float
+    peak_bytes_per_chip: float = 0.0
+    hw: Hardware = HW_V5E
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """Roofline step-time estimate = max of the three overlapped terms."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (counted FLOPs * chips) — remat/redundancy waste catcher."""
+        total = self.flops_per_chip * self.chips
+        return self.model_flops / total if total else float("nan")
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Achievable MFU at the roofline: useful flops / (chips*peak*step_time),
+        at the report's own hardware (``repro`` divides by ``HW_V5E``'s peak
+        whatever ``hw`` was; the two agree at ``HW_V5E``)."""
+        denom = self.chips * self.hw.peak_flops * self.step_time_s
+        return self.model_flops / denom if denom else float("nan")
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch,
+            "shape": self.shape,
+            "mesh": self.mesh,
+            "chips": self.chips,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "model_flops": self.model_flops,
+            "useful_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+            "peak_bytes_per_chip": self.peak_bytes_per_chip,
+        }
+
+
+def model_flops(cfg: Any, shape: Any) -> float:
+    """6·N_active·D for training, 2·N_active·D for inference steps.
+
+    D = tokens processed by one step: train/prefill = B*S; decode = B*1.
+    """
+    n = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch  # decode: one token per example
+
+
+def roofline_report(
+    *,
+    arch: str,
+    shape: str,
+    mesh_name: str,
+    chips: int,
+    cost: dict,
+    coll_bytes_per_chip: float,
+    mflops: float,
+    hw: Hardware = HW_V5E,
+    peak_bytes_per_chip: float = 0.0,
+) -> RooflineReport:
+    """The three roofline terms of one chip's counted ``cost`` (``"flops"``,
+    ``"bytes accessed"``) and collective bytes on ``hw``."""
+    flops = float(cost.get("flops", 0.0))
+    nbytes = float(cost.get("bytes accessed", 0.0))
+    return RooflineReport(
+        arch=arch,
+        shape=shape,
+        mesh=mesh_name,
+        chips=chips,
+        flops_per_chip=flops,
+        hbm_bytes_per_chip=nbytes,
+        coll_bytes_per_chip=coll_bytes_per_chip,
+        compute_s=flops / hw.peak_flops,
+        memory_s=nbytes / hw.hbm_bw,
+        collective_s=coll_bytes_per_chip / hw.link_bw,
+        model_flops=mflops,
+        peak_bytes_per_chip=peak_bytes_per_chip,
+        hw=hw,
+    )
+
+
+__all__ = ["COLLECTIVE_OPS", "Hardware", "HW_V5E", "HW_GENERIC_GPU", "HW_CPU_HOST", "HW_H100", "HW_BY_KIND",
+           "RooflineReport", "collective_bytes", "hardware_for", "hotpath_terms", "hotpath_cost",
+           "model_flops", "roofline_report"]

@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import tree_map
 from repro_torch.models.registry import Model
+from repro_torch.sharding.context import constrain
 
 
 def make_prefill_step(cfg: ArchConfig, max_len: int, *, kv_slots: int = 0) -> Callable:
@@ -62,7 +63,9 @@ def sample_token(logits: torch.Tensor, noise: torch.Tensor, temperature) -> torc
 
 
 def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    # on the dry run's meshes the (B, V) row is gathered whole over the vocab:
+    # DTensor's argmax over a sharded vocab fails where a rank holds one row
+    return torch.argmax(constrain(logits, "batch", None, force=True), dim=-1).to(torch.int32)
 
 
 def make_serve_step(cfg: ArchConfig, *, greedy: bool = True) -> Callable:

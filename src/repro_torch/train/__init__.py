@@ -2,6 +2,7 @@
 from repro_torch.train.step import (
     TrainConfig,
     TrainState,
+    abstract_train_state,
     compress_grads,
     init_train_state,
     make_grad_fn,
@@ -9,5 +10,5 @@ from repro_torch.train.step import (
     make_train_step,
 )
 
-__all__ = ["TrainConfig", "TrainState", "compress_grads", "init_train_state", "make_grad_fn",
-           "make_train_state", "make_train_step"]
+__all__ = ["TrainConfig", "TrainState", "abstract_train_state", "compress_grads", "init_train_state",
+           "make_grad_fn", "make_train_state", "make_train_step"]

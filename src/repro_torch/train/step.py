@@ -25,9 +25,11 @@ parameters' device; metrics are f32 () tensors: ``loss``, ``grad_norm``,
     half to even as ``jnp.round``, and the quantization error carried to
     the next step.
 
-``repro``'s ``abstract_train_state`` (the XLA dry run's shapes) is not
-ported, nor ``repro``'s ``TrainConfig.compute_dtype``, which nothing
-reads: the model computes in ``cfg.compute_dtype``.
+``abstract_train_state`` is the dry run's state of ``meta`` tensors.
+Over DTensor (the dry run's sharded cells) a microbatch is a slice of
+each rank's local rows, never of the global batch, which would gather it.
+``repro``'s ``TrainConfig.compute_dtype``, which nothing reads, is not
+ported: the model computes in ``cfg.compute_dtype``.
 """
 from __future__ import annotations
 
@@ -60,8 +62,7 @@ class TrainState(NamedTuple):
 def init_train_state(params: Any, tcfg: TrainConfig) -> TrainState:
     """The state of ``params``: zero moments, step 0, and zero f32 error
     buffers with ``grad_compression``."""
-    err = (tree_map(lambda _, p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-           if tcfg.grad_compression else None)
+    err = tree_map(lambda _, p: torch.zeros_like(p, dtype=torch.float32), params) if tcfg.grad_compression else None
     return TrainState(params, adamw_init(params), err)
 
 
@@ -70,6 +71,33 @@ def make_train_state(cfg: ArchConfig, tcfg: TrainConfig, generator: torch.Genera
     """``init_train_state`` of fresh weights (``Model.init``) drawn from
     ``generator``."""
     return init_train_state(Model(cfg).init(generator, device=device), tcfg)
+
+
+def abstract_train_state(cfg: ArchConfig, tcfg: TrainConfig) -> TrainState:
+    """The state as ``meta`` tensors (nothing allocated), for the dry run:
+    the parameters in ``cfg.param_dtype``, f32 moments, an int32 () step,
+    and f32 error buffers under ``grad_compression``."""
+    params = Model(cfg).abstract_params()
+    f32 = lambda _, p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    opt = OptState(step=torch.empty((), dtype=torch.int32, device="meta"), m=tree_map(f32, params),
+                   v=tree_map(f32, params))
+    return TrainState(params, opt, tree_map(f32, params) if tcfg.grad_compression else None)
+
+
+def microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of a (B, ...) batch leaf: rows [i·B/n,
+    (i+1)·B/n), ``repro``'s reshape to (n, B/n, ...). A DTensor sharded on
+    its batch dim takes that slice of each rank's local rows instead, so
+    the microbatch keeps the batch's sharding without a collective (the
+    global slice would gather the batch)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(x, DTensor) and any(p == Shard(0) for p in x.placements):
+        loc = x.to_local()
+        b = loc.shape[0] // n
+        return DTensor.from_local(loc[i * b:(i + 1) * b], x.device_mesh, x.placements, run_check=False)
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
 
 
 # ------------------------------------------------------- grad compression
@@ -127,11 +155,10 @@ def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable[[Any, dict], tu
         if n_mb == 1:
             loss, grads = _value_and_grad(model, params, batch, tcfg.remat)
             return loss, tree_unflatten(params, grads)
-        b = next(iter(batch.values())).shape[0] // n_mb
         tot_loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-        tot = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
+        tot = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
         for i in range(n_mb):
-            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+            mb = {k: microbatch(v, i, n_mb) for k, v in batch.items()}
             loss, grads = _value_and_grad(model, params, mb, tcfg.remat)
             tot_loss = tot_loss + loss
             for a, g in zip(tot, grads):

@@ -934,6 +934,24 @@ def test_mesh_on_the_card(nvcc_card, tmp_path, kw):
             assert (a["m_used"], a["hops"], a["converged"]) == (b["m_used"], b["hops"], b["converged"])
 
 
+@pytest.mark.cuda
+def test_dryrun_count_on_meta_equals_the_cards(cuda_gen):
+    """The dry run's count of a reduced train step (llama3-8b, B=4, S=64,
+    two microbatches, remat) on ``meta`` equals its count on card tensors
+    of the same shapes: FLOPs, the matrix products, the ops and their bytes,
+    the argument bytes."""
+    from repro_torch.configs import ARCHS, ShapeConfig, reduced
+    from repro_torch.launch.cells import ShapeMesh, build_cell, count_cell, materialize
+
+    cfg = reduced(ARCHS["llama3-8b"])
+    cell = build_cell(cfg, ShapeConfig("t", 64, 4, "train"), ShapeMesh(), microbatches=2)
+    meta = count_cell(cell)
+    card = count_cell(cell, materialize(cell.args, cfg.vocab_size, cuda_gen))
+    for k in ("flops", "bytes accessed", "argument_bytes", "ops", "dots"):
+        assert meta[k] == card[k], k
+    assert meta["bytes_by_op"] == card["bytes_by_op"]
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
     the flash op and the solve op run on CPU tensors, no library is loaded,
