@@ -269,19 +269,31 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
  26. the dry run on the card (``dryrun_card_phase``, after the slices'
      gates; it launches no kernel of the port) — the train phase's cell
      (llama3-8b at full width, 8 layers, B=8, S=128, remat,
-     ``attn_impl="auto"``) and one decode step at B=16, 8 layers, against
-     4096 cache slots (bf16 weights), built by ``launch.cells`` on a 1×1
-     mesh and counted by ``count_cell`` once on ``meta`` and once on the
-     card. Gates: total and matrix-product FLOPs equal, argument bytes
-     equal (and equal to the card tensors'), every op's bytes equal but for
+     ``attn_impl="auto"``), one decode step at B=16, 8 layers, against
+     4096 cache slots (bf16 weights) and one qwen3-moe-30b-a3b decode step
+     at full width, 2 layers, B=16, against 4096 slots (bf16 weights: the
+     routing's integer ops), built by ``launch.cells`` on a 1×1 mesh and
+     counted by ``count_cell`` once on ``meta`` and once on the card.
+     Gates: total and matrix-product FLOPs equal, argument bytes equal (and
+     equal to the card tensors'), every op's bytes equal but for
      ``DRYRUN_OP_DIFFS``; printed: the predicted peak over
      ``max_memory_allocated`` and one step's device time against the
      roofline's ``step_time_s`` at ``HW_H100``;
- 27. the dry run's command line — ``python -m repro_torch.launch.dryrun
-     --arch llama3-8b --shape decode_32k`` in a child on the CPU, started
-     before phase 26 (pod16x16: a fake process group of 256 ranks). Gates:
-     exit 0, ``status`` ok, collectives above 0 bytes, a per-chip peak
-     below 80 GB.
+ 27. the dry run on the CPU, in children started before phase 26: the
+     command line ``python -m repro_torch.launch.dryrun --shape
+     decode_32k`` for llama3-8b and for qwen3-moe-30b-a3b (pod16x16: a
+     fake process group of 256 ranks), and ``DRYRUN_REDUCED_CHILD``, which
+     counts seven reduced cells on a fake (data=2, model=4) mesh (qwen3-moe
+     train and decode, jamba prefill, jamba decode at B=1, sequence-
+     sharded, mamba2 decode, llama3-8b train, gemma3 prefill with its
+     rolled ring). Gates: each command line
+     exits 0 with ``status`` ok, collectives above 0 bytes and a per-chip
+     peak below 80 GB; llama3-8b's FLOPs and collective bytes by kind, and
+     each reduced cell's FLOPs, matrix-product FLOPs and collective bytes
+     by kind, equal the counts of torch 2.13 (``DRYRUN_CLI_COUNTS``,
+     ``DRYRUN_REDUCED``; ``tests/test_torch_cells.py`` holds the same): a
+     cell's count is a function of the port's program, not of DTensor's
+     version.
 
 Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
@@ -4841,14 +4853,51 @@ def mesh_phase() -> dict:
 
 DRYRUN_TRAIN = (8, 8, 128)  # llama3-8b at full width: layers, B, S (the train phase's cell), remat
 DRYRUN_DECODE = (8, 16, 4096)  # layers, B, cache slots of one decode step, bf16 weights
+DRYRUN_MOE_DECODE = (2, 16, 4096)  # qwen3-moe-30b-a3b at full width: layers, B, cache slots, bf16 weights
 DRYRUN_OP_DIFFS = ()  # ops whose bytes may part between the meta count and the card's
-DRYRUN_CLI = ["--arch", "llama3-8b", "--shape", "decode_32k"]
-DRYRUN_CLI_S = 300  # the command line's time limit
+DRYRUN_CLI = ("llama3-8b", "qwen3-moe-30b-a3b")  # each counted at decode_32k on pod16x16 by the command line
+DRYRUN_CLI_S = 300  # the children's time limit
 HBM_BYTES = 80e9
+# torch 2.13's counts, a chip's (FLOPs, matrix-product FLOPs, collective bytes by kind); the same on 2.11
+DRYRUN_CLI_COUNTS = {"llama3-8b:decode_32k": (20121124864, 20121124864,
+                                              {"all-gather": 94319872, "all-reduce": 4259840})}
+DRYRUN_REDUCED = {  # "arch:kind:S:B:microbatches" of reduced(ARCHS[arch]) on (data=2, model=4)
+    "qwen3-moe-30b-a3b:train:64:8:1": (83886080, 83886080,
+                                       {"all-gather": 350208, "all-reduce": 583056, "reduce-scatter": 118784}),
+    "qwen3-moe-30b-a3b:decode:256:8:0": (696320, 696320, {"all-gather": 56448, "all-reduce": 2624}),
+    "jamba-v0.1-52b:prefill:256:8:0": (946929664, 946929664, {"all-gather": 1598208, "all-reduce": 4382976}),
+    "jamba-v0.1-52b:decode:256:1:0": (2338816, 2338816, {"all-gather": 422184, "all-reduce": 4416}),
+    "mamba2-780m:decode:256:8:0": (409600, 409600, {"all-gather": 53376, "all-reduce": 1568}),
+    "llama3-8b:train:64:8:1": (73400320, 73400320,
+                               {"all-gather": 149504, "all-reduce": 431376, "reduce-scatter": 163840}),
+    "gemma3-27b:prefill:256:8:0": (377552896, 377552896, {"all-gather": 163840, "all-reduce": 3276800}),
+}
+DRYRUN_REDUCED_CHILD = r"""
+import json
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ARCHS, ShapeConfig, reduced
+from repro_torch.launch.cells import build_cell, count_cell
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+out = {}
+for key in KEYS:
+    arch, kind, S, B, mb = key.split(":")
+    kw = {"microbatches": int(mb)} if kind == "train" else {}
+    try:
+        c = count_cell(build_cell(reduced(ARCHS[arch]), ShapeConfig(kind, int(S), int(B), kind), mesh, **kw))
+        out[key] = {"status": "ok", "flops": c["flops"], "dots": c["dots"]["total_dot_flops"],
+                    "collectives": {k: v for k, v in c["collectives"].items() if v and k != "total"}}
+    except Exception as e:  # the gate names the cell
+        out[key] = {"status": "error", "error": f"{type(e).__name__}: {e}"[:500]}
+print(json.dumps(out))
+"""
 
 
 def _dryrun_cells() -> list:
-    """(name, config, shape, cell) of the card's two cells, on a 1×1 mesh."""
+    """(name, config, shape, cell) of the card's three cells, on a 1×1 mesh."""
     from repro_torch.configs import ARCHS, ShapeConfig
     from repro_torch.launch.cells import ShapeMesh, build_cell
 
@@ -4856,8 +4905,11 @@ def _dryrun_cells() -> list:
     train_cfg, train = replace(ARCHS["llama3-8b"], num_layers=layers), ShapeConfig("train", St, Bt, "train")
     layers, Bd, Sd = DRYRUN_DECODE
     decode_cfg, decode = replace(ARCHS["llama3-8b"], num_layers=layers), ShapeConfig("decode", Sd, Bd, "decode")
+    layers, Bm, Sm = DRYRUN_MOE_DECODE
+    moe_cfg, moe = replace(ARCHS["qwen3-moe-30b-a3b"], num_layers=layers), ShapeConfig("decode", Sm, Bm, "decode")
     return [("train", train_cfg, train, build_cell(train_cfg, train, ShapeMesh(), microbatches=1)),
-            ("decode", decode_cfg, decode, build_cell(decode_cfg, decode, ShapeMesh()))]
+            ("decode", decode_cfg, decode, build_cell(decode_cfg, decode, ShapeMesh())),
+            ("moe decode", moe_cfg, moe, build_cell(moe_cfg, moe, ShapeMesh()))]
 
 
 def _tensor_bytes(tree) -> int:
@@ -4872,8 +4924,10 @@ def _tensor_bytes(tree) -> int:
 
 def dryrun_card_phase() -> None:
     """The dry run's count held to the card: the train step on llama3-8b at
-    full width, 8 layers, B=8, S=128, remat, and one decode step at B=16, 8
-    layers, against a cache of 4096 slots (bf16 weights), each built as the
+    full width, 8 layers, B=8, S=128, remat, one decode step at B=16, 8
+    layers, against a cache of 4096 slots (bf16 weights), and one
+    qwen3-moe-30b-a3b decode step at full width, 2 layers, B=16, 4096 slots
+    (bf16 weights; the routing's sort and integer ops), each built as the
     dry run builds its cells (``launch.cells``, ``attn_impl="auto"``) on a
     1×1 mesh, counted once on ``meta`` and once on the card
     (``count_cell`` on card tensors of the same shapes). Gates: total and
@@ -4938,46 +4992,86 @@ def dryrun_card_phase() -> None:
     _free_card()
 
 
-def dryrun_cli_start() -> tuple:
-    """Start ``python -m repro_torch.launch.dryrun`` on llama3-8b decode_32k
-    (pod16x16, the CPU only) in a child; returns (process, results path,
-    start time)."""
+def dryrun_cli_start() -> list:
+    """Start the dry run's CPU children: ``python -m repro_torch.launch.dryrun
+    --arch A --shape decode_32k`` for each of ``DRYRUN_CLI`` (pod16x16), and
+    ``DRYRUN_REDUCED_CHILD`` over ``DRYRUN_REDUCED``'s cells; returns
+    [(name, process, results path or None)] and the start time."""
     import os
 
-    out = ROOT / "build" / "dryrun_cli.json"
-    out.parent.mkdir(exist_ok=True)
-    out.unlink(missing_ok=True)
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"] + DRYRUN_CLI + ["--out", str(out)]
-    print("dry run command line: " + " ".join(cmd[1:]))
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    return proc, out, time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    started = []
+    for arch in DRYRUN_CLI:
+        out = ROOT / "build" / f"dryrun_cli_{arch}.json"
+        out.parent.mkdir(exist_ok=True)
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", "decode_32k",
+               "--out", str(out)]
+        print("dry run command line: " + " ".join(cmd[1:]))
+        started.append((f"{arch}:decode_32k", subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                                                stderr=subprocess.PIPE, text=True), out))
+    code = f"KEYS = {sorted(DRYRUN_REDUCED)!r}\n" + DRYRUN_REDUCED_CHILD
+    started.append(("reduced", subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), None))
+    return [started, time.perf_counter()]
 
 
-def dryrun_cli_finish(started: tuple) -> None:
-    """The command line's gates: exit 0, ``status`` ok, a collective total
-    above 0 and a per-chip peak below the card's 80 GB."""
-    proc, out, t0 = started
+def _counts_apart(got: dict, want: tuple) -> list:
+    """The fields of a count (FLOPs, matrix-product FLOPs, collective bytes
+    by kind) that part from the constants ``want``."""
+    flops, dots, coll = want
+    apart = [k for k, a, b in (("FLOPs", got["flops"], flops), ("matrix-product FLOPs", got["dots"], dots)) if a != b]
+    return apart + ([f"collectives {got['collectives']} against {coll}"] if got["collectives"] != coll else [])
+
+
+def dryrun_cli_finish(started: list) -> None:
+    """The children's gates: each exits 0; each command line's cell is
+    ``ok`` with collectives above 0 bytes and a per-chip peak below the
+    card's 80 GB, and llama3-8b's FLOPs and collective bytes by kind are
+    ``DRYRUN_CLI_COUNTS``; each reduced cell is ``ok`` with
+    ``DRYRUN_REDUCED``'s counts."""
+    children, t0 = started
+    outs = []
     try:
-        stdout, stderr = proc.communicate(timeout=max(1.0, DRYRUN_CLI_S - (time.perf_counter() - t0)))
+        for name, proc, _ in children:
+            outs.append(proc.communicate(timeout=max(1.0, DRYRUN_CLI_S - (time.perf_counter() - t0))))
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    print("  | " + stdout.rstrip().replace("\n", "\n  | "))
-    if proc.returncode:
-        print(stderr[-4000:])
-        raise AssertionError(f"the dry run command line exited {proc.returncode}")
-    rec = json.loads(out.read_text())["llama3-8b:decode_32k"]
-    if rec["status"] != "ok":
-        raise AssertionError(f"dry run llama3-8b:decode_32k: {rec['status']} {rec.get('error')}")
-    coll, peak = rec["collectives"]["total"], rec["memory"]["peak_bytes"]
-    print(f"  the command line ended in {time.perf_counter() - t0:.1f} s: {rec['chips']} chips, FLOPs "
-          f"{rec['cost']['flops']:.6g} and op bytes {rec['cost']['bytes accessed']:.6g} a chip, collectives "
-          f"{coll} bytes ({', '.join(f'{k} {v}' for k, v in rec['collectives'].items() if v and k != 'total')}), "
-          f"peak {peak / 1e9:.3f} GB a chip, dominant {rec['roofline']['dominant']}")
-    if not (coll > 0 and peak < HBM_BYTES):
-        raise AssertionError(f"dry run llama3-8b:decode_32k: collectives {coll}, peak {peak}")
+        for _, proc, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"  the dry run's CPU children ended in {time.perf_counter() - t0:.1f} s")
+    failed = []
+    for (name, proc, out), (stdout, stderr) in zip(children, outs):
+        if proc.returncode:
+            print(stderr[-4000:])
+            raise AssertionError(f"the dry run child {name} exited {proc.returncode}")
+        if out is None:
+            got = json.loads(stdout.strip().splitlines()[-1])
+            for key, want in DRYRUN_REDUCED.items():
+                rec = got[key]
+                print(f"  reduced cell {key} on (data=2, model=4): {rec}")
+                apart = [rec.get("error")] if rec["status"] != "ok" else _counts_apart(rec, want)
+                failed += [f"{key}: {a}" for a in apart]
+            continue
+        print("  | " + stdout.rstrip().replace("\n", "\n  | "))
+        rec = json.loads(out.read_text())[name]
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {name}: {rec['status']} {rec.get('error')}")
+        coll, peak = rec["collectives"], rec["memory"]["peak_bytes"]
+        kinds = ", ".join(f"{k} {v}" for k, v in coll.items() if v and k != "total")
+        print(f"  {name}: {rec['chips']} chips, FLOPs {rec['cost']['flops']:.6g} (matrix products "
+              f"{rec['dots']['total_dot_flops']:.6g}) and op bytes {rec['cost']['bytes accessed']:.6g} a chip, "
+              f"collectives {coll['total']} bytes ({kinds}), peak {peak / 1e9:.3f} GB a chip, "
+              f"dominant {rec['roofline']['dominant']}")
+        if not (coll["total"] > 0 and peak < HBM_BYTES):
+            failed.append(f"{name}: collectives {coll['total']}, peak {peak}")
+        if name in DRYRUN_CLI_COUNTS:
+            got = {"flops": int(rec["cost"]["flops"]), "dots": rec["dots"]["total_dot_flops"],
+                   "collectives": {k: v for k, v in coll.items() if v and k != "total"}}
+            failed += [f"{name}: {a}" for a in _counts_apart(got, DRYRUN_CLI_COUNTS[name])]
+    if failed:
+        raise AssertionError(f"the dry run on the CPU (torch {torch.__version__}): {failed}")
 
 
 def _setup() -> None:

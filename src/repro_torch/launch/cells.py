@@ -66,7 +66,6 @@ class Cell:
     in_shardings: tuple  # per argument, a tree of DTensor placements
     mesh: Any = None  # a DeviceMesh, or a ShapeMesh
     seq_sharded: bool = False
-    vocab_parallel: bool = False  # the loss's logits are sharded on the vocab: DTensor's loss_parallel
 
 
 def _mesh_size(mesh: Any, axis: str) -> int:
@@ -103,7 +102,6 @@ def build_train_cell(
         args=(state, batch),
         in_shardings=(to_shardings(state_specs, mesh), to_shardings(spec_for_batch_tree(batch, mesh, rules), mesh)),
         mesh=mesh,
-        vocab_parallel=cfg.vocab_size % _mesh_size(mesh, "model") == 0,
     )
 
 
@@ -239,26 +237,11 @@ def materialize(args: Any, vocab: int, generator: torch.Generator, device="cuda"
     return _distribute(args, make)
 
 
-@contextlib.contextmanager
-def _loss_parallel():
-    """DTensor's ``loss_parallel``, left also when the step raises (its own
-    exit is skipped then, and its loss ops would stay on for every later
-    cell)."""
-    from torch.distributed.tensor.parallel import loss_parallel
-
-    cm = loss_parallel()
-    cm.__enter__()
-    try:
-        yield
-    finally:
-        cm.__exit__(None, None, None)
-
-
 def _is_distributed(mesh: Any) -> bool:
     return mesh is not None and hasattr(mesh, "mesh_dim_names") and mesh.size() > 1
 
 
-def count_cell(cell: Cell, args: Optional[tuple] = None) -> dict:
+def count_cell(cell: Cell, args: Optional[tuple] = None, counter: Optional[OpCounter] = None) -> dict:
     """Run ``cell.fn`` once under ``OpCounter`` and return one rank's counts:
     ``flops``, ``dots`` (``matmul_flops_summary``), ``bytes accessed`` (the
     ops' bytes), ``bytes_by_op`` (``op_bytes_by_op``, every row), ``collectives``
@@ -269,22 +252,22 @@ def count_cell(cell: Cell, args: Optional[tuple] = None) -> dict:
     On a DeviceMesh of more than one rank each argument becomes a DTensor of
     ``meta`` local shards under ``cell.in_shardings``, and plain tensors the
     step makes (positions, masks) are replicated (DTensor's
-    ``implicit_replication``), as each rank would make them; the loss's
-    cross-entropy runs vocab-parallel (``loss_parallel``) where the logits
-    are sharded on the vocab. Otherwise the step runs on ``args`` (default
-    ``cell.args``: meta tensors), which may be real tensors of the same
-    shapes on a card."""
+    ``implicit_replication``), as each rank would make them. Otherwise the
+    step runs on ``args`` (default ``cell.args``: meta tensors), which may
+    be real tensors of the same shapes on a card. ``counter`` (default a
+    new ``OpCounter``) may be a subclass that logs the ops too
+    (``launch.op_trace``)."""
     mesh = cell.mesh
     if _is_distributed(mesh):
         from torch.distributed.tensor.experimental import implicit_replication
 
         args = _distribute(cell.args, lambda shp, dt: torch.empty(shp, dtype=dt, device="meta"),
                            cell.in_shardings, mesh)
-        dtensor_modes = (implicit_replication(),) + ((_loss_parallel(),) if cell.vocab_parallel else ())
+        dtensor_modes = (implicit_replication(),)
     else:
         args = cell.args if args is None else args
         dtensor_modes = ()
-    counter = OpCounter()
+    counter = OpCounter() if counter is None else counter
     arg_bytes = counter.hold(args)
     with contextlib.ExitStack() as stack:
         if mesh is not None:

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import ParamDef
-from repro_torch.sharding.context import constrain, per_head
+from repro_torch.sharding.context import block, combine, constrain, from_local, per_head
 
 NEG_INF = -1e30
 BLOCK_THRESHOLD = 4096  # longer unmasked sequences take blocked_attention, as in repro
@@ -59,10 +59,21 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.unflatten(-1, (H, D))
 
 
+def _tensor_parallel(w: torch.Tensor) -> bool:
+    """Whether ``w`` is a DTensor split on the mesh's "model" dim."""
+    return hasattr(w, "placements") and any(
+        p.is_shard() for n, p in zip(w.device_mesh.mesh_dim_names, w.placements) if n == "model")
+
+
 def qkv(p: dict, x: torch.Tensor, dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, S, NQ, D), k and v (B, S, NKV, D) in ``dtype``, heads pinned
     to the tensor-parallel axis (KV heads replicated when indivisible)."""
-    q, k, v = (_project(x, p[n].to(dtype)) for n in ("wq", "wk", "wv"))
+    split = [_tensor_parallel(p[n]) for n in ("wq", "wk", "wv")]
+    # where some projections are split on the tensor-parallel axis and some
+    # whole, each split one's input gradient (pending a sum) is reduced on its
+    # own: DTensor's versions add a pending and a whole gradient differently
+    ins = [constrain(x, "batch", "seq", None) if s and not all(split) else x for s in split]
+    q, k, v = (_project(h, p[n].to(dtype)) for h, n in zip(ins, ("wq", "wk", "wv")))
     q = constrain(q, "batch", "seq", "model", None)
     k = constrain(k, "batch", "seq", "model", None)
     v = constrain(v, "batch", "seq", "model", None)
@@ -224,6 +235,40 @@ def decode_attention(
             valid &= idx >= cache_len - window
     a = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(q.dtype)
     return torch.einsum("bhgk,bkhd->bhgd", a, v_cache).reshape(B, 1, NQ, D)
+
+
+def decode_attention_seq_sharded(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len, *,
+                                 ring: bool = False) -> torch.Tensor:
+    """``decode_attention`` on the long-context cells' DTensors, whose cache
+    is sharded on its sequence: each rank scores its own slots with its own
+    query heads (the KV head of each, as ``per_head`` takes it), and the
+    softmax's maximum (an all-gather), its sum and the weighted values (all-
+    reduces, f32) are combined over the sequence's mesh dims: split-K
+    decoding, the same function in another summation order. The result has
+    q's head layout, whole over the sequence's mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, (B, Smax, NKV, D), NQ = q.device_mesh, k_cache.shape, q.shape[2]
+    qpl = tuple(Replicate() if p.is_partial() else p for p in q.placements)
+    ql, kl, vl = q.redistribute(mesh, qpl).to_local(), k_cache.to_local(), v_cache.to_local()
+    h0, n = block(q.shape, mesh, qpl, 2)
+    if kl.shape[2] == NKV and n != NQ:  # query heads split, KV heads whole: each query head's KV head
+        heads = torch.arange(h0, h0 + n, device=kl.device) // (NQ // NKV)
+        kl, vl = kl.index_select(2, heads), vl.index_select(2, heads)
+    s0, sl = block(k_cache.shape, mesh, tuple(k_cache.placements), 1)
+    nkv = kl.shape[2]
+    qg = (ql * (D**-0.5)).reshape(ql.shape[0], nkv, n // nkv, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kl).float()
+    idx = s0 + torch.arange(sl, device=q.device)
+    valid = idx < (min(int(cache_len), Smax) if ring else cache_len)
+    s = torch.where(valid, s, NEG_INF)
+    over = tuple(i for i, p in enumerate(k_cache.placements) if p == Shard(1))  # the sequence's mesh dims
+    m = combine(s.amax(-1), mesh, over, "max")
+    e = torch.exp(s - m[..., None])
+    den = combine(e.sum(-1), mesh, over)
+    num = combine(torch.einsum("bhgk,bkhd->bhgd", e, vl.float()), mesh, over)
+    o = (num / den[..., None]).to(q.dtype).reshape(ql.shape[0], 1, n, D)
+    return from_local(o, mesh, qpl, (B, 1, NQ, D))
 
 
 def dispatch_attention(

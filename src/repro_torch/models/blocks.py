@@ -29,7 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn, moe as moe_mod, ssm
 from repro_torch.models.layers import mlp, mlp_def, rmsnorm, rmsnorm_def, rope
-from repro_torch.sharding.context import gathered, per_head
+from repro_torch.sharding.context import block, gathered, on_shards, per_head, seq_sharded
 
 
 def _check(spec: LayerSpec) -> None:
@@ -186,8 +186,8 @@ def apply_layer_prefill(
         S, w = k.shape[1], cache["k"].shape[1]
         if spec.mixer == "local" and S >= w:
             shift = S % w  # position S − w, the oldest kept, belongs at slot (S − w) mod w
-            cache["k"].copy_(torch.roll(k[:, S - w:], shift, dims=1))
-            cache["v"].copy_(torch.roll(v[:, S - w:], shift, dims=1))
+            for c, t in ((cache["k"], k), (cache["v"], v)):  # rolled on each rank's rows and heads
+                c.copy_(on_shards(lambda t: torch.roll(t, shift, dims=1), t[:, S - w:]))
         else:
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
@@ -205,6 +205,20 @@ def _to_slots(t: torch.Tensor, cache: dict) -> torch.Tensor:
     ``expand_kv``)."""
     slots = cache["k"].shape[2]
     return t if t.shape[2] == slots else attn.expand_kv(t, slots)
+
+
+def _write_seq_sharded(c: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``c[:, slot] = new`` on a cache (B, S, KH, D) whose sequence is
+    sharded (the long-context cells): the rank holding the slot writes its
+    local shard in place, and no rank gathers the cache. ``new`` (B, KH, D)
+    has the cache's head layout (``qkv`` pins both by the KV heads)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = c.device_mesh, tuple(c.placements)
+    s0, sl = block(c.shape, mesh, pl, 1)
+    if s0 <= slot < s0 + sl:
+        npl = tuple(Replicate() if p == Shard(1) else Shard(p.dim - (p.dim > 1)) if p.is_shard() else p for p in pl)
+        c.to_local()[:, slot - s0] = new.redistribute(mesh, npl).to_local()
 
 
 def _slot(spec: LayerSpec, cache: dict, pos):
@@ -267,10 +281,15 @@ def apply_layer_decode(
         positions = torch.full((x.shape[0], 1), pos, device=x.device)
         q, k, v = _attn_in(cfg, p, x, positions)
         slot = _slot(spec, cache, pos)
-        cache["k"][:, slot] = _to_slots(k, cache)[:, 0]
-        cache["v"][:, slot] = _to_slots(v, cache)[:, 0]
-        o = per_head(lambda q, k, v: attn.decode_attention(q, k, v, pos + 1, ring=spec.mixer == "local"),
-                     q, cache["k"], cache["v"])
+        if seq_sharded(cache["k"]):
+            for c, t in ((cache["k"], k), (cache["v"], v)):
+                _write_seq_sharded(c, slot, _to_slots(t, cache)[:, 0])
+            o = attn.decode_attention_seq_sharded(q, cache["k"], cache["v"], pos + 1, ring=spec.mixer == "local")
+        else:
+            cache["k"][:, slot] = _to_slots(k, cache)[:, 0]
+            cache["v"][:, slot] = _to_slots(v, cache)[:, 0]
+            o = per_head(lambda q, k, v: attn.decode_attention(q, k, v, pos + 1, ring=spec.mixer == "local"),
+                         q, cache["k"], cache["v"])
         x = x + attn.out_proj(p["mixer"], o, x.dtype)
     kv = (cache["xk"], cache["xv"]) if "xk" in cache else None
     return _ffn(cfg, spec, p, _cross(cfg, p, x, kv)), cache

@@ -16,6 +16,16 @@ paths), it returns ``x`` unchanged. So do the two helpers that make
 explicit what XLA decides for ``repro``: ``gathered`` (a layer's FSDP
 shards gathered before use) and ``per_head`` (attention on each rank's
 own rows and heads).
+
+Where an op has more than one way to run sharded, DTensor's choice moves
+with the torch version, and so would a cell's counts. The model code pins
+such a site, or computes it on the local shards itself, with explicit
+collectives at its edges (the MoE routing, the embedding lookup, the
+vocab-parallel loss). The helpers for those: ``replicate`` (a tensor made
+whole on every rank), ``layout`` (the policy's placements for a shape),
+``block`` (this rank's slice of a sharded dim), ``from_local`` and
+``partial`` (a local result wrapped as a DTensor, pending a sum where the
+ranks along a mesh dim hold parts of it).
 """
 from __future__ import annotations
 
@@ -95,18 +105,101 @@ def constrain(x: torch.Tensor, *logical: Optional[str], sizes: Optional[tuple] =
     split across ranks could not be unflattened. ``force`` pins a spec that
     shards nothing too (``repro`` leaves such a tensor as it is): x is then
     replicated, for a small tensor whose op DTensor cannot run sharded.
+    Without ``force`` such an x keeps its shards, but a pending sum
+    (``Partial``) is reduced: where it is reduced would otherwise be left to
+    DTensor's version.
     """
     pol = _POLICY.get()
-    if pol is None:
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if pol is None or not isinstance(x, DTensor):
         return x
     spec = activation_spec(pol, tuple(x.shape if sizes is None else sizes), logical)
     if spec is None and force:
         spec = P(*([None] * len(logical)))
+    if spec is not None:
+        return _Pin.apply(x, to_placements(spec, x.device_mesh))
+    if any(p.is_partial() for p in x.placements):  # a pinned tensor is never left pending a sum
+        return _Pin.apply(x, tuple(Replicate() if p.is_partial() else p for p in x.placements))
+    return x
+
+
+def seq_sharded(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor sharded on its dim 1, the sequence of the
+    long-context cells' caches, under a policy that shards the sequence."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    pol = _POLICY.get()
+    return (pol is not None and bool(pol.mapping["seq"]) and isinstance(x, DTensor)
+            and any(p == Shard(1) for p in x.placements))
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank: a DTensor is redistributed to
+    ``Replicate()`` on every mesh dim (its gradient alike, as ``constrain``
+    does), with or without a policy; anything else is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    pl = (Replicate(),) * x.device_mesh.ndim
+    return x if tuple(x.placements) == pl else _Pin.apply(x, pl)
+
+
+def layout(mesh: Any, shape: tuple, *logical: Optional[str]) -> tuple:
+    """The DTensor placements ``constrain`` would pin a tensor of ``shape``
+    to under the active policy (replicated where it shards nothing, or with
+    no policy)."""
+    from torch.distributed.tensor import Replicate
+
+    pol = _POLICY.get()
+    spec = None if pol is None else activation_spec(pol, tuple(shape), logical)
+    return (Replicate(),) * mesh.ndim if spec is None else to_placements(spec, mesh)
+
+
+def block(shape: tuple, mesh: Any, placements: tuple, dim: int) -> tuple[int, int]:
+    """(offset, length) of this rank's slice of dim ``dim`` of a tensor of
+    global ``shape`` under ``placements``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, offset = compute_local_shape_and_global_offset(tuple(shape), mesh, tuple(placements))
+    return offset[dim], local[dim]
+
+
+def partial(placements: tuple, over: tuple) -> tuple:
+    """``placements`` with ``Partial()`` (a pending sum) on every mesh dim
+    where ``over`` shards a dim and ``placements`` replicate: a local result
+    that holds only the terms of this rank's slice of ``over``'s tensor."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if o.is_shard() and p.is_replicate() else p for p, o in zip(placements, over))
+
+
+def combine(t: torch.Tensor, mesh: Any, dims: tuple, op: str = "sum") -> torch.Tensor:
+    """This rank's part ``t`` (a plain tensor) combined with the other
+    ranks' along the mesh dims ``dims``: their sum (an all-reduce) or their
+    maximum (an all-gather of the parts); ``t`` itself when ``dims`` is
+    empty. The parts may differ along every other mesh dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    if not dims:
+        return t
+    if op == "max":
+        pl = tuple(Shard(0) if i in dims else Replicate() for i in range(mesh.ndim))
+        ways = math.prod(mesh.size(i) for i in dims)
+        return replicate(from_local(t[None], mesh, pl, (ways, *t.shape))).to_local().amax(0)
+    pl = tuple(Partial() if i in dims else Replicate() for i in range(mesh.ndim))
+    return replicate(from_local(t, mesh, pl, t.shape)).to_local()
+
+
+def from_local(local: torch.Tensor, mesh: Any, placements: tuple, shape: tuple) -> torch.Tensor:
+    """``local`` (this rank's part) as a DTensor of global ``shape``."""
     from torch.distributed.tensor import DTensor
 
-    if spec is None or not isinstance(x, DTensor):
-        return x
-    return _Pin.apply(x, to_placements(spec, x.device_mesh))
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, tuple(placements), run_check=False, shape=torch.Size(shape),
+                              stride=stride)
 
 
 def gathered(tree: Any) -> Any:
@@ -131,6 +224,30 @@ def gathered(tree: Any) -> Any:
         return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
 
     return tree_map(one, tree)
+
+
+def on_shards(fn, x: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *rest)`` for a function that is independent across the dims
+    ``x``'s mesh shards (batch rows, heads) and keeps their sizes: on a
+    DTensor it runs on each rank's local shards (``rest`` laid out as x on
+    those dims, or whole there: their gradients are then pending the sum
+    over x's shards) and its result (or each of a tuple of results) carries
+    x's placements; anything else runs as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return fn(x, *rest)
+    xpl = tuple(x.placements)
+    out = fn(x.to_local(), *(t.to_local(grad_placements=partial(tuple(t.placements), xpl)) for t in rest))
+
+    def wrap(t):
+        shape = list(t.shape)
+        for p, n in zip(xpl, x.device_mesh.mesh.shape):
+            if p.is_shard():
+                shape[p.dim] *= int(n)
+        return from_local(t, x.device_mesh, xpl, tuple(shape))
+
+    return tuple(wrap(t) for t in out) if isinstance(out, tuple) else wrap(out)
 
 
 def per_head(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -178,5 +295,5 @@ class _Pin(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.placements), None
 
 
-__all__ = ["ActivationPolicy", "activation_sharding", "activation_spec", "constrain", "gathered", "make_policy",
-           "per_head"]
+__all__ = ["ActivationPolicy", "activation_sharding", "activation_spec", "block", "combine", "constrain", "from_local",
+           "gathered", "layout", "make_policy", "on_shards", "partial", "per_head", "replicate", "seq_sharded"]

@@ -141,7 +141,15 @@ def _value_and_grad(model: Model, params: Any, batch: dict, remat: bool) -> tupl
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), [torch.zeros_like(p) if g is None else _as_param(g, p) for p, g in zip(leaves, grads)]
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter (a pending sum over the
+    batch shards reduced once, here); any other gradient as it is."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_grad_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable[[Any, dict], tuple[torch.Tensor, Any]]:
