@@ -62,6 +62,18 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      forward only, a replayed call bit-identical, the card against the port
      on CPU copies of two images at P=16 on the same masks; wall time per
      batch, peak memory and one profiled explanation per method;
+ 8b. the trained classifiers (``classifier_phase``) — the paper CNN (300
+     steps of 64) and the reduced ViT (250 of 32) trained on the card on the
+     synthetic contrast-threshold task (``train.classifier``), their first 3
+     steps' losses within 1e-4 relative of the same steps on CPU copies, the
+     CNN's held-out accuracy ≥ 0.95; on ``eval_batch(8)`` ``ig`` at ``paper``
+     m=32 (unfused and fused) and ``uniform`` at m=32, 64, 128, 256, the
+     card against CPU copies as in phase 4, paper's mean δ below uniform's at
+     m=32 on the CNN and the uniform m that matches it printed; the CNN's
+     weights saved under ``build/classifier/`` and reloaded, explaining bit
+     for bit the same; the ViT explained through the flash kernels (D=16,
+     S=64), δ printed, not gated; then the four ``repro_torch.examples``
+     modules in-process at their defaults, quickstart on the saved weights;
   9. the LM engine — ``ExplainEngine`` on llama3-8b at full width cut to
      4 layers (``attn="flash"``, bf16 compute, weights drawn on the card
      from a seeded CUDA generator) over 20 seeded requests (16 of 17–128
@@ -346,6 +358,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -1390,6 +1403,169 @@ def vit_fwd_phase() -> dict:
               f"mean δ {float(res.delta.mean()):.3g}")
     print(f"  peak device memory over the forward-only slice: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return _slice(paths_launched)
+
+
+# ------------------------------------------------------- the trained classifiers
+
+CLS_TRAIN = {"cnn": (42, 300, 64), "vit": (43, 250, 32)}  # seed, steps, batch (benchmarks/common.py's)
+CLS_LR = 2e-3
+CLS_CPU_STEPS = 3  # the first steps run again on CPU copies
+CLS_LOSS_TOL = 1e-4  # their losses, relative: f32 sums in another order, then AdamW (module docstring)
+CLS_ACC = 0.95  # the trained CNN's held-out accuracy (the JAX reference reaches 1.000)
+CLS_EVAL, CLS_M = 8, 32  # eval_batch(8); paper at m=32
+CLS_UNIFORM = (32, 64, 128, 256)  # uniform's m: m·{1, 2, 4, 8}
+
+
+def _cls_train(kind: str) -> tuple:
+    """Train ``kind`` on the card, gate its first steps against CPU copies;
+    returns (cfg, params, the losses, seconds)."""
+    from repro_torch.train import classifier as C
+
+    seed, steps, batch = CLS_TRAIN[kind]
+    _, _, cpu = C.train_classifier(kind, torch.Generator().manual_seed(seed), steps, batch, CLS_LR,
+                                   stop=CLS_CPU_STEPS, device="cpu")
+    _sync()
+    t0 = time.perf_counter()
+    cfg, params, losses = C.train_classifier(kind, torch.Generator().manual_seed(seed), steps, batch, CLS_LR,
+                                             device=DEV)
+    _sync()
+    s = time.perf_counter() - t0
+    first = losses[:CLS_CPU_STEPS].cpu()
+    rel = float(((first - cpu).abs() / cpu.abs()).max())
+    print(f"  {kind} trained on the card: {steps} steps of {batch} in {s:.2f} s ({s / steps * 1e3:.2f} ms a "
+          f"step), loss {float(losses[0]):.4f} -> {float(losses[-1]) + 0.0:.3g}; first {CLS_CPU_STEPS} losses "
+          f"{first.tolist()} against the CPU's {cpu.tolist()}: worst relative {rel:.3g} (allowed "
+          f"{CLS_LOSS_TOL})")
+    if not rel <= CLS_LOSS_TOL or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"{kind}: the card's first training steps part from the CPU's")
+    return cfg, params, losses, s
+
+
+def _cls_card_vs_cpu(tag: str, ex, f_cpu, x, bl, t, res) -> None:
+    """The explanation ``res`` of ``ex`` on the card against the port on CPU
+    copies, with the CNN slice's tolerances. A row whose steps the two
+    devices allocate apart must be a near tie (``_near_tie_rows``) and is
+    excused; every other row is held, near tie or not: a trained model's
+    saturated intervals get a zero share, which ``_near_tie_rows`` flags."""
+    from repro_torch.core import probes, schedule
+
+    ex_cpu = replace(ex, f=f_cpu, device="cpu")
+    vals = probes.run_probe("boundary", ex.f, x, bl, t, n_int=N_INT).vals.cpu()
+    vals_cpu = probes.run_probe("boundary", f_cpu, x.cpu(), bl.cpu(), t.cpu(), n_int=N_INT).vals
+    norm = lambda v: schedule.allocate_steps(schedule.normalized_deltas(v), ex.m)
+    tied = _near_tie_rows(vals_cpu, ex.m) | _near_tie_rows(vals, ex.m)
+    same = (norm(vals) == norm(vals_cpu)).all(-1)
+    print(f"  {tag} card vs CPU: rows allocated apart {torch.nonzero(~same).flatten().tolist()} (near-tie "
+          f"rows {torch.nonzero(tied).flatten().tolist()})")
+    if not bool((same | tied).all()):
+        raise AssertionError(f"{tag}: card and CPU allocate steps differently off a tie")
+    res_c = ex_cpu.attribute(x.cpu(), bl.cpu(), t.cpu())
+    _attr_close(f"{tag} card vs CPU attributions", res.attributions.cpu(), res_c.attributions, same)
+    dd = (res.delta.cpu() - res_c.delta).abs()
+    if not bool(((dd <= _delta_tol(res_c)) | ~same).all()):
+        raise AssertionError(f"{tag} card vs CPU δ: {dd.tolist()}")
+
+
+def _cls_deltas(tag: str, ex, x, bl, t, paths_launched: dict, kernels) -> dict:
+    """Mean δ of ``ex`` at ``paper`` m=32 and ``uniform`` at each of
+    ``CLS_UNIFORM``, each run's launches held to ``kernels``; returns
+    {(schedule, m): (result, wall ms)}."""
+    runs = {}
+    for sched, ms in (("paper", (CLS_M,)), ("uniform", CLS_UNIFORM)):
+        for m in ms:
+            e = replace(ex, schedule=sched, m=m)
+            res, wall, launched = _timed(lambda: e.attribute(x, bl, t))
+            _need(paths_launched, f"{tag} {sched} unfused", launched, kernels)
+            if not all(bool(torch.isfinite(v).all()) for v in res) or res.attributions.shape != x.shape:
+                raise AssertionError(f"{tag} {sched} m={m}: non-finite or misshapen result")
+            runs[sched, m] = (res, wall)
+    paper = float(runs["paper", CLS_M][0].delta.mean())
+    iso = next((m for m in CLS_UNIFORM if float(runs["uniform", m][0].delta.mean()) <= paper), None)
+    print(f"  {tag} mean δ: paper m={CLS_M} {paper:.4g} ({runs['paper', CLS_M][1]:.2f} ms); uniform "
+          + ", ".join(f"m={m} {float(runs['uniform', m][0].delta.mean()):.4g} ({runs['uniform', m][1]:.2f} ms)"
+                      for m in CLS_UNIFORM)
+          + (f"; uniform matches paper's δ at m={iso}, {iso / CLS_M:g}× paper's steps" if iso else
+             f"; no uniform m up to {CLS_UNIFORM[-1]} matches paper's δ"))
+    return runs
+
+
+def classifier_phase() -> dict:
+    """The paper's experiment on trained models: the paper CNN and the
+    reduced ViT trained on the card, NUIG against uniform IG on them, and
+    the four example modules."""
+    from repro_torch.configs import PAPER_CNN
+    from repro_torch.core.api import Explainer
+    from repro_torch.examples import explain_serving, quickstart, serve_lm, train_lm
+    from repro_torch.kernels import common
+    from repro_torch.models import vit
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import classifier as C
+
+    out = ROOT / "build" / "classifier"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    paths_launched = {}
+    unfused, fused = PATH_KERNELS["riemann"]
+    common.reset_launches()  # the slice's own count starts here
+
+    # the paper CNN
+    _, params, _, _ = _cls_train("cnn")
+    acc = C.accuracy(params)
+    print(f"  cnn held-out accuracy (256 images, 30% background): {acc:.4f} (gate ≥ {CLS_ACC})")
+    if not acc >= CLS_ACC:
+        raise AssertionError(f"the trained CNN's accuracy {acc} is below {CLS_ACC}")
+    x, t = C.eval_batch(CLS_EVAL, device=DEV)
+    bl = torch.zeros_like(x)
+    ex = Explainer(C.cnn_prob_fn(params), method="ig", schedule="paper", m=CLS_M, n_int=N_INT, device=DEV)
+    runs = _cls_deltas("cnn", ex, x, bl, t, paths_launched, unfused)
+    res_u = runs["paper", CLS_M][0]
+    res_f, ms_f, l_f = _timed(lambda: replace(ex, fused=True).attribute(x, bl, t))
+    _need(paths_launched, "cnn paper fused", l_f, fused)
+    _attr_close("cnn fused vs unfused", res_f.attributions, res_u.attributions)
+    if not bool(((res_f.delta - res_u.delta).abs() <= _delta_tol(res_u)).all()):
+        raise AssertionError("cnn: fused δ disagrees with unfused")
+    paper, uniform = (float(runs[s, CLS_M][0].delta.mean()) for s in ("paper", "uniform"))
+    if not paper < uniform:
+        raise AssertionError(f"cnn: paper's mean δ {paper} is not below uniform's {uniform} at m={CLS_M}")
+    params_cpu = _tree_to(params, "cpu")
+    _cls_card_vs_cpu("cnn", ex, C.cnn_prob_fn(params_cpu), x, bl, t, res_u)
+    path = out / "cnn.npz"
+    C.save_params(path, params)
+    again = C.load_params(path, PAPER_CNN, DEV)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(again), tree_leaves(params))):
+        raise AssertionError("cnn: the reloaded weights differ")
+    res_r, _, l_r = _timed(lambda: replace(ex, f=C.cnn_prob_fn(again)).attribute(x, bl, t))
+    _need(paths_launched, "cnn paper unfused", l_r, unfused)
+    if not (torch.equal(res_r.attributions, res_u.attributions) and torch.equal(res_r.delta, res_u.delta)):
+        raise AssertionError("cnn: the reloaded weights explain differently")
+    print(f"  cnn weights saved to {path.relative_to(ROOT)} and reloaded: explanation bit-identical; "
+          f"fused {ms_f:.2f} ms")
+
+    # the reduced ViT, explained through the flash kernels
+    cfg, vparams, _, _ = _cls_train("vit")
+    print(f"  vit held-out accuracy: {C.vit_accuracy(vparams):.4f}")
+    cfg = replace(cfg, attn_impl="flash")
+    fv = lambda xs, tt: vit.prob_fn(cfg, vparams, xs, tt)
+    exv = replace(ex, f=fv)
+    vruns = _cls_deltas("vit", exv, x, bl, t, paths_launched, unfused + FLASH)
+    vparams_cpu = _tree_to(vparams, "cpu")
+    _cls_card_vs_cpu("vit", exv, lambda xs, tt: vit.prob_fn(cfg, vparams_cpu, xs, tt), x, bl, t,
+                     vruns["paper", CLS_M][0])
+
+    # the four example modules, in-process on the card at their defaults
+    examples = (("quickstart", quickstart, ["--params", str(path)], unfused),
+                ("explain_serving", explain_serving, [], unfused),
+                ("serve_lm", serve_lm, [], ()),
+                ("train_lm", train_lm, ["--ckpt-dir", str(out / "train_lm_ckpt")], ()))
+    for name, module, argv, kernels in examples:
+        print(f"  python -m repro_torch.examples.{name} {' '.join(argv)}:")
+        result, ms, launched = _timed(lambda: module.main(argv))
+        _need(paths_launched, f"example {name}", launched, kernels)
+        print(f"  example {name}: {ms / 1e3:.2f} s, launches {({k: n for k, n in launched.items() if n})}")
+        if not result:
+            raise AssertionError(f"example {name} returned nothing")
+    shutil.rmtree(out / "train_lm_ckpt", ignore_errors=True)
     return _slice(paths_launched)
 
 
@@ -5140,7 +5316,7 @@ def main() -> int:
     slices = {}
     for name, phase in (("cnn", slice_phase), ("cnn_zoo", zoo_phase), ("vit", lambda: vit_phase("ig")),
                         ("vit_idgi", lambda: vit_phase("idgi")), ("vit_fwd", vit_fwd_phase),
-                        ("lm_engine", engine_phase), ("cache", cache_phase), ("serve", serve_phase),
+                        ("classifier", classifier_phase), ("lm_engine", engine_phase), ("cache", cache_phase), ("serve", serve_phase),
                         ("mixed", mixed_phase),
                         ("gemma_serve", gemma_serve_phase), ("gemma_engine", gemma_engine_phase),
                         ("gemma_mixed", gemma_mixed_phase), ("moe_engine", moe_engine_phase),
@@ -5166,7 +5342,7 @@ def main() -> int:
         if sum(out["carry_ranks"].values()) != out["launches"]["interp_add"]:
             raise AssertionError(f"slice {name}: interp_add's carry ranks {out['carry_ranks']} do not add "
                                  f"up to its {out['launches']['interp_add']} launches")
-    for name, rank in (("cnn", 3), ("vit", 3), ("vit_idgi", 2), ("gemma_engine", 3), ("moe_engine", 3),
+    for name, rank in (("cnn", 3), ("classifier", 3), ("vit", 3), ("vit_idgi", 2), ("gemma_engine", 3), ("moe_engine", 3),
                        ("ssm", 3), ("hybrid", 3), ("whisper", 3), ("vlm_engine", 3), ("launchers", 3)):
         if slices[name]["carry_ranks"][rank]:
             raise AssertionError(f"slice {name} launched interp_add with a rank-{rank} carry: "
@@ -5192,6 +5368,9 @@ def main() -> int:
                    if not slices[name]["launches"][k]]
         if missing:
             raise AssertionError(f"the {name} slice did not launch {missing}")
+    cls = slices["classifier"]["launches"]  # the trained CNN unfused and fused, the flash ViT
+    if [k for k in PATH_KERNELS["riemann"][0] + PATH_KERNELS["riemann"][1] + FLASH if not cls[k]]:
+        raise AssertionError(f"the classifier slice launched {cls}")
     if any(slices["ssm"]["launches"][k] for k in FLASH):  # mamba2 has no attention
         raise AssertionError(f"the ssm slice launched a flash kernel: {slices['ssm']['launches']}")
     fwd_only = {k: n for k, n in slices["vit_fwd"]["launches"].items() if n}

@@ -95,6 +95,16 @@ class ArchConfig:
         return self.encoder_layers > 0
 
     @property
+    def attn_free(self) -> bool:
+        return all(s.mixer in ("mamba", "none") for s in self.pattern)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when no layer does full global attention over the sequence:
+        local (sliding-window) attention and SSM mixers are sub-quadratic."""
+        return all(s.mixer in ("mamba", "local", "none") for s in self.pattern)
+
+    @property
     def d_inner(self) -> int:  # SSM inner width
         return self.ssm_expand * self.d_model
 

@@ -9,6 +9,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 
 M_D = LayerSpec("mamba", "dense")
 M_E = LayerSpec("mamba", "moe")
+A_E = LayerSpec("attn", "moe")
 
 CONFIG = ArchConfig(
     name="jamba-v0.1-52b",

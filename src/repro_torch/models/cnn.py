@@ -8,7 +8,8 @@ Parameters are a nested dict of tensors (``{"stem": {"w", "b"},
 "block{i}": {"t1", "t3a", "t3b", "t5a", "t5b", "tp"}, "head": {"w", "b"}}``)
 with conv weights in PyTorch's OIHW layout and the head ``w`` as
 (cin, classes) for ``x @ w``. ``params_from_numpy`` converts ``repro``'s
-HWIO tree; ``init_params`` draws fresh weights with the same fan-in rule.
+HWIO tree (``params_to_numpy`` back); ``init_params`` draws fresh weights
+with the same fan-in rule.
 
 Padding matches XLA's "SAME": out = ceil(n / stride), with the odd pixel of
 padding after, not before (the stride-2 stem and pools pad 0 before and 1
@@ -79,6 +80,17 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         return torch.from_numpy(a).to(device)
 
     return {layer: {name: conv(a) for name, a in group.items()} for layer, group in tree.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: the port's tensors -> a
+    ``repro.models.cnn`` tree of f32 arrays (conv weights HWIO)."""
+
+    def conv(t: torch.Tensor) -> np.ndarray:
+        a = t.detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
+
+    return {layer: {name: conv(t) for name, t in group.items()} for layer, group in params.items()}
 
 
 def _same_pad(x: torch.Tensor, k: int, stride: int, value: float = 0.0) -> torch.Tensor:

@@ -109,6 +109,11 @@ class VitFacade:
     def __init__(self, cfg):
         self.cfg = cfg
 
+    def embed_inputs(self, params, batch: dict) -> torch.Tensor:
+        """Refused, as ``repro``'s ``VitModel.embed_inputs``: requests for a
+        ViT carry ``features=patchify(cfg, image)``."""
+        raise TypeError(vit.NO_TOKEN_EMBEDDING)
+
     def embed_features(self, params, feats: torch.Tensor) -> torch.Tensor:
         return vit.embed_features(self.cfg, params, feats)
 

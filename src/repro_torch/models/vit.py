@@ -70,6 +70,10 @@ def patchify(cfg: VitConfig, images: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 3, 2, 4, 5).reshape(B, (H // p) * (W // p), p * p * C)
 
 
+NO_TOKEN_EMBEDDING = ("VitModel has no token embedding: ExplainRequests for a ViT must "
+                      "carry features=patchify(cfg, image) (see models/vit.patchify)")
+
+
 def embed_features(cfg: VitConfig, params: Any, feats: torch.Tensor) -> torch.Tensor:
     """Patch features -> backbone embeddings (the IG interpolation space)."""
     dt = getattr(torch, cfg.compute_dtype)
@@ -175,6 +179,10 @@ class VitModel(nn.Module):
 
     def prob(self, images: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         return prob_fn(self.cfg, self.tree(), images, target)
+
+    def embed_inputs(self, batch: dict) -> torch.Tensor:
+        """Refused, as ``repro``'s: a ViT embeds patch features, not tokens."""
+        raise TypeError(NO_TOKEN_EMBEDDING)
 
     def embed_features(self, feats: torch.Tensor) -> torch.Tensor:
         return embed_features(self.cfg, self.tree(), feats)

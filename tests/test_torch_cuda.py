@@ -952,6 +952,33 @@ def test_dryrun_count_on_meta_equals_the_cards(cuda_gen):
     assert meta["bytes_by_op"] == card["bytes_by_op"]
 
 
+@pytest.mark.cuda
+def test_classifier_step_and_images_on_the_card_match_the_cpu():
+    """The synthetic images drawn for the card equal the CPU's (1e-6: ``exp``
+    and ``sin`` part by an ulp; labels exactly), and two CNN training steps
+    from one seed (f32, TF32 off) give losses within 1e-4 relative and every
+    parameter within 2·(lr₁ + lr₂) = 6e-4: AdamW moves a component by its
+    step's lr whatever its gradient's size, so a near-zero gradient
+    component summed in another order may step the other way."""
+    from repro_torch.data import synthetic_images
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import classifier
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = synthetic_images(torch.Generator().manual_seed(0), 16, background_frac=0.35, device="cuda")
+    cpu = synthetic_images(torch.Generator().manual_seed(0), 16, background_frac=0.35, device="cpu")
+    assert float((card[0].cpu() - cpu[0]).abs().max()) <= 1e-6 and torch.equal(card[1].cpu(), cpu[1])
+    runs = [classifier.train_classifier("cnn", torch.Generator().manual_seed(1), 300, 16, 2e-3, stop=2,
+                                        device=dev) for dev in ("cuda", "cpu")]
+    (_, pc, lc), (_, ph, lh) = runs
+    assert float(((lc.cpu() - lh).abs() / lh.abs()).max()) <= 1e-4, (lc, lh)
+    for x, y in zip(tree_leaves(pc), tree_leaves(ph)):
+        assert float((x.cpu() - y).abs().max()) <= 6e-4
+
+
 def test_package_imports_and_runs_on_cpu_without_nvcc(tmp_path, monkeypatch):
     """The CUDA build is lazy: with no nvcc anywhere, every module imports,
     the flash op and the solve op run on CPU tensors, no library is loaded,

@@ -323,8 +323,7 @@ def test_get_config_knows_only_the_port_s_archs():
     assert set(ARCHS) == {"llama3-8b", "internlm2-20b", "yi-9b", "gemma3-27b", "qwen3-moe-30b-a3b",
                           "qwen3-moe-235b-a22b", "mamba2-780m", "jamba-v0.1-52b", "whisper-tiny",
                           "internvl2-26b"}
-    for name in ("whisper-tiny", "internvl2-26b"):
+    for name in ("whisper-tiny", "internvl2-26b", "paper-cnn", "vit-s16"):  # the vision configs too, as repro's
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(j_get_config(name))
-    for name in ("paper-cnn", "vit-s16", "nope"):
-        with pytest.raises(KeyError):
-            get_config(name)
+    with pytest.raises(KeyError):
+        get_config("nope")
