@@ -278,6 +278,23 @@ once when ``torch.cuda.is_available()`` is false. Imports nothing of JAX or
      moves with the rows its process computes, mesh or not).
      Each child's wall, peak, and rank 0's send, wait and gather ms a
      stage-2 call; the slice's launches are every rank's.
+ 25b. the dev tools (``repro_torch.tools``) — the seven golden methods of
+     ``make_golden`` (the paper CNN on numpy-drawn weights, m=16, ``paper``)
+     made by its own functions on the CPU and then on the card through the
+     kernels, each held to the committed ``tests/golden_torch/`` fixture at
+     ``repro``'s bands (``tests/test_golden.py``), each method's worst
+     err/limit printed; ``perf_iterate llama3-8b --explain-adaptive --full
+     --layers 2 --device cuda`` in-process through its ``main`` at its
+     defaults (8 requests, tol 1e-2, ladder 8 → 64, flash), its trajectory
+     in ``build/tools``: 8 requests, mean m_used within [8, 64], the ladder
+     ``m_ladder(8, 64)``, no miss added by the measured round, the card's
+     name in the record. On the CPU, in children started at the phase's
+     start and read after phase 27: ``perf_iterate llama3-8b decode_32k
+     --serve-dtype bfloat16`` (its exact ``counted:`` line: FLOPs and
+     collective bytes those of ``DRYRUN_CLI_COUNTS``, the peak that of
+     phase 27's record of the same cell), and the reduced llama3-8b train
+     cell of phase 27 on (data=2, model=4) under ``--grad-compression`` and
+     under ``--no-remat`` (``TOOLS_KNOB_CELLS``);
  26. the dry run on the card (``dryrun_card_phase``, after the slices'
      gates; it launches no kernel of the port) — the train phase's cell
      (llama3-8b at full width, 8 layers, B=8, S=128, remat,
@@ -357,6 +374,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import shutil
 import subprocess
@@ -5025,6 +5043,206 @@ def mesh_phase() -> dict:
     return {"launches": launches, "carry_ranks": carry, "per_path": per_path}
 
 
+# ---------------------------------------------------------------- the dev tools
+
+TOOLS_ADAPTIVE = ["llama3-8b", "--explain-adaptive", "--full", "--layers", "2", "--device", "cuda"]
+TOOLS_WIDTH = (4096, 2)  # d_model and layers of TOOLS_ADAPTIVE's model
+TOOLS_CELL = ["llama3-8b", "decode_32k", "--serve-dtype", "bfloat16"]  # the sweep's dtype
+# the reduced llama3-8b train cell of DRYRUN_REDUCED ("llama3-8b:train:64:8:1") under each knob, on
+# (data=2, model=4): torch 2.13's (FLOPs, matrix-product FLOPs, collective bytes by kind)
+TOOLS_KNOB_CELLS = {
+    "--grad-compression": (73400320, 73400320, {"all-gather": 149504, "all-reduce": 431440,
+                                                "reduce-scatter": 163840}),
+    "--no-remat": (60817408, 60817408, {"all-gather": 100352, "all-reduce": 365840, "reduce-scatter": 163840}),
+}
+TOOLS_KNOB_CHILD = r"""
+import json
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import ARCHS, ShapeConfig, reduced
+from repro_torch.tools import perf_iterate as pi
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+shape = ShapeConfig("train", 64, 8, "train")
+out = {}
+for flag in FLAGS:
+    args = pi.parser().parse_args(["llama3-8b", "train_4k", "--microbatches", "1", flag])
+    try:
+        r = pi.iterate_cell(reduced(ARCHS["llama3-8b"]), shape, mesh, "2x4", **pi.cell_knobs(shape, args))
+        out[flag] = {"status": "ok", "flops": r["flops"], "dots": r["dots"],
+                     "collectives": {k: v for k, v in r["collectives"].items() if v and k != "total"},
+                     "argument_bytes": r["argument_bytes"], "peak_bytes": r["peak_bytes"]}
+    except Exception as e:  # the gate names the cell
+        out[flag] = {"status": "error", "error": f"{type(e).__name__}: {e}"[:500]}
+print(json.dumps(out))
+"""
+# (method, the kernels its golden path launches on the card); occlusion and rise launch none
+GOLDEN_KERNELS = {"ig": PATH_KERNELS["riemann"][0], "noise_tunnel": PATH_KERNELS["riemann"][0],
+                  "expected_grad": PATH_KERNELS["riemann"][0], "idgi": PATH_KERNELS["idgi"][0],
+                  "lime": ("wls_solve",), "occlusion": (), "rise": ()}
+
+
+def tools_host_start() -> list:
+    """Start the tools phase's CPU children: ``perf_iterate`` on
+    ``TOOLS_CELL`` and ``TOOLS_KNOB_CHILD`` over ``TOOLS_KNOB_CELLS``;
+    returns [(name, process)] and the start time."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.tools.perf_iterate"] + TOOLS_CELL
+    print("  perf_iterate command line: " + " ".join(cmd[1:]))
+    popen = lambda c: subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+    code = f"FLAGS = {sorted(TOOLS_KNOB_CELLS)!r}\n" + TOOLS_KNOB_CHILD
+    children = [("cell", popen(cmd)), ("knobs", popen([sys.executable, "-c", code]))]
+    atexit.register(_stop, children)  # a gate that fails before tools_host_finish leaves none running
+    return [children, time.perf_counter()]
+
+
+def _stop(children: list) -> None:
+    """Kill and reap each (name, process) still running."""
+    for _, proc in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _golden_worst(res, want) -> dict:
+    """Each field's worst |got − want| over its ``repro`` band
+    (``tests/test_golden.py``: attributions rtol 1e-3 with an atol of 1e-5
+    plus 1e-3 of the largest |attribution|, f(x) and f(x′) 1e-4 / 1e-5, δ
+    1e-2 / 1e-4); a ratio above 1 is outside the band."""
+    import numpy as np
+
+    bands = {"attributions": (1e-3, 1e-5 + 1e-3 * float(np.abs(want["attributions"]).max())),
+             "f_x": (1e-4, 1e-5), "f_baseline": (1e-4, 1e-5), "delta": (1e-2, 1e-4)}
+    worst = {}
+    for key, (rtol, atol) in bands.items():
+        got = getattr(res, key).detach().float().cpu().numpy()
+        if got.shape != want[key].shape:
+            raise AssertionError(f"golden {key}: shape {got.shape} against {want[key].shape}")
+        worst[key] = float((np.abs(got - want[key]) / (atol + rtol * np.abs(want[key]))).max())
+    return worst
+
+
+def tools_phase() -> dict:
+    """The dev tools: the golden fixtures held on the CPU and on the card,
+    the adaptive trajectory at full width, and the host's cells started
+    (``host`` in the result, for ``tools_host_finish`` after the dry run's)."""
+    import numpy as np
+
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.schedule import m_ladder
+    from repro_torch.kernels import common
+    from repro_torch.tools import make_golden as mg
+    from repro_torch.tools import perf_iterate as pi
+
+    host = tools_host_start()
+    paths_launched = {}
+    common.reset_launches()  # the slice's own count starts here
+
+    golden = Path(mg.GOLDEN_DIR)
+    fixtures = {m: np.load(golden / f"cnn_{m}.npz") for m in sorted(METHODS)}
+    failed = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # make_golden's CPU run
+    try:
+        f, x, bl, t = mg.golden_inputs("cpu")
+        for method, want in fixtures.items():
+            res = mg.golden_result(f, x, bl, t, method, "cpu")
+            worst = _golden_worst(res, want)
+            same = all(np.array_equal(getattr(res, k).numpy(), want[k]) for k in worst)
+            print(f"  golden {method} on the CPU (torch {torch.__version__}): worst err/limit "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+                  + f"; {'bit for bit' if same else 'not bit for bit'} the fixture")
+            failed += [f"cpu {method} {k} {v:.3g}" for k, v in worst.items() if not v <= 1]
+    finally:
+        torch.set_num_threads(threads)
+    f, x, bl, t = mg.golden_inputs(DEV)
+    for method, want in fixtures.items():
+        res, ms, launched = _timed(lambda: mg.golden_result(f, x, bl, t, method, DEV))
+        _need(paths_launched, f"golden {method}", launched, GOLDEN_KERNELS[method])
+        worst = _golden_worst(res, want)
+        print(f"  golden {method} on the card: {ms:.2f} ms, worst err/limit "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+              + f"; launches {({k: n for k, n in launched.items() if n})}")
+        failed += [f"card {method} {k} {v:.3g}" for k, v in worst.items() if not v <= 1]
+    if failed:
+        raise AssertionError(f"golden fixtures outside repro's bands: {failed}")
+
+    out = ROOT / "build" / "tools"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    trajectory, pi.TRAJECTORY = pi.TRAJECTORY, str(out / "trajectory_torch.jsonl")
+    try:
+        print("  python -m repro_torch.tools.perf_iterate " + " ".join(TOOLS_ADAPTIVE) + ":")
+        rec, ms, launched = _timed(lambda: pi.main(TOOLS_ADAPTIVE))
+    finally:
+        pi.TRAJECTORY = trajectory
+    _need(paths_launched, "perf_iterate --explain-adaptive", launched, FLASH + PATH_KERNELS["riemann"][0])
+    lines = (out / "trajectory_torch.jsonl").read_text().splitlines()
+    card = _card()
+    print(f"  perf_iterate --explain-adaptive: {ms / 1e3:.2f} s, launches "
+          f"{({k: n for k, n in launched.items() if n})}; record ({card}): {json.dumps(rec)}")
+    bad = [k for k, ok in (("requests", rec["requests"] == 8), ("mean_m_used", 8 <= rec["mean_m_used"] <= 64),
+                           ("ladder", rec["ladder"] == list(m_ladder(8, 64))),
+                           ("a miss in the measured round", rec["cache_misses"] == rec["cache_misses_warm"]),
+                           ("device", rec["device"] == card), ("one trajectory line", len(lines) == 1),
+                           ("width", (rec["d_model"], rec["layers"]) == TOOLS_WIDTH))
+           if not ok]
+    if bad:
+        raise AssertionError(f"perf_iterate --explain-adaptive: {bad} in {rec}")
+    return {**_slice(paths_launched), "host": host}
+
+
+def tools_host_finish(started: list) -> None:
+    """The tools phase's CPU children: each exits 0; ``perf_iterate``'s
+    ``counted:`` line gives ``DRYRUN_CLI_COUNTS``' FLOPs, matrix-product
+    FLOPs and total collective bytes and the peak of phase 27's record of
+    the same cell; each knob cell is ``ok`` with ``TOOLS_KNOB_CELLS``'
+    counts."""
+    import re
+
+    children, t0 = started
+    outs = []
+    try:
+        for name, proc in children:
+            outs.append(proc.communicate(timeout=max(1.0, DRYRUN_CLI_S - (time.perf_counter() - t0))))
+    finally:
+        _stop(children)
+    print(f"  the tools phase's CPU children ended {time.perf_counter() - t0:.1f} s after their start")
+    failed = []
+    for (name, proc), (stdout, stderr) in zip(children, outs):
+        if proc.returncode:
+            print(stderr[-4000:])
+            raise AssertionError(f"the tools child {name} exited {proc.returncode}")
+        print("  | " + stdout.rstrip().replace("\n", "\n  | "))
+        if name == "knobs":
+            got = json.loads(stdout.strip().splitlines()[-1])
+            for flag, want in TOOLS_KNOB_CELLS.items():
+                rec = got[flag]
+                apart = [rec.get("error")] if rec["status"] != "ok" else _counts_apart(rec, want)
+                failed += [f"llama3-8b:train:64:8:1 {flag}: {a}" for a in apart]
+            continue
+        m = re.search(r"counted: flops (\d+) matrix-product flops (\d+) collective bytes (\d+) peak bytes (\d+)",
+                      stdout)
+        if m is None:
+            raise AssertionError("perf_iterate printed no counted: line")
+        flops, dots, coll, peak = (int(v) for v in m.groups())
+        want_flops, want_dots, want_coll = DRYRUN_CLI_COUNTS["llama3-8b:decode_32k"]
+        rec = json.loads((ROOT / "build" / "dryrun_cli_llama3-8b.json").read_text())["llama3-8b:decode_32k"]
+        got, want = (flops, dots, coll, peak), (want_flops, want_dots, sum(want_coll.values()),
+                                                rec["memory"]["peak_bytes"])
+        print(f"  perf_iterate {' '.join(TOOLS_CELL)}: (FLOPs, matrix-product FLOPs, collective bytes, peak) "
+              f"{got}, the dry run's {want}")
+        if got != want:
+            failed.append(f"perf_iterate {' '.join(TOOLS_CELL)} counted {got} against {want}")
+    if failed:
+        raise AssertionError(f"the tools phase's cells on the CPU (torch {torch.__version__}): {failed}")
+
+
 # ---------------------------------------------------------------- the dry run
 
 DRYRUN_TRAIN = (8, 8, 128)  # llama3-8b at full width: layers, B, S (the train phase's cell), remat
@@ -5324,7 +5542,7 @@ def main() -> int:
                         ("whisper", whisper_phase), ("vlm_engine", vlm_engine_phase),
                         ("vlm_serve", vlm_serve_phase), ("launchers", launcher_phase),
                         ("train", train_phase), ("train_launcher", train_launcher_phase),
-                        ("mesh", mesh_phase)):
+                        ("mesh", mesh_phase), ("tools", tools_phase)):
         t0 = time.perf_counter()
         slices[name] = phase()
         print(f"{name} slice phase: {time.perf_counter() - t0:.1f} s")
@@ -5383,6 +5601,7 @@ def main() -> int:
     cli = dryrun_cli_start()  # the CPU, beside the card's cells
     dryrun_card_phase()
     dryrun_cli_finish(cli)
+    tools_host_finish(slices["tools"]["host"])
     print(f"dry-run phases: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     name = torch.cuda.get_device_name(0)

@@ -57,6 +57,10 @@ class ShapeMesh:
         self.axis_names = tuple(axis_names)
         self.devices = SimpleNamespace(shape=tuple(shape), size=math.prod(shape))
 
+    def size(self) -> int:
+        """The number of ranks, as ``DeviceMesh.size()``."""
+        return self.devices.size
+
 
 @dataclass
 class Cell:
@@ -243,7 +247,7 @@ def _is_distributed(mesh: Any) -> bool:
 
 def count_cell(cell: Cell, args: Optional[tuple] = None, counter: Optional[OpCounter] = None) -> dict:
     """Run ``cell.fn`` once under ``OpCounter`` and return one rank's counts:
-    ``flops``, ``dots`` (``matmul_flops_summary``), ``bytes accessed`` (the
+    ``flops``, ``dots`` (``matmul_flops_summary``, every row), ``bytes accessed`` (the
     ops' bytes), ``bytes_by_op`` (``op_bytes_by_op``, every row), ``collectives``
     (``collective_bytes``), ``argument_bytes`` (the arguments' bytes on a
     rank), ``peak_bytes`` (the peak of live bytes, arguments included) and
@@ -279,7 +283,7 @@ def count_cell(cell: Cell, args: Optional[tuple] = None, counter: Optional[OpCou
     del out
     return {
         "flops": counter.flops,
-        "dots": matmul_flops_summary(counter),
+        "dots": matmul_flops_summary(counter, top=None),
         "bytes accessed": counter.op_bytes,
         "bytes_by_op": op_bytes_by_op(counter, top=None),
         "collectives": collective_bytes(counter.collectives),

@@ -168,7 +168,7 @@ class OpCounter(TorchDispatchMode):
         return out
 
 
-def matmul_flops_summary(counter: OpCounter, top: int = 12) -> dict:
+def matmul_flops_summary(counter: OpCounter, top: int | None = 12) -> dict:
     """``repro``'s ``dot_flops_summary`` of the counted matrix products:
     ``total_dot_flops``, ``num_dots`` and the ``top`` fingerprints by FLOPs
     (``shape``, ``flops``, ``count``, ``frac``)."""

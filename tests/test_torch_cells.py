@@ -16,7 +16,10 @@ sequence-sharded, mamba2 decode, llama3-8b train, gemma3 prefill, whose
 local layers roll their rings) count exactly the FLOPs,
 matrix-product FLOPs and collective bytes by kind of its
 ``DRYRUN_REDUCED``, which the card's host (another torch version) must
-count too; ``launch.op_trace`` logs what ``OpCounter`` counts; and one
+count too, and so do its tools phase's two knob cells (llama3-8b train
+through ``tools.perf_iterate`` under ``--grad-compression`` and under
+``--no-remat``, ``TOOLS_KNOB_CELLS``); ``launch.op_trace`` logs what
+``OpCounter`` counts; and one
 sharded matrix product, (B/dp·S, D) @ (D, F/tp), counts 2·B/dp·S·D·F/tp
 FLOPs on a rank, the rank's share and not the global product's.
 """
@@ -56,6 +59,13 @@ for key in CASES:
                 "args": c["argument_bytes"], "collectives": c["collectives"]["total"],
                 "by_kind": {k: v for k, v in c["collectives"].items() if v and k != "total"}}
 
+from repro_torch.tools import perf_iterate as pi
+shape = ShapeConfig("train", 64, 8, "train")
+for flag in KNOBS:
+    args = pi.parser().parse_args(["llama3-8b", "train_4k", "--microbatches", "1", flag])
+    r = pi.iterate_cell(reduced(ARCHS["llama3-8b"]), shape, mesh, "2x4", **pi.cell_knobs(shape, args))
+    out[flag] = [r["flops"], r["dots"], {k: v for k, v in r["collectives"].items() if v and k != "total"}]
+
 from repro_torch.launch.op_trace import OpTrace, sites
 tracer = OpTrace()
 c = count_cell(build_cell(reduced(ARCHS["qwen3-moe-30b-a3b"]), ShapeConfig("decode", 256, 8, "decode"), mesh),
@@ -75,19 +85,23 @@ print(json.dumps(out))
 """
 
 
-def _smoke_counts() -> dict:
-    """``chip_smoke.py``'s ``DRYRUN_REDUCED`` (the script imports only torch
-    at its top)."""
+def _smoke():
+    """``chip_smoke.py`` (the script imports only torch at its top)."""
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.DRYRUN_REDUCED
+    return mod
+
+
+def _smoke_counts() -> dict:
+    """``chip_smoke.py``'s ``DRYRUN_REDUCED``."""
+    return _smoke().DRYRUN_REDUCED
 
 
 @pytest.fixture(scope="module")
 def cells():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    code = f"CASES = {CASES!r}\n" + _SCRIPT
+    code = f"CASES = {CASES!r}\nKNOBS = {sorted(_smoke().TOOLS_KNOB_CELLS)!r}\n" + _SCRIPT
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=ROOT,
                           timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -95,9 +109,9 @@ def cells():
 
 
 def test_each_cell_counts(cells):
-    assert len(cells) == len(CASES) + 2
+    assert len(cells) == len(CASES) + 2 + len(_smoke().TOOLS_KNOB_CELLS)
     for k, v in cells.items():
-        if k in ("matmul", "trace"):
+        if k in ("matmul", "trace") or k.startswith("--"):
             continue
         assert v["flops"] > 0 and v["peak"] >= v["args"] > 0, (k, v)
 
@@ -118,6 +132,15 @@ def test_counts_equal_the_smokes(cells, key):
     flops, dots, by_kind = _smoke_counts()[key]
     got = cells[key]
     assert (got["flops"], got["dots"], got["by_kind"]) == (flops, dots, by_kind), (key, got)
+
+
+@pytest.mark.parametrize("flag", sorted(_smoke().TOOLS_KNOB_CELLS))
+def test_knob_cells_equal_the_smokes(cells, flag):
+    """``perf_iterate``'s knob cells that ``chip_smoke.py``'s tools phase
+    holds the card's host to; remat off counts fewer FLOPs."""
+    flops, dots, by_kind = cells[flag]
+    assert (flops, dots, by_kind) == _smoke().TOOLS_KNOB_CELLS[flag], (flag, cells[flag])
+    assert cells["--no-remat"][0] < cells["llama3-8b:train:64:8:1"]["flops"] == cells["--grad-compression"][0]
 
 
 def test_op_trace_logs_what_the_counter_counts(cells):

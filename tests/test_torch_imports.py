@@ -1,8 +1,8 @@
 """Import hygiene of the port: no JAX, no ``repro``, CUDA by default.
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
-finds no import of ``jax``, ``repro`` or the root ``benchmarks`` (which
-drives ``repro``); every module imports without
+finds no import of ``jax``, ``repro``, the root ``benchmarks`` or the root
+``tools`` (which drive ``repro``); every module imports without
 ``triton``; every parameter named ``device`` defaults to ``"cuda"``.
 """
 import ast
@@ -33,7 +33,7 @@ def _imported_roots(path: Path) -> set:
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_and_no_repro_imports(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks", "tools"}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -60,5 +60,8 @@ def test_every_module_imports_and_defaults_to_cuda():
     assert "repro_torch.models.cnn.init_params" in defaults
     assert {"repro_torch.train.classifier.eval_batch", "repro_torch.train.classifier.load_params",
             "repro_torch.data.images.synthetic_images"} <= set(defaults)
-    assert {"repro_torch.examples.quickstart", "repro_torch.examples.train_lm"} <= set(MODULES)
+    assert {"repro_torch.examples.quickstart", "repro_torch.examples.train_lm", "repro_torch.tools.perf_iterate",
+            "repro_torch.tools.make_golden", "repro_torch.tools.render_experiments"} <= set(MODULES)
+    assert {"repro_torch.tools.make_golden.golden_inputs", "repro_torch.tools.make_golden.golden_result",
+            "repro_torch.tools.perf_iterate.explain_adaptive_record"} <= set(defaults)
     assert {k: v for k, v in defaults.items() if v != "cuda"} == {}
