@@ -328,7 +328,9 @@ Before the slices, the kernels at the LM engine's shapes in bf16: the
 stage-2 kernels at (16, 16, 128·4096) beside their byte bounds, and the
 flash trio at 256 sequences of 128 (32 query heads on 8, head dim 128,
 causal, ragged lengths) beside SDPA on the same tensors and their bounds
-at the bf16 rate (``at_lm_shape`` in each kernel's record).
+at the bf16 rate (``at_lm_shape`` in each kernel's record); wherever the
+trio is timed, a second call of the forward and of dQ must give the same
+bits.
 Then the flash forward at the serve phase's prefill shapes (16 × 128 and
 2 × 999, 32 on 8, D=128, bf16, causal, every key) against its plain
 version, timed beside SDPA's forward and its bound
@@ -412,7 +414,8 @@ TOL_BF16 = 2.0**-7  # one bf16 ulp for values in [1, 2)
 PROFILE_GROUPS = {
     "Triton (the port's)": ("_interp_kernel", "_accum_kernel", "_interp_add_kernel",
                             "_accum_cot_kernel", "_dots_kernel", "_dots_sum_kernel"),
-    "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+    "flash (the port's)": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel", "flash_fwd_bf16_kernel",
+                           "flash_dq_bf16_kernel"),
     "solve (the port's)": ("gauss_jordan",),
     "GEMM (cuBLAS)": ("gemm", "Gemm", "gemv", "nvjet"),
     "casts and copies": ("copy_kernel",),
@@ -2205,13 +2208,20 @@ def _flash_trio_timed(g, shape, by_name: dict, into: str, what: str, ragged: boo
     print(f"flash kernels at {what} B·chunk={Bq} S={S} NQ={NQ} NKV={NKV} D={D} bf16, causal, "
           + (f"ragged kvlen in [{int(kvlen.min())}, {int(kvlen.max())}]:" if ragged else "every key:"))
     o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    dq = fk.flash_bwd_dq_cuda(*args, causal=True)
     dk, dv = fk.flash_bwd_dkv_cuda(*args, causal=True)
     errs = {"flash_fwd": max(_flash_close("flash_fwd o", o, o_ref, tol)[0],
                              _flash_close("flash_fwd lse", lse, lse_ref, tol)[0]),
-            "flash_bwd_dq": _flash_close("flash_bwd_dq", fk.flash_bwd_dq_cuda(*args, causal=True),
-                                         fr.flash_bwd_dq_ref(*args, causal=True), tol)[0],
+            "flash_bwd_dq": _flash_close("flash_bwd_dq", dq, fr.flash_bwd_dq_ref(*args, causal=True), tol)[0],
             "flash_bwd_dkv": max(_flash_close("flash_bwd_dkv dk", dk, dk_ref, tol)[0],
                                  _flash_close("flash_bwd_dkv dv", dv, dv_ref, tol)[0])}
+    # no atomics: a second call of the bf16 forward and dQ gives the same bits
+    o2, lse2 = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and torch.equal(dq, fk.flash_bwd_dq_cuda(*args, causal=True))):
+        raise AssertionError(f"flash forward or dQ at {what}: two calls on one input differ")
+    print("  flash_fwd, flash_bwd_dq: the same bits on a second call")
+    del o2, lse2, dq
     # SDPA on the same bf16 tensors, K/V expanded to the query heads: the
     # causal ragged mask as a boolean mask (its memory-efficient backend),
     # or with every key ``is_causal`` (its flash backend first)

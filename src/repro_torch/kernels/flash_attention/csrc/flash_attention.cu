@@ -3,8 +3,10 @@
 // (src/repro_torch/kernels/flash_attention/kernel.py).
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:
-//   flash_attention_fwd_pallas     (_flash_fwd_kernel)     -> flash_fwd_kernel
-//   flash_attention_bwd_dq_pallas  (_flash_bwd_dq_kernel)  -> flash_dq_kernel
+//   flash_attention_fwd_pallas     (_flash_fwd_kernel)     -> flash_fwd_kernel,
+//                                                             flash_fwd_bf16_kernel
+//   flash_attention_bwd_dq_pallas  (_flash_bwd_dq_kernel)  -> flash_dq_kernel,
+//                                                             flash_dq_bf16_kernel
 //   flash_attention_bwd_dkv_pallas (_flash_bwd_dkv_kernel) -> flash_dkv_kernel
 //
 // What they compute is the Pallas kernels' contract: GQA (query head h reads
@@ -13,18 +15,71 @@
 // forward's f32 logsumexp as keep ? exp(s - lse) : 0, dS = P (dP - delta)
 // with delta = rowsum(dO O) computed outside, and the scale applied where the
 // Pallas kernels apply it (on Q before Q K^T in the forward, on Q K^T and on
-// the final dQ/dK sums in the backward). Rows with no valid key give O = 0
-// and zero gradients. Nothing is summed across blocks and no atomics are
-// used, so every output is the same bits on every run.
+// the final dQ/dK sums in the backward; the bf16 forward applies it to
+// Q K^T, below). Rows with no valid key give O = 0 and zero gradients.
+// Nothing is summed across blocks and no atomics are used, so every output
+// is the same bits on every run.
 //
-// Bound on the H100: operations. At the ViT's shape (256 images, 6 heads,
+// Two designs share the file. The bf16 forward and dQ up to D = 128 (the
+// LMs' attention) have their own, next; the f32 kernels, bf16 dK/dV and the
+// bf16 forward and dQ above D = 128 run the f32 design after it.
+//
+// The bf16 design (flash_fwd_bf16_kernel, flash_dq_bf16_kernel).
+// Bound on the H100: bytes at short sequences, operations at long ones. At
+// the LM engine's attention (256 rows of S = 128, 32 query heads on 8, D =
+// 128, causal) the forward does 2 S^2 D flops a query head (both products,
+// half the square) against about 5 S D bytes (Q read, O written, K and V
+// read once for a group of 4 heads): about 50 flops a byte, far below the
+// 295 at which bf16 products stop being bound by bytes, so there the bound
+// is the 670 MB the forward moves (0.2 ms). At S = 4096 (gemma3's prefill)
+// the same ratio is 32 times larger and the products bound it. The choices:
+// - Products: mma.sync m16n8k16 bf16, f32 accumulation. Q K^T and dO V^T
+//   take their bf16 inputs as they are, one product each, exact. P (the
+//   forward) and dS (dQ) are f32 and enter as a bf16 pair, hi = bf16(x) and
+//   lo = bf16(x - hi), two products (lo first): about 16 bits of P, where
+//   one bf16 P keeps 8 and repro's Pallas kernel and the plain version take
+//   P V in f32. The scale is applied to S in f32 after the product, as
+//   s scale log2(e) in the exponent (fmaf, exp2f): repro's forward scales Q
+//   first, so the two differ by f32 rounding only, and Q keeps no rounded
+//   scaled copy (which would take a second product, for its low part).
+//   Fragments come through ldmatrix from the bf16 tiles, with .trans where
+//   an operand is read along the sequence (V in P V, K in dS K); the
+//   accumulator of S over keys 16 j .. + 15 is P's (dS's) A fragment as it
+//   stands, with no shuffle.
+// - Tiling: 4 warps, 64 query rows a block; each warp owns a 16-row strip
+//   and all D output columns (O or dQ in registers, 64 floats a thread at
+//   D = 128), so no strip is shared and S is computed once. K/V are swept
+//   in 32-key tiles, once per 64 query rows and per query head; small
+//   tiles keep registers (168) and shared memory (51 KB forward, 69 KB dQ
+//   at D = 128) low enough for three blocks an SM, whose 12 warps hide the
+//   latency of the short sweeps that bound the LM engine's shape. dQ takes
+//   S, then dP, so only one product's fragments are live at a time, reads
+//   its rows' lse and delta from shared memory each tile, and unrolls the
+//   products' depth loop by 2, not whole: that fits 168 registers without
+//   a spill, and ran faster than the whole unroll did with one.
+// - Copies: 16-byte cp.async in a ring of two stages (the next tile in
+//   flight while this one is used), bf16 kept as bf16 (half the f32
+//   design's shared memory); rows that are not 16-byte aligned are copied
+//   element by element through registers. Ragged edges are zero-filled.
+//   The output strip goes out through the warp's own rows of the Q tile as
+//   16-byte stores, each row's chunks on neighbouring lanes.
+// - Dead work is cut at 16-key granularity: a warp whose rows lie past Sq
+//   or see no key of a tile does no product, and a 16-key step wholly past
+//   kvlen or in the causal future is skipped; a tile whose every score is
+//   kept takes a path without mask tests. The blocks of the longest causal
+//   sweeps are launched first.
+// - Tiers: up to 64 and up to 128 take this design. Above 128 (no
+//   architecture of the repo) a warp owning every column would hold 128
+//   accumulators besides S, so those keep the f32 design's code.
+//
+// The f32 design. Bound on the H100: operations. At the ViT's shape (256 images, 6 heads,
 // S = 196, D = 64, f32) the forward does 4 S^2 D flops per (image, head)
 // for 2 (S D) reads, about 100 flops per byte; the backward pair 14 S^2 D.
 // At f32 accuracy on the tensor cores (3xTF32, below: three TF32 operations
 // per f32 operation) the forward's bounds by operations and by bytes are
 // about equal there.
 //
-// All three kernels are designed for Hopper's tensor cores:
+// All three kernels of this design are built for Hopper's tensor cores:
 // - Products: mma.sync m16n8k8 TF32 in 3xTF32. Each f32 operand is split as
 //   big = tf32(x), small = tf32(x - big), both rounded as cvt.rna rounds
 //   (to nearest, ties away; done with two integer operations, which are
@@ -87,6 +142,8 @@
 #include <math.h>
 
 #include <cstdint>
+#include <cstring>
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
@@ -898,6 +955,470 @@ __global__ void __launch_bounds__(32 * NWARP, MINB) flash_dkv_kernel(const Param
   }
 }
 
+// ----------------------------------------------- bf16 forward and dQ (D <= 128)
+// The bf16 design of the header note: tiles stay bf16 in shared memory, rows
+// LDH = DMAX + 8 elements apart (16 bytes of padding, so the eight rows of an
+// ldmatrix matrix, read plain or with .trans, fall in eight distinct 16-byte
+// bank groups); every product is mma.sync m16n8k16 bf16 with f32
+// accumulation; each warp owns a 16-row strip and all its output columns.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix_x4 and cp_async16 on bf16 tiles (copies, so the f32 design's
+// code stays as it was): four 8 x 8 b16 matrices, lane l giving the address
+// of row l % 8 of matrix l / 8, thread t receiving row t / 4, elements
+// 2 (t % 4) and 2 (t % 4) + 1 of matrix i in x[i], the layout of an
+// mma.sync bf16 fragment; .trans hands each thread a column pair instead
+// (an operand read along the sequence).
+__device__ __forceinline__ void ldsm4(uint32_t x[4], const bf16* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t x[4], const bf16* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void cp_async16_h(bf16* dst, const void* src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, sizeof(u));
+  return u;
+}
+
+// An f32 pair (a the lower column) as two bf16 pairs, hi = bf16(x) and
+// lo = bf16(x - hi): hi + lo keeps about 16 bits of x.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+}
+
+// Rows [row0, row0 + R) of a (nrows, D) bf16 slab with row stride ss into a
+// tile of rows LDH elements apart, columns [0, DK); rows at or past nrows and
+// columns at or past D become 0. 16-byte cp.async chunks of 8 elements when
+// vec (a zero source size fills zeros), else element by element through
+// registers (rows that are not 16-byte aligned).
+template <int LDH, int NTH>
+__device__ __forceinline__ void stage_bf16(bf16* dst, const bf16* src, long long ss, int row0, int R,
+                                           int nrows, int D, int DK, bool vec) {
+  if (vec) {
+    const int cpr = DK >> 3;
+    for (int e = threadIdx.x; e < R * cpr; e += NTH) {
+      const int r = e / cpr, c = 8 * (e - r * cpr), row = row0 + r;
+      const bool ok = row < nrows && c < D;
+      cp_async16_h(dst + r * LDH + c, ok ? src + row * ss + c : src, ok);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int e = threadIdx.x; e < R * DK; e += NTH) {
+      const int r = e / DK, c = e - r * DK, row = row0 + r;
+      dst[r * LDH + c] = row < nrows && c < D ? src[row * ss + c] : zero;
+    }
+  }
+}
+
+// 2^x as ex2.approx.ftz.f32 (a result below 2^-126 flushes to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What a warp of the bf16 kernels needs of its rows and of the mask.
+struct Strip {
+  int lane, m0, DK, Sq, kvlen;  // m0: the warp's first row in the block; DK: D rounded up to 16
+  bool causal;
+};
+
+// Writes the warp's 16 x D output strip, acc[j][e] * mul[e / 2] (row
+// rw + g + 8 (e / 2), column 8 j + 2 tg + e % 2), as bf16. With vec (every
+// output row 16-byte aligned, D a multiple of 8) through the warp's own
+// rows of st (m0 .. m0 + 15, which only this warp reads) and 16-byte
+// stores, a row's chunks on neighbouring lanes; else element by element.
+template <int DMAX>
+__device__ __forceinline__ void store_strip(bf16* out, long long so, bf16* st, const float (&acc)[DMAX / 8][4],
+                                            const float mul[2], const Strip& W, int rw, int D, bool vec) {
+  constexpr int LDH = DMAX + 8;
+  const int g = W.lane >> 2, tg = W.lane & 3;
+  if (vec) {
+    bf16* t = st + W.m0 * LDH;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+      if (8 * j < D) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<__nv_bfloat162*>(t + (g + 8 * hf) * LDH + 8 * j + 2 * tg) =
+              __floats2bfloat162_rn(acc[j][2 * hf] * mul[hf], acc[j][2 * hf + 1] * mul[hf]);
+      }
+    }
+    __syncwarp();
+    const int cpr = D >> 3;
+    for (int e = W.lane; e < 16 * cpr; e += 32) {
+      const int r = e / cpr, c = 8 * (e - r * cpr);
+      if (rw + r < W.Sq)
+        *reinterpret_cast<uint4*>(out + (rw + r) * so + c) = *reinterpret_cast<const uint4*>(t + r * LDH + c);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < DMAX / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rw + g + 8 * (e >> 1), d = 8 * j + 2 * tg + (e & 1);
+        if (row < W.Sq && d < D) out[row * so + d] = __float2bfloat16(acc[j][e] * mul[e >> 1]);
+      }
+    }
+  }
+}
+
+// s = A B^T over the live 16-key steps of a tile for the warp's 16 rows:
+// A's rows m0 .. m0 + 15 (Q, or dO), B the tile's keys (K, or V). KU: the
+// depth loop's unroll (dQ, with two products live, fits its registers only
+// at 2; the forward unrolls it whole).
+template <int DMAX, int BK, bool DALL, bool FULL, int KU = DMAX / 16>
+__device__ __forceinline__ void scores_bf16(float (&s)[BK / 8][4], const Strip& W, const bf16* As, const bf16* Bt,
+                                            int nlive) {
+  constexpr int LDH = DMAX + 8, NKS = BK / 16;
+  const int lane = W.lane;
+  // this lane's ldmatrix rows: A (rows l % 16, column half l / 16), B^T
+  // (keys l % 8 + 8 (l / 16), column half (l / 8) % 2)
+  const bf16* arow = As + (W.m0 + (lane & 15)) * LDH + (lane >> 4) * 8;
+  const bf16* brow = Bt + ((lane & 7) + ((lane >> 4) << 3)) * LDH + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll(KU)
+  for (int ks = 0; ks < DMAX / 16; ++ks) {
+    if (!DALL && 16 * ks >= W.DK) break;
+    uint32_t a[4];
+    ldsm4(a, arow + 16 * ks);
+#pragma unroll
+    for (int j = 0; j < NKS; ++j) {
+      if (FULL || j < nlive) {
+        uint32_t b[4];
+        ldsm4(b, brow + 16 * j * LDH + 16 * ks);
+        mma_bf16(s[2 * j], a, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc += X Y over the live 16-key steps, X (P or dS, f32, the accumulators
+// of scores_bf16 over keys 16 j .. + 15 as they stand: an A fragment with
+// no shuffle) split into hi and lo bf16 parts, two products (lo first), and
+// Y the tile's rows (V or K) read along the keys through ldmatrix .trans.
+template <int DMAX, int BK, bool DALL, bool FULL>
+__device__ __forceinline__ void pv_bf16(float (&acc)[DMAX / 8][4], const float (&x)[BK / 8][4], const Strip& W,
+                                        const bf16* Yt, int nlive) {
+  constexpr int LDH = DMAX + 8, NKS = BK / 16;
+  const bf16* yrow = Yt + (W.lane & 15) * LDH + (W.lane >> 4) * 8;  // keys l % 16, column half l / 16
+#pragma unroll
+  for (int j = 0; j < NKS; ++j) {
+    if (FULL || j < nlive) {
+      uint32_t hi[4], lo[4];
+      split_bf16(x[2 * j][0], x[2 * j][1], hi[0], lo[0]);
+      split_bf16(x[2 * j][2], x[2 * j][3], hi[1], lo[1]);
+      split_bf16(x[2 * j + 1][0], x[2 * j + 1][1], hi[2], lo[2]);
+      split_bf16(x[2 * j + 1][2], x[2 * j + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int dj = 0; dj < DMAX / 16; ++dj) {
+        if (!DALL && 16 * dj >= W.DK) break;
+        uint32_t yb[4];
+        ldsm4_t(yb, yrow + 16 * j * LDH + 16 * dj);
+        mma_bf16(acc[2 * dj], lo, yb[0], yb[1]);
+        mma_bf16(acc[2 * dj + 1], lo, yb[2], yb[3]);
+        mma_bf16(acc[2 * dj], hi, yb[0], yb[1]);
+        mma_bf16(acc[2 * dj + 1], hi, yb[2], yb[3]);
+      }
+    }
+  }
+}
+
+// One K/V tile for the warp, bf16: S = Q K^T, the online softmax of the
+// thread's two rows in base 2 (scale log2(e) applied to S in f32; the keep
+// test only when MASKED), then O = O corr + P V.
+template <int DMAX, int BK, bool DALL, bool FULL, bool MASKED>
+__device__ __forceinline__ void fwd_tile_bf16(float (&acc)[DMAX / 8][4], float m[2], float l[2], const Strip& W,
+                                              const bf16* Qs, const bf16* Kt, const bf16* Vt, int k0, int nlive,
+                                              int r0, float sl2) {
+  constexpr int NKF = BK / 8;
+  const int tg = W.lane & 3;
+  float s[NKF][4];
+  scores_bf16<DMAX, BK, DALL, FULL>(s, W, Qs, Kt, nlive);
+  // element e of fragment n: row r0 + 8 (e / 2), key k0 + 8 n + 2 tg + e % 2
+  auto keep = [&](int n, int e) {
+    return !MASKED || ((FULL || (n >> 1) < nlive) &&
+                       keep_score(r0 + 8 * (e >> 1), k0 + 8 * n + 2 * tg + (e & 1), W.kvlen, W.causal));
+  };
+  float mt[2] = {NEG_INF, NEG_INF}, corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (keep(n, e)) mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the row's max over the quad's four lanes, then in base 2
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+    mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+    const float mn = fmaxf(m[r], mt[r] == NEG_INF ? NEG_INF : mt[r] * sl2);  // sl2 > 0 keeps the max
+    corr[r] = ex2(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {  // P in place of S
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pv = keep(n, e) ? ex2(fmaf(s[n][e], sl2, -m[e >> 1])) : 0.f;
+      s[n][e] = pv;
+      rs[e >> 1] += pv;
+    }
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+#pragma unroll
+  for (int j = 0; j < DMAX / 8; ++j) {
+    acc[j][0] *= corr[0];
+    acc[j][1] *= corr[0];
+    acc[j][2] *= corr[1];
+    acc[j][3] *= corr[1];
+  }
+  pv_bf16<DMAX, BK, DALL, FULL>(acc, s, W, Vt, nlive);
+}
+
+// grid (ceil(Sq / BM), NQ, B), BM = 16 NWARP query rows, the blocks of the
+// longest causal sweeps first; warp w owns rows 16 w .. + 15 and every
+// output column. Shared: Qs (BM rows), two K and two V buffers (BK rows).
+// flags: 1 q, k, v rows 16-byte aligned (cp.async), 2 o rows likewise.
+template <int DMAX, int NWARP, int MINB, int BK, bool DALL>
+__global__ void __launch_bounds__(32 * NWARP, MINB) flash_fwd_bf16_kernel(const Params p, int flags) {
+  constexpr int NTH = 32 * NWARP, LDH = DMAX + 8, BM = 16 * NWARP, NKS = BK / 16, TK = BK * LDH;
+  extern __shared__ float4 smem_v[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_v);
+  bf16* Ks = Qs + BM * LDH;
+  bf16* Vs = Ks + 2 * TK;
+  const bool vec = flags & 1;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
+  const int hk = h / (int)(p.NQ / p.NKV);
+  Strip W;
+  W.lane = threadIdx.x & 31;
+  W.m0 = 16 * warp;
+  W.DK = (D + 15) & ~15;
+  W.Sq = Sq;
+  W.kvlen = min(max(p.kvlen[b], 0), Sk);
+  W.causal = p.causal != 0;
+  const float sl2 = (float)p.scale * LOG2E;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.st[V][0] + hk * p.st[V][1];
+  bf16* o = static_cast<bf16*>(p.o) + b * p.st[O][0] + h * p.st[O][1];
+
+  const int rw = q0 + W.m0, r0 = rw + (W.lane >> 2);  // the warp's first row, the thread's first
+  const bool live = rw < Sq;  // a warp wholly past Sq does no product
+  int klim = W.kvlen;         // keys the warp's rows can see
+  if (W.causal) klim = min(klim, min(rw + 16, Sq));
+  int kend = W.kvlen;  // keys any row of the block can see
+  if (W.causal) kend = min(kend, min(q0 + BM, Sq));
+  const int nk = (kend + BK - 1) / BK;
+
+  if (nk > 0) {
+    stage_bf16<LDH, NTH>(Qs, q, p.st[Q][2], q0, BM, Sq, D, W.DK, vec);
+    stage_bf16<LDH, NTH>(Ks, k, p.st[K][2], 0, BK, Sk, D, W.DK, vec);
+    stage_bf16<LDH, NTH>(Vs, v, p.st[V][2], 0, BK, Sk, D, W.DK, vec);
+  }
+  cp_async_commit();
+
+  float acc[DMAX / 8][4] = {}, m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {  // the next tile's copies run while this one is used
+      const int nxt = (kt + 1) * BK;
+      stage_bf16<LDH, NTH>(Ks + (cur ^ 1) * TK, k, p.st[K][2], nxt, BK, Sk, D, W.DK, vec);
+      stage_bf16<LDH, NTH>(Vs + (cur ^ 1) * TK, v, p.st[V][2], nxt, BK, Sk, D, W.DK, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = kt * BK;
+    const int nlive = min(max((klim - k0 + 15) >> 4, 0), NKS);  // 16-key steps with a live key
+    if (live && nlive > 0) {
+      const bf16* Kt = Ks + cur * TK;
+      const bf16* Vt = Vs + cur * TK;
+      // every score of the tile kept: no key at or past kvlen, no key in the
+      // causal future of the warp's first row
+      const bool clear = k0 + BK <= W.kvlen && (!W.causal || k0 + BK - 1 <= rw);
+      if (nlive < NKS)
+        fwd_tile_bf16<DMAX, BK, DALL, false, true>(acc, m, l, W, Qs, Kt, Vt, k0, nlive, r0, sl2);
+      else if (!clear)
+        fwd_tile_bf16<DMAX, BK, DALL, true, true>(acc, m, l, W, Qs, Kt, Vt, k0, nlive, r0, sl2);
+      else
+        fwd_tile_bf16<DMAX, BK, DALL, true, false>(acc, m, l, W, Qs, Kt, Vt, k0, nlive, r0, sl2);
+    }
+    __syncthreads();  // the buffer is refilled next iteration
+  }
+  cp_async_wait<0>();
+  float lc[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // the row's sum over the quad's four lanes
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lc[r] = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / lc[r];
+  }
+  if (live) store_strip<DMAX>(o, p.st[O][2], Qs, acc, inv, W, rw, D, flags & 2);
+  if ((W.lane & 3) == 0) {  // one lane of each quad
+    const long long row_base = ((long long)b * p.NQ + h) * Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // lse = m + log(l) in base e; a row with no key keeps NEG_INF
+      const int row = r0 + 8 * r;
+      if (row < Sq) p.lse[row_base + row] = (m[r] == NEG_INF ? NEG_INF : m[r] * LN2) + logf(lc[r]);
+    }
+  }
+}
+
+// One K/V tile's products for the warp, bf16: S = Q K^T, then dP = dO V^T
+// (one product after the other: half the fragments live at once), P and dS
+// in registers (the keep test only when MASKED), then dQ += dS K.
+template <int DMAX, int BK, bool DALL, bool FULL, bool MASKED>
+__device__ __forceinline__ void dq_tile_bf16(float (&acc)[DMAX / 8][4], const Strip& W, const bf16* Qs,
+                                             const bf16* DOs, const bf16* Kt, const bf16* Vt, int k0, int nlive,
+                                             int r0, float sl2, const float* lse2, const float* dl) {
+  constexpr int NKF = BK / 8;
+  const int tg = W.lane & 3;
+  float s[NKF][4], dp[NKF][4];
+  scores_bf16<DMAX, BK, DALL, FULL, 2>(s, W, Qs, Kt, nlive);
+  scores_bf16<DMAX, BK, DALL, FULL, 2>(dp, W, DOs, Vt, nlive);
+  const int rt = W.m0 + (W.lane >> 2);  // the thread's first row, in the block
+  const float ls[2] = {lse2[rt], lse2[rt + 8]}, ds[2] = {dl[rt], dl[rt + 8]};
+#pragma unroll
+  for (int n = 0; n < NKF; ++n) {  // P, then dS = P (dP - delta), in place of S
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pv = ex2(fmaf(s[n][e], sl2, -ls[e >> 1]));
+      if (MASKED) {
+        const int row = r0 + 8 * (e >> 1), key = k0 + 8 * n + 2 * tg + (e & 1);
+        if (!(row < W.Sq && keep_score(row, key, W.kvlen, W.causal))) pv = 0.f;
+      }
+      s[n][e] = pv * (dp[n][e] - ds[e >> 1]);
+    }
+  }
+  pv_bf16<DMAX, BK, DALL, FULL>(acc, s, W, Kt, nlive);
+}
+
+// grid (ceil(Sq / BM), NQ, B), BM = 16 NWARP query rows, the blocks of the
+// longest causal sweeps first; warp w owns rows 16 w .. + 15 and every
+// output column. Shared: Qs, DOs (BM rows), two K and two V buffers (BK
+// rows), the block's rows of lse (in base 2) and delta, read each tile
+// rather than held in registers. flags: 1 q, k, v, dO rows 16-byte
+// aligned, 2 dq rows likewise.
+template <int DMAX, int NWARP, int MINB, int BK, bool DALL>
+__global__ void __launch_bounds__(32 * NWARP, MINB) flash_dq_bf16_kernel(const Params p, int flags) {
+  constexpr int NTH = 32 * NWARP, LDH = DMAX + 8, BM = 16 * NWARP, NKS = BK / 16, TK = BK * LDH;
+  extern __shared__ float4 smem_v[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_v);
+  bf16* DOs = Qs + BM * LDH;
+  bf16* Ks = DOs + BM * LDH;
+  bf16* Vs = Ks + 2 * TK;
+  float* lse2 = reinterpret_cast<float*>(Vs + 2 * TK);
+  float* dl = lse2 + BM;
+  const bool vec = flags & 1;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int D = (int)p.D, Sq = (int)p.Sq, Sk = (int)p.Sk;
+  const int hk = h / (int)(p.NQ / p.NKV);
+  Strip W;
+  W.lane = threadIdx.x & 31;
+  W.m0 = 16 * warp;
+  W.DK = (D + 15) & ~15;
+  W.Sq = Sq;
+  W.kvlen = min(max(p.kvlen[b], 0), Sk);
+  W.causal = p.causal != 0;
+  const float scale = (float)p.scale, sl2 = scale * LOG2E;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.st[Q][0] + h * p.st[Q][1];
+  const bf16* dout = static_cast<const bf16*>(p.dout) + b * p.st[DOUT][0] + h * p.st[DOUT][1];
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.st[K][0] + hk * p.st[K][1];
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.st[V][0] + hk * p.st[V][1];
+  bf16* dq = static_cast<bf16*>(p.dq) + b * p.st[DQ][0] + h * p.st[DQ][1];
+  const long long row_base = ((long long)b * p.NQ + h) * Sq;
+
+  const int rw = q0 + W.m0, r0 = rw + (W.lane >> 2);  // the warp's first row, the thread's first
+  // lse in base 2 (P = exp2(s scale log2(e) - lse log2(e))) and delta of the block's rows
+  for (int i = threadIdx.x; i < BM; i += NTH) {
+    const bool ok = q0 + i < Sq;
+    lse2[i] = ok ? p.lse[row_base + q0 + i] * LOG2E : 0.f;
+    dl[i] = ok ? p.delta[row_base + q0 + i] : 0.f;
+  }
+  const bool live = rw < Sq;  // a warp wholly past Sq does no product
+  int klim = W.kvlen;         // keys the warp's rows can see
+  if (W.causal) klim = min(klim, min(rw + 16, Sq));
+  int kend = W.kvlen;  // keys any row of the block can see
+  if (W.causal) kend = min(kend, min(q0 + BM, Sq));
+  const int nk = (kend + BK - 1) / BK;
+
+  if (nk > 0) {
+    stage_bf16<LDH, NTH>(Qs, q, p.st[Q][2], q0, BM, Sq, D, W.DK, vec);
+    stage_bf16<LDH, NTH>(DOs, dout, p.st[DOUT][2], q0, BM, Sq, D, W.DK, vec);
+    stage_bf16<LDH, NTH>(Ks, k, p.st[K][2], 0, BK, Sk, D, W.DK, vec);
+    stage_bf16<LDH, NTH>(Vs, v, p.st[V][2], 0, BK, Sk, D, W.DK, vec);
+  }
+  cp_async_commit();
+
+  float acc[DMAX / 8][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) {  // the next tile's copies run while this one is used
+      const int nxt = (kt + 1) * BK;
+      stage_bf16<LDH, NTH>(Ks + (cur ^ 1) * TK, k, p.st[K][2], nxt, BK, Sk, D, W.DK, vec);
+      stage_bf16<LDH, NTH>(Vs + (cur ^ 1) * TK, v, p.st[V][2], nxt, BK, Sk, D, W.DK, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = kt * BK;
+    const int nlive = min(max((klim - k0 + 15) >> 4, 0), NKS);  // 16-key steps with a live key
+    if (live && nlive > 0) {
+      const bf16* Kt = Ks + cur * TK;
+      const bf16* Vt = Vs + cur * TK;
+      // every score of the tile kept: no key at or past kvlen, no row past
+      // Sq, no key in the causal future of the warp's first row
+      const bool clear = k0 + BK <= W.kvlen && rw + 16 <= Sq && (!W.causal || k0 + BK - 1 <= rw);
+      if (nlive < NKS)
+        dq_tile_bf16<DMAX, BK, DALL, false, true>(acc, W, Qs, DOs, Kt, Vt, k0, nlive, r0, sl2, lse2, dl);
+      else if (!clear)
+        dq_tile_bf16<DMAX, BK, DALL, true, true>(acc, W, Qs, DOs, Kt, Vt, k0, nlive, r0, sl2, lse2, dl);
+      else
+        dq_tile_bf16<DMAX, BK, DALL, true, false>(acc, W, Qs, DOs, Kt, Vt, k0, nlive, r0, sl2, lse2, dl);
+    }
+    __syncthreads();  // the buffer is refilled next iteration
+  }
+  cp_async_wait<0>();
+  const float mul[2] = {scale, scale};
+  if (live) store_strip<DMAX>(dq, p.st[DQ][2], Qs, acc, mul, W, rw, D, flags & 2);
+}
+
 template <typename KernelFn, typename... Args>
 cudaError_t launch(KernelFn kern, dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    const Args&... args) {
@@ -951,16 +1472,67 @@ cudaError_t run_bwd(const Params& p, cudaStream_t stream) {
                   smem + sizeof(float) * 4 * BT, stream, p, vec);
 }
 
-// WHICH: 0 forward, 1 dQ, 2 dK/dV; three head-dim tiers (rows a block owns,
-// swept tile, shared memory, the same for all three kernels): up to 64,
-// 8 warps at two blocks an SM (128 rows, 16, 102 KB); up to 128, 4 warps
-// (32 rows, 16, 99 KB); up to 256, 4 warps (32 rows, 16, 195 KB). Above 64 two warps
-// share a 16-row strip, each with half the output columns, so the
-// accumulators fit in registers.
+// Whether the rows of the operands in `which` start 16-byte aligned and hold
+// whole 16-byte chunks of 8 bf16 elements.
+bool bf16_rows16(const Params& p, std::initializer_list<int> which) {
+  if (p.D % 8) return false;
+  const void* ptrs[8] = {p.q, p.k, p.v, p.dout, p.o, p.dq, p.dk, p.dv};
+  for (int i : which) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (p.st[i][j] % 8) return false;
+  }
+  return true;
+}
+
+// The bf16 forward (WHICH 0) or dQ (1): NW warps of 16 rows, MINB blocks
+// an SM asked of the register allocator, K/V swept in tiles of BK keys;
+// the kernel without column tests when D rounds up to DMAX.
+template <int WHICH, int DMAX, int NW, int MINB, int BK>
+cudaError_t run_bf16(const Params& p, cudaStream_t stream) {
+  constexpr int rows = 16 * NW;  // query rows a block owns
+  // Q (and dO), two K and two V buffers (and dQ's rows of lse and delta)
+  constexpr size_t smem = sizeof(bf16) * (DMAX + 8) * ((WHICH == 0 ? 1 : 2) * rows + 4 * BK) +
+                          (WHICH == 0 ? 0 : 2 * sizeof(float) * rows);
+  const dim3 grid((unsigned)((p.Sq + rows - 1) / rows), (unsigned)p.NQ, (unsigned)p.B);
+  const bool dall = (p.D + 15) / 16 * 16 == DMAX;
+  if constexpr (WHICH == 0) {
+    const int flags = (int)bf16_rows16(p, {Q, K, V}) | (int)bf16_rows16(p, {O}) << 1;
+    return dall ? launch(flash_fwd_bf16_kernel<DMAX, NW, MINB, BK, true>, grid, 32 * NW, smem, stream, p, flags)
+                : launch(flash_fwd_bf16_kernel<DMAX, NW, MINB, BK, false>, grid, 32 * NW, smem, stream, p, flags);
+  } else {
+    const int flags = (int)bf16_rows16(p, {Q, K, V, DOUT}) | (int)bf16_rows16(p, {DQ}) << 1;
+    return dall ? launch(flash_dq_bf16_kernel<DMAX, NW, MINB, BK, true>, grid, 32 * NW, smem, stream, p, flags)
+                : launch(flash_dq_bf16_kernel<DMAX, NW, MINB, BK, false>, grid, 32 * NW, smem, stream, p, flags);
+  }
+}
+
+// WHICH: 0 forward, 1 dQ, 2 dK/dV. The bf16 forward and dQ up to D = 128
+// take the bf16 design: 4 warps of 16 rows (64 query rows a block), 32-key
+// tiles; up to 64, 27 and 37 KB of shared memory at four and three blocks
+// an SM; up to 128, 51 and 69 KB at three blocks an SM (168 registers a
+// thread). On an H100 80GB HBM3, three blocks of 32-key tiles ran the
+// forward at the LM engine's shape in 0.52 ms, two of 64-key tiles in
+// 0.75; two 16-row m-tiles a warp (each K/V fragment feeding two products)
+// spilled past 255 registers. Above 128 they keep the f32 design's code,
+// with bf16 staged as f32: a warp owning all 256 output columns would hold
+// 128 accumulators besides S. Everything else, three head-dim tiers of the
+// f32 design (rows a block owns, swept tile, shared memory, the same for
+// all three kernels): up to 64, 8 warps at two blocks an SM (128 rows, 16,
+// 102 KB); up to 128, 4 warps (32 rows, 16, 99 KB); up to 256, 4 warps (32
+// rows, 16, 195 KB). Above 64 two warps share a 16-row strip, each with
+// half the output columns, so the accumulators fit in registers.
 template <typename T, int WHICH>
 cudaError_t run_d(const Params& p, cudaStream_t stream) {
   if (p.D < 1 || p.D > 256) return cudaErrorInvalidValue;
-  if constexpr (WHICH == 0) {
+  if constexpr (std::is_same<T, bf16>::value && WHICH < 2) {
+    if (p.D <= 64) return run_bf16<WHICH, 64, 4, WHICH == 0 ? 4 : 3, 32>(p, stream);
+    if (p.D <= 128) return run_bf16<WHICH, 128, 4, 3, 32>(p, stream);
+    if constexpr (WHICH == 0)
+      return run_fwd<T, 256, 4, 1, 2, 16>(p, stream);
+    else
+      return run_bwd<WHICH, T, 256, 4, 1, 2, 16>(p, stream);
+  } else if constexpr (WHICH == 0) {
     if (p.D <= 64) return run_fwd<T, 64, 8, 2, 1, 16>(p, stream);
     if (p.D <= 128) return run_fwd<T, 128, 4, 1, 2, 16>(p, stream);
     return run_fwd<T, 256, 4, 1, 2, 16>(p, stream);

@@ -11,12 +11,16 @@ be multiples of a block (the kernels mask the ragged tiles instead of the
 wrapper padding them), and any strides are taken as long as the head dim is
 contiguous, so the op passes transposed views of the model's (B, S, H, D)
 tensors and copies nothing. Outputs are allocated with their input's
-strides. The Pallas block sizes are TPU tiles and are not taken: all three
-kernels give each warp a 16-row strip (8 warps, 128 rows a block up to head
-dim 64; 4 warps, 32 rows above, two warps to a strip) and sweep the other
-side in 16-row tiles brought in by ``cp.async``, with every product on the
-tensor cores in 3xTF32 (about f32 accuracy); the forward keeps its online
-softmax per strip and adds each tile's P·V to O in f32.
+strides. The Pallas block sizes are TPU tiles and are not taken. In bf16 up
+to head dim 128 the forward and dQ give each warp a 16-row strip with every
+output column (4 warps, 64 rows a block) and sweep K/V in 32-key bf16
+tiles brought in by ``cp.async``, with bf16 products on the tensor cores
+(P and dS as a hi/lo bf16 pair). Otherwise all three kernels give each
+warp a 16-row strip (8 warps, 128 rows a block up to head dim 64; 4 warps,
+32 rows above, two warps to a strip) and sweep the other side in 16-row
+tiles brought in by ``cp.async``, with every product on the tensor cores in
+3xTF32 (about f32 accuracy); the forward keeps its online softmax per strip
+and adds each tile's P·V to O in f32.
 
 The bound on the card, the design and the masks are described in the CUDA
 source. The library is built by ``common.load_cuda`` at the first launch;
@@ -53,9 +57,13 @@ class _Params(ctypes.Structure):
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The built and loaded kernel library (built at the first call)."""
-    lib = common.load_cuda("flash_attention", SOURCES, PARTS)
+def load_library(sources: tuple[str, ...] = SOURCES) -> ctypes.CDLL:
+    """The built and loaded kernel library (built at the first call). Other
+    ``sources`` (absolute paths, with this library's ``Params`` and parts)
+    build a second library beside it, for ``bench`` to time one against the
+    other; the launchers always take the default."""
+    lib = common.load_cuda("flash_attention" if sources == SOURCES else "flash_attention_other",
+                           sources, PARTS)
     lib.flash_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.flash_launch.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]

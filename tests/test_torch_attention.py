@@ -77,6 +77,32 @@ def test_flash_op_matches_jax_bf16():
         np.testing.assert_allclose(g, w, rtol=TOL["bfloat16"], atol=TOL["bfloat16"], err_msg=name)
 
 
+EDGE_LENS = (63, 64, 65, 129)  # on and beside the CUDA bf16 kernels' tile edges (32 keys, 64 rows)
+
+
+def test_flash_op_matches_jax_bf16_at_64_key_edges():
+    """bf16 at the LMs' head dim 128, 4 query heads on 1, S=192, causal,
+    ragged lengths across the CUDA bf16 kernels' tile edges at 64 keys: the
+    port's plain flash op, which the card holds those kernels against,
+    matches ``repro``'s interpreted Pallas op (64-row blocks), forward and
+    VJP, at the bf16 tolerance 3e-2."""
+    B, S, NQ, NKV, D = len(EDGE_LENS), 192, 4, 1, 128
+    rng = np.random.default_rng(5)
+    q, do = (rng.standard_normal((B, S, NQ, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, NKV, D)).astype(np.float32) for _ in range(2))
+    lens = np.array(EDGE_LENS, np.int32)
+    cast = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    fn = lambda q, k, v: j_flash(q, k, v, causal=True, lengths=jnp.asarray(lens), block_q=64, block_k=64)
+    o, vjp = jax.vjp(fn, cast(q), cast(k), cast(v))
+    want = [np.asarray(a, np.float32) for a in (o, *vjp(cast(do)))]
+    qt, kt, vt = (torch.from_numpy(a).bfloat16().requires_grad_() for a in (q, k, v))
+    ot = flash_attention(qt, kt, vt, causal=True, lengths=torch.from_numpy(lens))
+    got = [a.detach().float().numpy()
+           for a in (ot, *torch.autograd.grad(ot, (qt, kt, vt), torch.from_numpy(do).bfloat16()))]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, rtol=TOL["bfloat16"], atol=TOL["bfloat16"], err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,S,NQ,NKV,D", SHAPES + [(2, 9, 4, 1, 16)])
 def test_oracles_match_jax(B, S, NQ, NKV, D, causal):
@@ -200,7 +226,7 @@ def test_one_tf32_product_breaks_flash_tolerance(causal):
     assert float(((got - dq).abs() / (tol * (1 + dq.abs()))).max()) > 2
 
 
-FWD_BK = 16  # the CUDA forward's key tile
+FWD_BK = 16  # the CUDA f32 forward's key tile
 
 
 def _fwd_with(mm, q, k, v, kvlen, causal):
@@ -285,3 +311,85 @@ def test_tf32_rounding_matches_cvt_rna():
     big = _tf32(y)
     assert bool(((y - big).abs() <= big.abs() * 2.0**-11).all())
     assert bool(((y - big - _tf32(y - big)).abs() <= y.abs() * 2.0**-21).all())
+
+
+# ------------------------------ the CUDA bf16 kernels' scheme (D ≤ 128)
+
+
+def _hilo(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 ``x`` as the bf16 kernels feed P or dS to a bf16 product: hi =
+    bf16(x) and lo = bf16(x − hi), both back in f32 (a product of two bf16
+    values is exact in f32)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _one_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One bf16 operand (what the second product buys), as ``_hilo`` gives it."""
+    return x.bfloat16().float(), torch.zeros_like(x)
+
+
+def _bf16_scheme(split, q, k, v, do, kvlen, causal, bk=32):
+    """The CUDA bf16 forward and dQ on bf16-valued inputs, emulated in f32:
+    S = Q Kᵀ and dP = dO Vᵀ on the bf16 values, scale·log2(e) applied to S
+    after the product, ``exp2``; the forward sweeps K/V in ``bk``-key tiles
+    with the online rescale (O scaled by corr, then P V added); P and dS
+    enter their products as ``split`` gives them. Returns (o, lse, dq) f32,
+    dQ from the emulated forward's lse."""
+    B, NQ, Sq, D = q.shape
+    NKV, Sk = k.shape[1], k.shape[2]
+    qg, dog, kf, vf = tref._grouped(q, NKV), tref._grouped(do, NKV), k.float(), v.float()
+    sl2 = np.float32(D**-0.5) * np.float32(np.log2(np.e))
+    keep = tref._keep(Sq, Sk, causal=causal, lengths=kvlen, device=q.device)
+    m = torch.full(qg.shape[:-1], tref.NEG_INF)
+    l, acc = torch.zeros(qg.shape[:-1]), torch.zeros(qg.shape)
+    pv = lambda p, x: sum(torch.einsum("bhgqk,bhkd->bhgqd", part, x) for part in split(p)[::-1])
+    for k0 in range(0, Sk, bk):
+        kp = keep[..., k0:k0 + bk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf[:, :, k0:k0 + bk])
+        mt = torch.where(kp, s, tref.NEG_INF).amax(-1)
+        mn = torch.maximum(m, torch.where(mt == tref.NEG_INF, mt, mt * sl2))
+        corr = torch.exp2(m - mn)
+        p = torch.where(kp, torch.exp2(s * sl2 - mn[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + pv(p, vf[:, :, k0:k0 + bk])
+        m = mn
+    lc = l.clamp_min(1e-30)
+    lse = torch.where(m == tref.NEG_INF, m, m * np.float32(np.log(2))) + torch.log(lc)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf)
+    p = torch.where(keep, torch.exp2(s * sl2 - (lse * np.float32(np.log2(np.e)))[..., None]), 0.0)
+    o = acc / lc[..., None]
+    delta = (dog * o).sum(-1)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dog, vf) - delta[..., None])
+    dq = pv(ds, kf) * np.float32(D**-0.5)
+    return o.reshape(q.shape), lse.reshape(B, NQ, Sq), dq.reshape(q.shape)
+
+
+def _bf16_edge_inputs(causal: bool):
+    """bf16-valued f32 tensors in the kernels' layout at the tile edges
+    (4 query heads on 1, S=192, lengths 63, 64, 65, 129), and the exact f32
+    forward and dQ on them (the plain versions in f32)."""
+    rng = np.random.default_rng(6)
+    B, S, D = len(EDGE_LENS), 192, 128
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16().float()
+    q, k, v, do = bf(B, 4, S, D), bf(B, 1, S, D), bf(B, 1, S, D), bf(B, 4, S, D)
+    kvlen = torch.tensor(EDGE_LENS, dtype=torch.int32)
+    o, lse = tref.flash_fwd_ref(q, k, v, kvlen, causal=causal)
+    dq = tref.flash_bwd_dq_ref(q, k, v, do, lse, (do * o).sum(-1), kvlen, causal=causal)
+    return (q, k, v, do, kvlen), (o, lse, dq)
+
+
+def _worst(got, want, tol) -> float:
+    return max(float(((g - w).abs() / (tol * (1 + w.abs()))).max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_scheme_keeps_f32_products(causal):
+    """The CUDA bf16 forward and dQ's scheme, emulated on the CPU at the
+    tile edges: with P and dS split into hi and lo bf16 parts, O, lse and
+    dQ stay within 1e-4 of the exact f32 computation on the same bf16
+    values (f32 rounding only, as ``repro``'s Pallas kernels take P V in
+    f32), far inside the 3e-2 bf16 gate; one bf16 P and dS would miss 1e-4."""
+    args, want = _bf16_edge_inputs(causal)
+    assert _worst(_bf16_scheme(_hilo, *args, causal), want, 1e-4) <= 1
+    assert _worst(_bf16_scheme(_one_bf16, *args, causal), want, 1e-4) > 1

@@ -186,6 +186,7 @@ def test_idgi_kernels_match_plain(card, dtype, B, K, F):
 
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- and 16-row edges
+EDGE_KVLEN_128 = (1, 63, 64, 65, 127, 128, 129, 300)  # on and beside the bf16 kernels' tile edges
 # (B, S, NQ, NKV, D, causal, ragged): the ViT's attention at a smaller batch,
 # the LMs' causal GQA ragged shape (and at the end the GQA groups of llama3-8b,
 # internlm2-20b and yi-9b at D = 128), a long causal GQA key sweep (1024 keys,
@@ -194,7 +195,9 @@ EDGE_KVLEN = (1, 8, 9, 16, 17, 64, 65, 196)  # on and beside the backward's 8- a
 # sequence lengths, one per head-dim bucket of the kernels; then the
 # backward's fragment edges: S=196 with kvlen on and beside them (ragged
 # given as the lengths), S at 1 and around one 16-row strip, a head dim
-# that is not a multiple of 8 and one that is not a power of two
+# that is not a multiple of 8 and one that is not a power of two; then the
+# LMs' head dim 128 over the bf16 kernels' tile edges at 64 and 128 keys
+# (4 query heads on 1, S=300 ragged on and beside them), causal and not
 FLASH_SHAPES = [
     (8, 196, 6, 6, 64, False, False),
     (2, 333, 8, 2, 128, True, True),
@@ -216,6 +219,8 @@ FLASH_SHAPES = [
     (2, 256, 32, 4, 128, True, True),  # yi-9b's (8 a KV head)
     (2, 2048, 32, 16, 128, True, True),  # gemma3-27b's (2 a KV head) at its 2048-token bucket
     (8, 128, 32, 8, 128, True, False),  # the train step's attention (llama3-8b, B=8, S=128, every key)
+    (8, 300, 4, 1, 128, True, EDGE_KVLEN_128),
+    (8, 300, 4, 1, 128, False, EDGE_KVLEN_128),
 ]
 
 
@@ -290,11 +295,12 @@ def test_flash_kernels_match_plain(nvcc_card, dtype, B, S, NQ, NKV, D, causal, r
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 6])
+@pytest.mark.parametrize("D", [64, 6, 128])
 def test_flash_backward_on_unaligned_rows(nvcc_card, dtype, D):
     """Rows that do not start on 16 bytes (views one element into a wider
-    buffer) and a head dim of 6 take the backward's 4-byte copies; they
-    agree with the plain versions as the aligned rows do."""
+    buffer) and a head dim of 6 take the backward's narrower copies (4-byte
+    in f32, element by element in the bf16 dQ); they agree with the plain
+    versions as the aligned rows do, at the LMs' head dim 128 too."""
     B, S, NQ, NKV = 2, 77, 4, 2
     rnd = lambda h: torch.randn((B, S, h, D + 1), generator=nvcc_card, device="cuda").to(dtype)
     q, k, v, do = (x[..., 1:].transpose(1, 2) for x in (rnd(NQ), rnd(NKV), rnd(NKV), rnd(NQ)))
@@ -313,11 +319,12 @@ def test_flash_backward_on_unaligned_rows(nvcc_card, dtype, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 6])
+@pytest.mark.parametrize("D", [64, 6, 128])
 def test_flash_forward_on_unaligned_rows(nvcc_card, dtype, D, causal):
-    """The forward on the same unaligned views: its 4-byte copies and the
-    element-wise split of Q (scaled), K and V agree with the plain version
-    as the aligned rows do."""
+    """The forward on the same unaligned views: its narrower copies (f32:
+    4-byte, with the element-wise split of Q (scaled), K and V; bf16:
+    element by element) agree with the plain version as the aligned rows
+    do."""
     B, S, NQ, NKV = 2, 77, 4, 2
     rnd = lambda h: torch.randn((B, S, h, D + 1), generator=nvcc_card, device="cuda").to(dtype)
     q, k, v = (x[..., 1:].transpose(1, 2) for x in (rnd(NQ), rnd(NKV), rnd(NKV)))
@@ -328,6 +335,29 @@ def test_flash_forward_on_unaligned_rows(nvcc_card, dtype, D, causal):
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol, msg="o")
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol, msg="lse")
+
+
+@pytest.mark.cuda
+def test_flash_bf16_forward_and_dq_same_bits_on_every_call(nvcc_card):
+    """No atomics: at the LM engine's attention (256 rows of S=128, 32 query
+    heads on 8, D=128, causal, kvlen in (S/2, S]) two calls of the bf16
+    forward and of dQ give the same bits, and agree with the plain versions."""
+    B, S, NQ, NKV, D = 256, 128, 32, 8, 128
+    q, k, v, do, _ = _flash_inputs(nvcc_card, B, S, NQ, NKV, D, False, torch.bfloat16)
+    q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    kvlen = torch.randint(S // 2 + 1, S + 1, (B,), generator=nvcc_card, device="cuda", dtype=torch.int32)
+    tol = FLASH_TOL[torch.bfloat16]
+    o, lse = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    o2, lse2 = fk.flash_fwd_cuda(q, k, v, kvlen, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, kvlen)
+    dq, dq2 = fk.flash_bwd_dq_cuda(*args, causal=True), fk.flash_bwd_dq_cuda(*args, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+    o_ref, lse_ref = fref.flash_fwd_ref(q, k, v, kvlen, causal=True)
+    dq_ref = fref.flash_bwd_dq_ref(*args, causal=True)
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=name)
 
 
 def _wls_system(gen, B, N, dtype):
